@@ -1,0 +1,557 @@
+"""VolPath in fused, path-regeneration form
+(port of acceleratedvolrenderer_tpu/models/integrators/volpath_fused.py::li).
+
+Every lane carries one path through a small program counter (MARCH / NEE /
+DONE).  Each loop iteration advances every unfinished lane: a K-voxel march
+to the next tentative collision (the CUDA kernel of ops/march.py), the
+masked event block (density tap, absorb / scatter / null choice, HG bounce,
+ratio-tracked NEE shadow segment), and the retire stage, which banks a
+finished sample, runs the pixel's next sample in the same lane and splats
+the pixel once all its samples are banked (accum_spp).
+
+Ported: volumetric scalar-grid media in regen mode with accum_spp.  The
+loop runs on the host: `n_steps` is a python int, so the retire group is a
+plain slice, and termination is checked every `CHECK_EVERY` iterations
+(iterations after completion are exact no-ops: every lane is DONE, no
+work is left, and masked draws do not advance streams).
+
+Lane tensors are rebuilt with torch.where each stage, as the reference
+does; the film is the one tensor updated in place (index_add_).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from ...ops import grid as gridops
+from ...ops import march
+from ...ops import phase as phase_ops
+from ...ops.dda import (MediumArrays, dda_init, pcg_uniform,
+                        pcg_uniform_masked, world_to_medium)
+from ...utils import colorspace as cspace
+from ...utils import spectrum as spu
+from ...utils.math import ONE_MINUS_EPSILON
+from .. import lights as lights_mod
+from .. import samplers
+
+PC_MARCH = 0
+PC_NEE = 1
+PC_DONE = 2
+
+CHECK_EVERY = 16
+
+
+class LiResult(NamedTuple):
+    film_rgb: torch.Tensor                  # (3 * (H*W + 1),) channel-major
+    iterations: int                         # loop iterations run
+    alive_hist: Optional[torch.Tensor] = None   # (iterations,) alive lanes
+
+
+@dataclasses.dataclass
+class _Regs:
+    pc: torch.Tensor          # (N,) program counter
+    depth: torch.Tensor       # (N,) real-scatter count
+    rng: torch.Tensor         # (N,) PCG state (uint32 in int64)
+    lam: torch.Tensor         # (N, L) sampled wavelengths
+    lam_pdf: torch.Tensor
+    s_t: torch.Tensor         # (N, L) sigma_t at unit density
+    s_a: torch.Tensor
+    s_s: torch.Tensor
+    s_le: torch.Tensor
+    so: torch.Tensor          # (N, 3) segment origin (main path or shadow)
+    sd: torch.Tensor          # (N, 3) segment direction
+    d_main: torch.Tensor      # (N, 3) path direction
+    voxel: torch.Tensor       # DDA registers of the active segment
+    next_t: torch.Tensor
+    dt: torch.Tensor
+    step: torch.Tensor
+    t_exit: torch.Tensor
+    t_cur: torch.Tensor
+    dl_target: torch.Tensor
+    dl_since: torch.Tensor
+    reached: torch.Tensor
+    seg_escaped: torch.Tensor
+    maxd: torch.Tensor        # majorant of the current voxel
+    L: torch.Tensor           # (N, L) spectral state
+    beta: torch.Tensor
+    r_u: torch.Tensor
+    r_l: torch.Tensor
+    T_ray: torch.Tensor       # NEE context, valid while pc == NEE
+    r_l_s: torch.Tensor
+    r_u_s: torch.Tensor
+    ls_L: torch.Tensor
+    ls_pdf: torch.Tensor
+    f_spec: torch.Tensor
+    spdf_d: torch.Tensor
+    is_delta: torch.Tensor
+    work: torch.Tensor        # (N,) current pixel work item, -1 = none
+    cursor: torch.Tensor      # 0-d next unissued work item
+    samp: torch.Tensor        # (N,) current sample of the lane's pixel
+    rgb_acc: torch.Tensor     # (N, 3) banked rgb of the pixel's samples
+
+
+def li(
+    med: MediumArrays,
+    lights: list,
+    o, d,
+    lam,
+    rng,
+    *,
+    maj_res,
+    homogeneous: bool,
+    max_depth: int = 5,
+    max_march_steps: int = 100000,
+    k_substeps: int = 8,
+    fixed_steps=None,
+    rgb_mode: bool = False,
+    prims: tuple = (),
+    record_alive: bool = False,
+    regen=None,
+    stochastic_filter: bool = False,
+    retire_every: int = 1,
+    retire_groups: int = 1,
+    accum_spp: bool = False,
+    event_groups: int = 1,
+    light_strategy: str = "uniform",
+    residual_shadow: bool = False,
+    Le_grid=None,
+) -> LiResult:
+    """Render the regen workload described by `regen` (see
+    parallel/render.py::make_regen_renderer); o / d / lam / rng only give
+    the lane count, wavelength count and device."""
+    unsupported = [name for name, on in (
+        ("surfaces (prims)", len(prims) > 0), ("rgb_mode", rgb_mode),
+        ("homogeneous media", homogeneous), ("Le_grid", Le_grid is not None),
+        ("residual_shadow", residual_shadow),
+        ("event_groups > 1", event_groups > 1),
+        ("retire_every > 1", retire_every > 1),
+        ("fixed_steps (backward)", fixed_steps is not None),
+        ("non-regen rendering", regen is None),
+        ("regen without accum_spp", not accum_spp)) if on]
+    if unsupported:
+        raise NotImplementedError(
+            "volpath_fused.li: not ported yet: " + ", ".join(unsupported))
+
+    N = o.shape[0]
+    LANES = lam.shape[-1]
+    dev = o.device
+    f32 = torch.float32
+    g = med.g
+    g_samp = g
+    rz, ry, rx = med.majorant.shape
+    maj_flat = med.majorant.reshape(-1).contiguous()
+    dens_flat = med.density.reshape(-1)
+    dens_dims = tuple(int(x) for x in med.density.shape)
+
+    R_H, R_W, R_spp = regen["H"], regen["W"], regen["spp"]
+    R_HW = R_H * R_W
+    R_total = int(regen["total_work"])
+    R_cam, R_filt = regen["camera"], regen["filter"]
+    R_kind, R_seed = regen["sampler"], regen["seed"]
+    R_stride = int(regen.get("work_stride", 1))
+    assert R_total % R_spp == 0, "accum_spp: total_work % spp != 0"
+    R_items = R_total // R_spp       # a work item is one PIXEL
+
+    def work_pixel(gw):
+        p_raw = gw % R_HW
+        if R_stride == 1:
+            return p_raw
+        return (p_raw * R_stride) % R_HW
+
+    def spawn(work, samp):
+        """Camera ray, wavelengths and PCG stream for (pixel, sample)."""
+        p_idx = work_pixel(work)
+        pixxy = torch.stack([p_idx % R_W, p_idx // R_W], -1).to(torch.int32)
+        ua, ub, rng_s = samplers.film_sample(R_kind, p_idx, samp, R_spp,
+                                             seed=R_seed)
+        off = R_filt.sample_offset(torch.stack([ua, ub], -1)) + 0.5
+        rng_s, ul = pcg_uniform(rng_s)
+        swl = spu.sample_wavelengths_visible(ul)
+        o_s, d_s = R_cam.generate_rays(pixxy, off)
+        return o_s, d_s, swl.lam, swl.pdf, rng_s
+
+    def spectra_for(lam_cur):
+        s_a = regen["sigma_a_fn"](lam_cur)
+        s_s = regen["sigma_s_fn"](lam_cur)
+        s_le = regen["Le_fn"](lam_cur)
+        return s_a + s_s, s_a, s_s, s_le
+
+    def init_segment(so, sd, t_max, rng, need, old):
+        """(Re)initialize the DDA registers of lanes in `need` and draw
+        their first optical-depth target."""
+        dda, t0 = dda_init(so, sd, t_max, med.w2m, maj_res)
+        rng, u0 = pcg_uniform_masked(rng, need & dda.in_medium)
+        u0 = torch.clamp(u0, max=ONE_MINUS_EPSILON)
+        st0 = old.s_t[:, 0]
+        dl0 = torch.where(st0 > 0, -torch.log1p(-u0)
+                          / torch.clamp(st0, min=1e-30), torch.inf)
+        sel = need
+        sel3 = need[:, None]
+        return dataclasses.replace(
+            old,
+            so=torch.where(sel3, so, old.so),
+            sd=torch.where(sel3, sd, old.sd),
+            voxel=torch.where(sel3, dda.voxel, old.voxel),
+            next_t=torch.where(sel3, dda.next_t, old.next_t),
+            dt=torch.where(sel3, dda.dt, old.dt),
+            step=torch.where(sel3, dda.step, old.step),
+            t_exit=torch.where(sel, dda.t_exit, old.t_exit),
+            t_cur=torch.where(sel, t0, old.t_cur),
+            dl_target=torch.where(sel, dl0, old.dl_target),
+            dl_since=torch.where(sel, 0.0, old.dl_since),
+            reached=torch.where(sel, False, old.reached),
+            # a segment that misses the medium is immediately "escaped"
+            seg_escaped=torch.where(sel, ~dda.in_medium, old.seg_escaped),
+            rng=rng,
+        )
+
+    # ---- initial work items: the first N pixels, sample 0 ----
+    i64 = torch.int64
+    work0 = torch.arange(N, dtype=i64, device=dev)
+    valid0 = work0 < R_items
+    zeros_i = torch.zeros((N,), dtype=i64, device=dev)
+    o, d, lam, lam_pdf0, rng = spawn(torch.clamp(work0, max=R_items - 1),
+                                     zeros_i)
+    s_t0, s_a0, s_s0, s_le0 = spectra_for(lam)
+    zero_s = torch.zeros((N, LANES), dtype=f32, device=dev)
+    one_s = torch.ones((N, LANES), dtype=f32, device=dev)
+    zero_n = torch.zeros((N,), dtype=f32, device=dev)
+    false_n = torch.zeros((N,), dtype=torch.bool, device=dev)
+    regs = _Regs(
+        pc=torch.where(valid0, PC_MARCH, PC_DONE),
+        depth=zeros_i, rng=rng, lam=lam, lam_pdf=lam_pdf0,
+        s_t=s_t0, s_a=s_a0, s_s=s_s0, s_le=s_le0,
+        so=o, sd=d, d_main=d,
+        voxel=torch.zeros((N, 3), dtype=torch.int32, device=dev),
+        next_t=torch.zeros((N, 3), dtype=f32, device=dev),
+        dt=torch.zeros((N, 3), dtype=f32, device=dev),
+        step=torch.zeros((N, 3), dtype=torch.int32, device=dev),
+        t_exit=zero_n, t_cur=zero_n, dl_target=zero_n, dl_since=zero_n,
+        reached=false_n, seg_escaped=false_n, maxd=zero_n,
+        L=zero_s, beta=one_s, r_u=one_s, r_l=one_s,
+        T_ray=one_s, r_l_s=one_s, r_u_s=one_s,
+        ls_L=zero_s, ls_pdf=zero_n, f_spec=zero_s, spdf_d=zero_n,
+        is_delta=false_n,
+        work=torch.where(valid0, work0, -1),
+        cursor=torch.tensor(min(N, R_items), dtype=i64, device=dev),
+        samp=zeros_i,
+        rgb_acc=torch.zeros((N, 3), dtype=f32, device=dev),
+    )
+    inf_n = torch.full((N,), torch.inf, dtype=f32, device=dev)
+    regs = init_segment(o, d, inf_n, rng, valid0, regs)
+    film_rgb = regen["film_rgb"]
+    ch_off = torch.arange(3, dtype=i64, device=dev) * (R_HW + 1)
+
+    def block_substep(c: _Regs, K: int) -> _Regs:
+        """K-voxel march of every hunting lane: one kernel launch."""
+        hunting = (c.pc != PC_DONE) & ~c.reached & ~c.seg_escaped
+        r = march.march_block(
+            maj_flat, c.voxel, c.next_t, c.dt, c.step, c.t_exit, c.t_cur,
+            c.dl_target, c.dl_since, c.maxd, hunting, K, (rx, ry, rz))
+        return dataclasses.replace(
+            c, voxel=r["voxel"], next_t=r["next_t"], t_cur=r["t_cur"],
+            dl_target=r["dl_target"], dl_since=r["dl_since"], maxd=r["maxd"],
+            reached=c.reached | r["landed"],
+            seg_escaped=c.seg_escaped | r["escaped"])
+
+    def handle_events(c: _Regs) -> _Regs:
+        """Collision classification and segment-end transitions."""
+        col_any = c.reached & (c.pc != PC_DONE)
+        rng = c.rng
+        p_w = c.so + c.t_cur[:, None] * c.sd
+        p_m = world_to_medium(med.w2m, p_w)
+        if stochastic_filter:
+            # one corner draw per collision: E[1-tap] == trilerp
+            rng, uf1 = pcg_uniform_masked(rng, col_any)
+            rng, uf2 = pcg_uniform_masked(rng, col_any)
+            rng, uf3 = pcg_uniform_masked(rng, col_any)
+            u3f = torch.stack([uf1, uf2, uf3], -1)
+            dens = gridops.trilerp_stochastic_flat(dens_flat, dens_dims, p_m,
+                                                   u3f)
+        else:
+            dens = gridops.trilerp_flat(dens_flat, dens_dims, p_m)
+        maxd = c.maxd
+        # forward pass: sampling-side quantities equal the evaluation side
+        st_smp = c.s_t
+        sa = c.s_a * dens[:, None]
+        ss = c.s_s * dens[:, None]
+        sa_d, ss_d = sa, ss
+        sig_maj = c.s_t * maxd[:, None]
+        sig_maj_d = sig_maj
+        sig_maj0 = sig_maj_d[:, 0]
+        T_maj = torch.exp(-c.s_t * c.dl_since[:, None])
+        T_maj_d = T_maj
+        sig_n = torch.clamp(sig_maj - sa - ss, min=0.0)
+        sig_n_d = sig_n
+
+        # ---- main-path collisions (pc == MARCH) ----
+        col_m = col_any & (c.pc == PC_MARCH)
+        pos = sig_maj0 > 0
+        maj0_c = torch.clamp(sig_maj0, min=1e-30)
+        p_absorb = torch.where(pos, sa_d[:, 0] / maj0_c, 0.0)
+        p_scatter = torch.where(pos, ss_d[:, 0] / maj0_c, 0.0)
+        rng, u_ev = pcg_uniform_masked(rng, col_m)
+        is_absorb = col_m & (u_ev < p_absorb)
+        is_scatter = col_m & ~is_absorb & (u_ev < p_absorb + p_scatter)
+        is_null = col_m & ~is_absorb & ~is_scatter
+
+        # emission at every main collision while depth < max_depth
+        pdf_e = sig_maj0 * T_maj_d[:, 0]
+        pdf_e_c = torch.clamp(pdf_e, min=1e-30)[:, None]
+        betap = c.beta * T_maj / pdf_e_c
+        r_e = (c.r_u * sig_maj_d * T_maj_d) / pdf_e_c
+        r_e_avg = torch.mean(r_e, dim=-1)
+        contrib_e = (betap * sa * c.s_le
+                     / torch.clamp(r_e_avg, min=1e-30)[:, None])
+        emit_ok = col_m & (pdf_e > 0) & (r_e_avg > 0) & (c.depth < max_depth)
+        L_acc = c.L + torch.where(emit_ok[:, None], contrib_e, 0.0)
+
+        # null / scatter weights and ratio trackers
+        pdf_null = T_maj_d[:, 0] * sig_n_d[:, 0]
+        null_ok = (pdf_null > 0)[:, None]
+        pdf_null_c = torch.clamp(pdf_null, min=1e-30)[:, None]
+        f_null = torch.where(null_ok, T_maj * sig_n / pdf_null_c, 0.0)
+        f_null_d = torch.where(null_ok, T_maj_d * sig_n_d / pdf_null_c, 0.0)
+        f_null_l = torch.where(null_ok, T_maj_d * sig_maj_d / pdf_null_c, 0.0)
+        pdf_sc = T_maj_d[:, 0] * ss_d[:, 0]
+        sc_ok = (pdf_sc > 0)[:, None]
+        pdf_sc_c = torch.clamp(pdf_sc, min=1e-30)[:, None]
+        f_sc = torch.where(sc_ok, T_maj * ss / pdf_sc_c, 0.0)
+        f_sc_d = torch.where(sc_ok, T_maj_d * ss_d / pdf_sc_c, 0.0)
+
+        nul3, sca3 = is_null[:, None], is_scatter[:, None]
+        beta = torch.where(nul3, c.beta * f_null,
+                           torch.where(sca3, c.beta * f_sc, c.beta))
+        r_u = torch.where(nul3, c.r_u * f_null_d,
+                          torch.where(sca3, c.r_u * f_sc_d, c.r_u))
+        r_l = torch.where(nul3, c.r_l * f_null_l, c.r_l)
+        dead_null = is_null & ~(r_u != 0.0).any(dim=-1)
+
+        # a scatter at the depth cap terminates
+        over = is_scatter & (c.depth >= max_depth)
+        do_scatter = is_scatter & ~over
+        depth = c.depth + do_scatter.to(c.depth.dtype)
+
+        # ---- main-path segment end (pc == MARCH): escape to the sky ----
+        esc_m = c.seg_escaped & (c.pc == PC_MARCH)
+        T_res = torch.exp(-c.s_t * c.dl_since[:, None])
+        f_res = T_res / torch.clamp(T_res[:, 0:1], min=1e-30)
+        f_res_d = f_res
+        esc3 = esc_m[:, None]
+        beta = torch.where(esc3, beta * f_res, beta)
+        r_u = torch.where(esc3, r_u * f_res_d, r_u)
+        r_l = torch.where(esc3, r_l * f_res_d, r_l)
+        to_sky = esc_m
+
+        Le_inf, pdf_inf = lights_mod.escaped_radiance(lights, c.d_main, c.lam)
+        first = c.depth == 0
+        denom_first = torch.mean(r_u, dim=-1)
+        denom_mis = torch.mean(r_u + r_l * pdf_inf[:, None], dim=-1)
+        denom = torch.where(first, denom_first, denom_mis)
+        contrib_inf = beta * Le_inf / torch.clamp(denom, min=1e-30)[:, None]
+        L_acc = L_acc + torch.where((to_sky & (denom > 0))[:, None],
+                                    contrib_inf, 0.0)
+
+        # ---- NEE set-up at a volume scatter ----
+        p_scat = c.so + c.t_cur[:, None] * c.sd
+        wo = -c.d_main
+        want_nee = do_scatter
+        rng, u1 = pcg_uniform_masked(rng, want_nee)
+        rng, u2a = pcg_uniform_masked(rng, want_nee)
+        rng, u2b = pcg_uniform_masked(rng, want_nee)
+        ls, is_delta = lights_mod.sample_one_light(
+            lights, p_scat, u1, torch.stack([u2a, u2b], -1), c.lam,
+            strategy=light_strategy)
+        f_hat = phase_ops.hg_phase(wo, ls.wi, g)
+        f_hat_d = phase_ops.hg_phase(wo, ls.wi, g_samp)
+        f_spec = f_hat[:, None] * one_s
+        spdf_d = f_hat_d
+        nee_valid = want_nee & ls.valid & (ls.pdf > 0) & (f_hat_d > 0)
+        skip_nee = want_nee & ~nee_valid
+
+        # ---- NEE collisions (pc == NEE): ratio tracking ----
+        col_s = col_any & (c.pc == PC_NEE)
+        pdf_rt = T_maj_d[:, 0] * sig_maj0
+        inv_rt = (1.0 / torch.clamp(pdf_rt, min=1e-30))[:, None]
+        rt3 = (col_s & (pdf_rt > 0))[:, None]
+        T_ray = torch.where(rt3, c.T_ray * T_maj * sig_n * inv_rt, c.T_ray)
+        r_l_s = torch.where(rt3, c.r_l_s * T_maj_d * sig_maj_d * inv_rt,
+                            c.r_l_s)
+        r_u_s = torch.where(rt3, c.r_u_s * T_maj_d * sig_n_d * inv_rt,
+                            c.r_u_s)
+        denom_rr = torch.mean(r_l_s + r_u_s, dim=-1)
+        Tr = r_u_s / torch.clamp(denom_rr, min=1e-30)[:, None]
+        rr = col_s & (torch.amax(Tr, dim=-1) < 0.05)
+        rng, u_rr = pcg_uniform_masked(rng, rr)
+        killed = rr & (u_rr < 0.75)
+        T_ray = torch.where(killed[:, None], 0.0,
+                            torch.where(rr[:, None], T_ray / 0.25, T_ray))
+        shadow_dead = col_s & (killed | ~(r_u_s != 0.0).any(dim=-1))
+
+        # ---- NEE segment complete (pc == NEE) ----
+        esc_s = (c.seg_escaped | shadow_dead) & (c.pc == PC_NEE)
+        fin3 = (esc_s & ~shadow_dead)[:, None]
+        T_ray_f = torch.where(fin3, T_ray * f_res, T_ray)
+        r_l_sf = torch.where(fin3, r_l_s * f_res_d, r_l_s)
+        r_u_sf = torch.where(fin3, r_u_s * f_res_d, r_u_s)
+        r_l_nee = r_l_sf * c.r_u * c.ls_pdf[:, None]
+        r_u_nee = r_u_sf * c.r_u * c.spdf_d[:, None]
+        denom_nee = torch.where(c.is_delta, torch.mean(r_l_nee, dim=-1),
+                                torch.mean(r_l_nee + r_u_nee, dim=-1))
+        contrib_nee = (c.beta * c.f_spec * T_ray_f * c.ls_L
+                       / torch.clamp(denom_nee, min=1e-30)[:, None])
+        L_acc = L_acc + torch.where((esc_s & (denom_nee > 0))[:, None],
+                                    contrib_nee, 0.0)
+
+        # ---- resume: NEE done, or a scatter that skipped NEE ----
+        resume = esc_s | skip_nee
+        rng, u3a = pcg_uniform_masked(rng, resume)
+        rng, u3b = pcg_uniform_masked(rng, resume)
+        wo2 = -c.d_main
+        wi, ps_pdf = phase_ops.sample_hg(wo2, torch.stack([u3a, u3b], -1),
+                                         g_samp)
+        p_theta = phase_ops.hg_phase(wo2, wi, g)
+        f_over = (p_theta[:, None]
+                  / torch.clamp(ps_pdf, min=1e-30)[:, None])
+        ps_ok = ps_pdf > 0
+        go = resume & ps_ok
+        beta = beta * torch.where(go[:, None], f_over, 1.0)
+        r_l_new = torch.where(go[:, None],
+                              r_u / torch.clamp(ps_pdf, min=1e-30)[:, None],
+                              r_l)
+        p_resume = torch.where(esc_s[:, None], c.so, p_scat)
+        d_new = torch.where(go[:, None], wi, c.d_main)
+
+        # ---- program counter ----
+        pc = c.pc
+        pc = torch.where(is_absorb | dead_null | over | to_sky, PC_DONE, pc)
+        pc = torch.where(nee_valid, PC_NEE, pc)
+        pc = torch.where(go, PC_MARCH, pc)
+        pc = torch.where(resume & ~ps_ok, PC_DONE, pc)
+
+        # ---- null continuation: a fresh optical-depth target in place ----
+        st0 = st_smp[:, 0]
+        st0_c = torch.clamp(st0, min=1e-30)
+        rng, u_n = pcg_uniform_masked(rng, is_null & ~dead_null)
+        u_n = torch.clamp(u_n, max=ONE_MINUS_EPSILON)
+        dl_new = torch.where(st0 > 0, -torch.log1p(-u_n) / st0_c, torch.inf)
+        rng, u_n2 = pcg_uniform_masked(rng, col_s & ~shadow_dead)
+        u_n2 = torch.clamp(u_n2, max=ONE_MINUS_EPSILON)
+        dl_new2 = torch.where(st0 > 0, -torch.log1p(-u_n2) / st0_c,
+                              torch.inf)
+        dl_target = torch.where(
+            is_null & ~dead_null, dl_new,
+            torch.where(col_s & ~shadow_dead, dl_new2, c.dl_target))
+        dl_since = torch.where(col_any, 0.0, c.dl_since)
+
+        nv3 = nee_valid[:, None]
+        c2 = dataclasses.replace(
+            c, pc=pc, depth=depth, rng=rng, d_main=d_new,
+            L=L_acc, beta=beta, r_u=r_u, r_l=r_l_new,
+            T_ray=torch.where(nv3, 1.0, T_ray_f),
+            r_l_s=torch.where(nv3, 1.0, r_l_sf),
+            r_u_s=torch.where(nv3, 1.0, r_u_sf),
+            ls_L=torch.where(nv3, ls.L, c.ls_L),
+            ls_pdf=torch.where(nee_valid, ls.pdf, c.ls_pdf),
+            f_spec=torch.where(nv3, f_spec, c.f_spec),
+            spdf_d=torch.where(nee_valid, spdf_d, c.spdf_d),
+            is_delta=torch.where(nee_valid, is_delta, c.is_delta),
+            dl_target=dl_target, dl_since=dl_since,
+            reached=c.reached & ~col_any,
+        )
+
+        # ---- segment (re)initialization: shadow ray or next main segment
+        new_o = torch.where(nv3, p_scat, p_resume)
+        new_d = torch.where(nv3, ls.wi, wi)
+        new_tmax = torch.where(nee_valid, ls.dist, torch.inf)
+        return init_segment(new_o, new_d, new_tmax, c2.rng, nee_valid | go,
+                            c2)
+
+    def retire_respawn_accum(c: _Regs, n_step: int) -> _Regs:
+        """Bank each finished sample's rgb in registers, run the pixel's next
+        sample in the same lane, and splat a pixel once all its samples are
+        banked; only the lanes of retire group n_step % retire_groups may
+        splat this iteration."""
+        fresh = (c.pc == PC_DONE) & (c.work >= 0) & (c.samp < R_spp)
+        swl = spu.SampledWavelengths(c.lam, c.lam_pdf)
+        rgb = cspace.xyz_to_rgb(spu.to_xyz(c.L, swl))
+        rgb = torch.nan_to_num(rgb, nan=0.0, posinf=0.0, neginf=0.0)
+        rgb_acc = c.rgb_acc + torch.where(fresh[:, None], rgb, 0.0)
+        samp = c.samp + fresh.to(c.samp.dtype)
+
+        ready = (c.pc == PC_DONE) & (c.work >= 0) & (samp >= R_spp)
+        retire = ready
+        lo, hi = 0, N
+        if retire_groups > 1:
+            grp_sz = N // retire_groups
+            lo = (n_step % retire_groups) * grp_sz
+            hi = lo + grp_sz
+            active = torch.zeros((N,), dtype=torch.bool, device=dev)
+            active[lo:hi] = True
+            retire = ready & active
+        p_idx = work_pixel(c.work)
+        tgt = torch.where(retire & (c.work < R_items), p_idx, R_HW)
+        acc_m = torch.where(retire[:, None], rgb_acc, 0.0)
+        tgt3 = (tgt[lo:hi, None] + ch_off).reshape(-1)
+        film_rgb.index_add_(0, tgt3, acc_m[lo:hi].reshape(-1))
+
+        # respawn: the next sample of the same pixel, or a fresh pixel
+        nxt = fresh & (samp < R_spp)
+        rank = torch.cumsum(retire.to(i64), 0) - 1
+        new_work = c.cursor + rank
+        can_new = retire & (new_work < R_items)
+        can = nxt | can_new
+        sp_work = torch.where(nxt, c.work, torch.where(can_new, new_work, 0))
+        sp_samp = torch.where(nxt, samp, 0)
+        o2, d2, lam2, pdf2, rng2 = spawn(sp_work, sp_samp)
+        s_t2, s_a2, s_s2, s_le2 = spectra_for(lam2)
+        sel = can[:, None]
+        c = dataclasses.replace(
+            c,
+            pc=torch.where(can, PC_MARCH, c.pc),
+            depth=torch.where(can, 0, c.depth),
+            rng=torch.where(can, rng2, c.rng),
+            lam=torch.where(sel, lam2, c.lam),
+            lam_pdf=torch.where(sel, pdf2, c.lam_pdf),
+            s_t=torch.where(sel, s_t2, c.s_t),
+            s_a=torch.where(sel, s_a2, c.s_a),
+            s_s=torch.where(sel, s_s2, c.s_s),
+            s_le=torch.where(sel, s_le2, c.s_le),
+            d_main=torch.where(sel, d2, c.d_main),
+            L=torch.where(sel, 0.0, c.L),
+            beta=torch.where(sel, one_s, c.beta),
+            r_u=torch.where(sel, one_s, c.r_u),
+            r_l=torch.where(sel, one_s, c.r_l),
+            T_ray=torch.where(sel, one_s, c.T_ray),
+            r_l_s=torch.where(sel, one_s, c.r_l_s),
+            r_u_s=torch.where(sel, one_s, c.r_u_s),
+            work=torch.where(can_new, new_work,
+                             torch.where(retire, -1, c.work)),
+            samp=torch.where(can_new, 0, samp),
+            rgb_acc=torch.where(retire[:, None], 0.0, rgb_acc),
+            cursor=torch.clamp(c.cursor + retire.sum(), max=R_items),
+        )
+        return init_segment(o2, d2, inf_n, c.rng, can, c)
+
+    def busy(c: _Regs) -> bool:
+        return bool(((c.pc != PC_DONE) | (c.work >= 0)).any())
+
+    hist = []
+    n_steps = 0
+    c = regs
+    while n_steps < max_march_steps:
+        if n_steps % CHECK_EVERY == 0 and not busy(c):
+            break
+        if record_alive:
+            hist.append((c.pc != PC_DONE).sum())
+        c = block_substep(c, k_substeps)
+        c = handle_events(c)
+        c = retire_respawn_accum(c, n_steps)
+        n_steps += 1
+    return LiResult(
+        film_rgb=film_rgb, iterations=n_steps,
+        alive_hist=(torch.stack(hist) if hist else
+                    torch.zeros((0,), dtype=i64, device=dev))
+        if record_alive else None)

@@ -1,0 +1,109 @@
+"""Participating media (port of acceleratedvolrenderer_tpu/models/media.py:
+MediumSpec, world_to_unit and the procedural cloud bake)."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import grid as gridops
+
+
+@dataclass(frozen=True)
+class MediumSpec:
+    """Scalar-grid medium.  `density` is a (nz, ny, nx) float32 tensor on
+    the device the scene was built for; `majorant`, when given, is the
+    prebuilt (rz, ry, rx) majorant (else built from the density)."""
+    sigma_a_spec: Callable             # lam -> absorption cross-section
+    sigma_s_spec: Callable             # lam -> scattering cross-section
+    g: float = 0.0
+    scale: float = 1.0
+    density: Optional[torch.Tensor] = None
+    bounds_lo: np.ndarray = field(default_factory=lambda: np.zeros(3, np.float32))
+    bounds_hi: np.ndarray = field(default_factory=lambda: np.ones(3, np.float32))
+    Le_spec: Optional[Callable] = None
+    Le_scale: float = 1.0
+    majorant_res: Tuple[int, int, int] = (16, 16, 16)
+    m2w: Optional[np.ndarray] = None   # optional (4, 4) medium -> world
+    majorant: Optional[torch.Tensor] = None
+
+    @property
+    def homogeneous(self) -> bool:
+        return self.density is None
+
+    def maj_res(self):
+        return (1, 1, 1) if self.homogeneous else tuple(self.majorant_res)
+
+    def build_majorant(self) -> torch.Tensor:
+        """(rz, ry, rx) per-cell max density, on the density's device."""
+        if self.majorant is not None:
+            return self.majorant
+        maj = gridops.build_majorant_grid(self.density.cpu().numpy(),
+                                          self.maj_res())
+        return torch.as_tensor(maj, device=self.density.device)
+
+    def world_to_unit(self) -> np.ndarray:
+        """(4, 4) float64 world -> [0,1]^3 medium matrix."""
+        lo = np.asarray(self.bounds_lo, np.float64)
+        hi = np.asarray(self.bounds_hi, np.float64)
+        s = np.eye(4)
+        s[:3, :3] = np.diag(1.0 / (hi - lo))
+        s[:3, 3] = -lo / (hi - lo)
+        if self.m2w is not None:
+            return s @ np.linalg.inv(np.asarray(self.m2w, np.float64))
+        return s
+
+
+def bake_cloud_density(res=(128, 128, 128), density=1.0, wispiness=1.0,
+                       extent=0.5, frequency=5.0, seed=0) -> np.ndarray:
+    """Procedural cumulus-style density baked to a dense (nz, ny, nx) grid:
+    a radial falloff sphere modulated by hash-based fractal value noise.
+    Host-side numpy, identical to the reference bake."""
+    nx, ny, nz = res
+    zs, ys, xs = np.meshgrid(
+        np.linspace(0, 1, nz), np.linspace(0, 1, ny), np.linspace(0, 1, nx),
+        indexing="ij",
+    )
+    p = np.stack([xs, ys, zs], -1) - 0.5
+
+    rng = np.random.default_rng(seed)
+
+    def value_noise(q, f, table):
+        qi = np.floor(q * f).astype(np.int64)
+        qf = q * f - qi
+        qf = qf * qf * (3 - 2 * qf)
+
+        def h(ix, iy, iz):
+            v = (ix * 73856093) ^ (iy * 19349663) ^ (iz * 83492791)
+            return table[np.abs(v) % table.size]
+
+        c000 = h(qi[..., 0], qi[..., 1], qi[..., 2])
+        c100 = h(qi[..., 0] + 1, qi[..., 1], qi[..., 2])
+        c010 = h(qi[..., 0], qi[..., 1] + 1, qi[..., 2])
+        c110 = h(qi[..., 0] + 1, qi[..., 1] + 1, qi[..., 2])
+        c001 = h(qi[..., 0], qi[..., 1], qi[..., 2] + 1)
+        c101 = h(qi[..., 0] + 1, qi[..., 1], qi[..., 2] + 1)
+        c011 = h(qi[..., 0], qi[..., 1] + 1, qi[..., 2] + 1)
+        c111 = h(qi[..., 0] + 1, qi[..., 1] + 1, qi[..., 2] + 1)
+        fx, fy, fz = qf[..., 0], qf[..., 1], qf[..., 2]
+        c00 = c000 * (1 - fx) + c100 * fx
+        c10 = c010 * (1 - fx) + c110 * fx
+        c01 = c001 * (1 - fx) + c101 * fx
+        c11 = c011 * (1 - fx) + c111 * fx
+        return (c00 * (1 - fy) + c10 * fy) * (1 - fz) + (c01 * (1 - fy) + c11 * fy) * fz
+
+    table = rng.random(4096).astype(np.float32)
+    noise = np.zeros(p.shape[:-1], np.float32)
+    amp, f = 1.0, frequency
+    for _ in range(4):
+        noise += amp * value_noise(p + 0.5, f, table)
+        amp *= 0.5 * wispiness
+        f *= 2.0
+    noise /= noise.max() + 1e-9
+
+    r = np.linalg.norm(p, axis=-1)
+    base = np.clip(1.0 - r / extent, 0.0, 1.0)
+    d = density * base * (0.5 + 0.5 * noise)
+    return d.astype(np.float32)

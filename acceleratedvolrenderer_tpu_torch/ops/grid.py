@@ -1,0 +1,81 @@
+"""Dense grids and majorant grids (port of acceleratedvolrenderer_tpu/ops/grid.py).
+
+A grid is a flat float32 tensor in z-major order, (z * ny + y) * nx + x;
+lookups out of range read 0, as pbrt's SampledGrid::Lookup.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_CORNERS = [(ox, oy, oz) for oz in (0, 1) for oy in (0, 1) for ox in (0, 1)]
+
+
+def _cell(p_unit, dims):
+    """Per-axis integer cell and fraction of the sample position p*n - 0.5."""
+    nz, ny, nx = dims
+    ps = torch.stack([p_unit[..., 0] * float(nx) - 0.5,
+                      p_unit[..., 1] * float(ny) - 0.5,
+                      p_unit[..., 2] * float(nz) - 0.5], dim=-1)
+    pi0 = torch.floor(ps)
+    return pi0.to(torch.int32), ps - pi0
+
+
+def _flat_index(cx, cy, cz, dims):
+    nz, ny, nx = dims
+    inside = ((cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny)
+              & (cz >= 0) & (cz < nz))
+    flat = ((torch.clamp(cz, 0, nz - 1) * ny + torch.clamp(cy, 0, ny - 1)) * nx
+            + torch.clamp(cx, 0, nx - 1))
+    return flat, inside
+
+
+def trilerp_flat(grid_flat, dims, p_unit):
+    """Trilinear lookup of a flat (nz*ny*nx,) grid at [0,1]^3 points."""
+    pi, d = _cell(p_unit, dims)
+    corner = torch.tensor(_CORNERS, dtype=torch.int32, device=pi.device)
+    c = pi[..., None, :] + corner                       # (..., 8, 3)
+    flat, inside = _flat_index(c[..., 0], c[..., 1], c[..., 2], dims)
+    up = corner == 1
+    w3 = torch.where(up, d[..., None, :], 1.0 - d[..., None, :])
+    w = torch.where(inside, w3[..., 0] * w3[..., 1] * w3[..., 2], 0.0)
+    v = grid_flat[flat.long()]
+    return torch.sum(v * w, dim=-1)
+
+
+def _axis_ranges(r, nn):
+    c = np.arange(r)
+    lo = np.maximum(np.floor(c / r * nn - 0.5).astype(np.int64), 0)
+    hi = np.minimum(np.floor((c + 1) / r * nn - 0.5).astype(np.int64) + 1,
+                    nn - 1)
+    return lo, hi
+
+
+def build_majorant_grid(density: np.ndarray, res=(16, 16, 16)) -> np.ndarray:
+    """Host-side (rz, ry, rx) per-cell max density over each cell's
+    continuous bounds (pbrt media.cpp:240-246)."""
+    density = np.asarray(density, np.float32)
+    rx, ry, rz = res
+    nz, ny, nx = density.shape
+    lox, hix = _axis_ranges(rx, nx)
+    loy, hiy = _axis_ranges(ry, ny)
+    loz, hiz = _axis_ranges(rz, nz)
+    red = lambda a, l, h, ax: a[(slice(None),) * ax
+                                + (slice(l, h + 1),)].max(axis=ax)
+    mx = np.stack([red(density, l, h, 2) for l, h in zip(lox, hix)], axis=-1)
+    mxy = np.stack([red(mx, l, h, 1) for l, h in zip(loy, hiy)], axis=1)
+    return np.stack([red(mxy, l, h, 0) for l, h in zip(loz, hiz)], axis=0)
+
+
+def stochastic_corner(dims, p_unit, u3):
+    """Pick ONE trilerp corner, the upper one per axis with probability
+    frac, so E[grid[corner]] == trilerp.  Returns (flat index, inside)."""
+    pi, d = _cell(p_unit, dims)
+    c = pi + (u3 < d).to(torch.int32)
+    return _flat_index(c[..., 0], c[..., 1], c[..., 2], dims)
+
+
+def trilerp_stochastic_flat(grid_flat, dims, p_unit, u3):
+    """1-tap stochastic trilerp (see stochastic_corner)."""
+    flat, inside = stochastic_corner(dims, p_unit, u3)
+    return torch.where(inside, grid_flat[flat.long()], 0.0)

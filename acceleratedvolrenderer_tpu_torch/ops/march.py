@@ -1,0 +1,263 @@
+"""The fused blocked-DDA march step
+(counterpart of acceleratedvolrenderer_tpu/ops/pallas_march.py).
+
+`march_block` is the wrapper of the hand-written CUDA kernel
+`csrc/march.cu`; `march_block_plain` is the same computation in eager
+PyTorch, the K-loop of the TPU kernel written over the lane dimension.
+The wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises.  `launches` counts kernel
+launches, so a run can show that its main path went through the kernel.
+
+The outputs are sampling-side quantities and carry no gradient.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+launches = 0
+
+_F_INF = 3.0e38
+
+
+def march_block_plain(majorant, voxel, next_t, dt, step, t_exit, t_cur,
+                      dl_target, dl_since, maxd_in, hunting, K, maj_res,
+                      control=None, resid=None, ctrld_in=None, csince_in=None):
+    """Eager version of the kernel.  Per-lane args are (N,) / (N, 3)
+    tensors; majorant / control are flat (rz*ry*rx,) tables.  Returns a dict
+    with voxel / next_t / t_cur / dl_target / dl_since / maxd and the landed
+    / escaped masks (plus ctrld / ctrl_since in residual mode)."""
+    rx, ry, rz = (int(r) for r in maj_res)
+    use_ctrl = control is not None
+    vx, vy, vz = voxel[:, 0], voxel[:, 1], voxel[:, 2]
+    ntx, nty, ntz = next_t[:, 0], next_t[:, 1], next_t[:, 2]
+    dtx, dty, dtz = dt[:, 0], dt[:, 1], dt[:, 2]
+    sx, sy, sz = step[:, 0], step[:, 1], step[:, 2]
+    s_k = t_cur
+    live = hunting
+
+    zf = torch.zeros_like(s_k)
+    cum = zf
+    landed = torch.zeros_like(hunting)
+    t_col = zf
+    t_end = s_k
+    maj_snap = zf
+    maxd_last = zf
+    svx, svy, svz = vx, vy, vz
+    sntx, snty, sntz = ntx, nty, ntz
+    if use_ctrl:
+        resid_f = resid.to(torch.float32)
+        cumc = zf
+        ctrl_snap = zf
+        ctrl_last = zf
+        c_land = zf
+
+    for _ in range(int(K)):
+        end_raw = torch.minimum(torch.minimum(ntx, nty), ntz)
+        end_k = torch.minimum(end_raw, t_exit)
+        len_k = torch.clamp(end_k - s_k, min=0.0)
+        hit_exit = end_raw >= t_exit
+
+        flat = ((torch.clamp(vz, 0, rz - 1) * ry + torch.clamp(vy, 0, ry - 1))
+                * rx + torch.clamp(vx, 0, rx - 1)).long()
+        maj_k = majorant[flat]
+        if use_ctrl:
+            ctrl_k = control[flat] * resid_f
+            rate_k = torch.clamp(maj_k - ctrl_k, min=0.0)
+        else:
+            rate_k = maj_k
+
+        len_c = torch.clamp(len_k, max=_F_INF)
+        dl_k = torch.where(live & (rate_k > 0), rate_k * len_c, 0.0)
+        prev_cum = cum
+        cum = cum + dl_k
+        ok = live & (dl_k > 0) & (cum >= dl_target)
+        new_land = ok & ~landed
+        t_col = torch.where(
+            new_land,
+            s_k + (dl_target - prev_cum) / torch.clamp(rate_k, min=1e-30),
+            t_col)
+        maj_snap = torch.where(new_land, maj_k, maj_snap)
+        if use_ctrl:
+            dc_k = torch.where(live, ctrl_k * len_c, 0.0)
+            c_land = torch.where(new_land, cumc + ctrl_k * (t_col - s_k),
+                                 c_land)
+            cumc = cumc + dc_k
+            ctrl_snap = torch.where(new_land, ctrl_k, ctrl_snap)
+            ctrl_last = torch.where(live, ctrl_k, ctrl_last)
+        svx = torch.where(new_land, vx, svx)
+        svy = torch.where(new_land, vy, svy)
+        svz = torch.where(new_land, vz, svz)
+        sntx = torch.where(new_land, ntx, sntx)
+        snty = torch.where(new_land, nty, snty)
+        sntz = torch.where(new_land, ntz, sntz)
+        landed = landed | ok
+        maxd_last = torch.where(live, maj_k, maxd_last)
+        t_end = torch.where(live, end_k, t_end)
+
+        # advance one voxel; the first minimum wins ties
+        is_x = (ntx <= nty) & (ntx <= ntz)
+        is_y = ~is_x & (nty <= ntz)
+        is_z = ~is_x & ~is_y
+        vx = torch.where(is_x, vx + sx, vx)
+        vy = torch.where(is_y, vy + sy, vy)
+        vz = torch.where(is_z, vz + sz, vz)
+        ntx = torch.where(is_x, ntx + dtx, ntx)
+        nty = torch.where(is_y, nty + dty, nty)
+        ntz = torch.where(is_z, ntz + dtz, ntz)
+        out = ((vx < 0) | (vx >= rx) | (vy < 0) | (vy >= ry)
+               | (vz < 0) | (vz >= rz))
+        live = live & ~hit_exit & ~out
+        s_k = end_k
+
+    sel = landed
+    adv = hunting & ~landed
+    escaped = adv & ~live
+    dl_tot = torch.where(hunting, cum, 0.0)
+    pick = lambda s, a, old: torch.where(sel, s, torch.where(adv, a, old))
+    out = dict(
+        voxel=torch.stack([pick(svx, vx, voxel[:, 0]), pick(svy, vy, voxel[:, 1]),
+                           pick(svz, vz, voxel[:, 2])], dim=-1),
+        next_t=torch.stack([pick(sntx, ntx, next_t[:, 0]),
+                            pick(snty, nty, next_t[:, 1]),
+                            pick(sntz, ntz, next_t[:, 2])], dim=-1),
+        t_cur=pick(t_col, t_end, t_cur),
+        dl_target=torch.where(adv, dl_target - dl_tot, dl_target),
+        dl_since=dl_since + torch.where(sel, dl_target,
+                                        torch.where(adv, dl_tot, 0.0)),
+        maxd=pick(maj_snap, maxd_last, maxd_in),
+        landed=sel, escaped=escaped,
+    )
+    if use_ctrl:
+        out["ctrld"] = pick(ctrl_snap, ctrl_last, ctrld_in)
+        out["ctrl_since"] = csince_in + torch.where(
+            sel, c_land, torch.where(adv, cumc, 0.0))
+    return out
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"march_block: {name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"march_block: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"march_block: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"march_block: {name} is not contiguous")
+
+
+_argtypes = None
+
+
+def _entry():
+    global _argtypes
+    from .. import kernels
+
+    fn = kernels.library().avrt_march_block
+    if _argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _argtypes = [p, p, i] + [p] * 22 + [i] * 6 + [p]
+        fn.argtypes = _argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def march_block(majorant, voxel, next_t, dt, step, t_exit, t_cur,
+                dl_target, dl_since, maxd_in, hunting, K, maj_res,
+                control=None, resid=None, ctrld_in=None, csince_in=None):
+    """Fused march (see march_block_plain for the arguments).  CPU tensors
+    run the plain version; CUDA tensors launch csrc/march.cu."""
+    global launches
+    dev = t_cur.device
+    if dev.type == "cpu":
+        return march_block_plain(majorant, voxel, next_t, dt, step, t_exit,
+                                 t_cur, dl_target, dl_since, maxd_in, hunting,
+                                 K, maj_res, control, resid, ctrld_in,
+                                 csince_in)
+    if dev.type != "cuda":
+        raise ValueError(f"march_block: unsupported device {dev}")
+    rx, ry, rz = (int(r) for r in maj_res)
+    n = t_cur.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    V = rx * ry * rz
+    use_ctrl = control is not None
+    _check("majorant", majorant, f32, (V,), dev)
+    for name, t, dt_, shp in (
+            ("voxel", voxel, i32, (n, 3)), ("next_t", next_t, f32, (n, 3)),
+            ("dt", dt, f32, (n, 3)), ("step", step, i32, (n, 3)),
+            ("t_exit", t_exit, f32, (n,)), ("t_cur", t_cur, f32, (n,)),
+            ("dl_target", dl_target, f32, (n,)),
+            ("dl_since", dl_since, f32, (n,)), ("maxd_in", maxd_in, f32, (n,)),
+            ("hunting", hunting, torch.bool, (n,))):
+        _check(name, t, dt_, shp, dev)
+    if use_ctrl:
+        _check("control", control, f32, (V,), dev)
+        _check("resid", resid, torch.bool, (n,), dev)
+        _check("ctrld_in", ctrld_in, f32, (n,), dev)
+        _check("csince_in", csince_in, f32, (n,), dev)
+    o_voxel = torch.empty((n, 3), dtype=i32, device=dev)
+    o_next_t = torch.empty((n, 3), dtype=f32, device=dev)
+    o_f = [torch.empty((n,), dtype=f32, device=dev) for _ in range(4)]
+    o_flags = torch.empty((n,), dtype=i32, device=dev)
+    o_c = ([torch.empty((n,), dtype=f32, device=dev) for _ in range(2)]
+           if use_ctrl else [None, None])
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = _entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ptr(majorant), ptr(control), V, ptr(voxel), ptr(next_t),
+                 ptr(dt), ptr(step), ptr(t_exit), ptr(t_cur), ptr(dl_target),
+                 ptr(dl_since), ptr(maxd_in), ptr(hunting), ptr(resid),
+                 ptr(ctrld_in), ptr(csince_in), ptr(o_voxel), ptr(o_next_t),
+                 *[ptr(t) for t in o_f], ptr(o_flags), *[ptr(t) for t in o_c],
+                 n, int(K), rx, ry, rz, int(use_ctrl), stream)
+    if err != 0:
+        raise RuntimeError(f"march_block: CUDA kernel launch failed "
+                           f"(cudaError {err})")
+    launches += 1
+    out = dict(voxel=o_voxel, next_t=o_next_t, t_cur=o_f[0],
+               dl_target=o_f[1], dl_since=o_f[2], maxd=o_f[3],
+               landed=(o_flags & 1) != 0, escaped=(o_flags & 2) != 0)
+    if use_ctrl:
+        out["ctrld"], out["ctrl_since"] = o_c
+    return out
+
+
+def random_lanes(n, maj_res, seed, residual=False):
+    """Random march inputs as numpy arrays (shared by the tests and the
+    chip smoke check): in-grid voxels, finite or axis-parallel steps, and
+    optical-depth targets that land, escape or run on within a few voxels.
+    Tables are float32 in [0, 2) with 20% empty cells; the minorant is a
+    fraction of the majorant."""
+    rng = np.random.default_rng(seed)
+    rx, ry, rz = maj_res
+    f = lambda a: np.asarray(a, np.float32)
+    V = rx * ry * rz
+    maj = f(rng.uniform(0.0, 2.0, V) * (rng.random(V) > 0.2))
+    dt = f(rng.uniform(0.05, 2.0, (n, 3)))
+    dt[rng.random((n, 3)) < 0.05] = np.inf
+    t_cur = f(rng.uniform(0.0, 5.0, n))
+    next_t = f(t_cur[:, None] + rng.uniform(0.0, 1.0, (n, 3)) * dt)
+    next_t[~np.isfinite(dt)] = np.inf
+    lanes = dict(
+        majorant=maj,
+        voxel=np.stack([rng.integers(0, r, n) for r in maj_res],
+                       -1).astype(np.int32),
+        next_t=next_t, dt=dt,
+        step=np.where(rng.random((n, 3)) < 0.5, 1, -1).astype(np.int32),
+        t_exit=f(t_cur + rng.uniform(0.0, 30.0, n)), t_cur=t_cur,
+        dl_target=f(rng.exponential(2.0, n)),
+        dl_since=f(rng.uniform(0.0, 3.0, n)),
+        maxd_in=f(rng.uniform(0.0, 2.0, n)),
+        hunting=rng.random(n) < 0.85,
+    )
+    if residual:
+        lanes.update(
+            control=f(maj * rng.uniform(0.0, 1.0, V)),
+            resid=rng.random(n) < 0.5,
+            ctrld_in=f(rng.uniform(0.0, 1.0, n)),
+            csince_in=f(rng.uniform(0.0, 2.0, n)))
+    return lanes

@@ -1,0 +1,65 @@
+"""Build a port Scene from plain arrays and floats.
+
+This is how state crosses from another implementation (the JAX package's
+scene, a file, a test) into the port: every field is a numpy array or a
+python number, so the two renderers see identical inputs.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models import lights as lm
+from ..models.cameras import PerspectiveCamera
+from ..models.film import GaussianFilter
+from ..models.media import MediumSpec
+from ..utils.spectrum import constant_spectrum
+from ..utils.vecmath import Transform
+from .types import Scene
+
+KEYS = ("density", "majorant", "w2m", "c2w", "fov_deg", "width", "height",
+        "sun_dir", "sun_L", "sky_L", "sigma_a", "sigma_s", "scale", "g",
+        "spp", "max_depth", "seed", "max_march_steps", "scene_radius")
+
+
+def scene_from_arrays(arrays: dict, device) -> Scene:
+    """arrays: density (nz, ny, nx), majorant (rz, ry, rx), w2m (4, 4)
+    world -> unit-cube medium, c2w (4, 4) camera -> world, fov_deg, width,
+    height, sun_dir (3,) propagation direction, sun_L / sky_L constant
+    radiances, sigma_a / sigma_s / scale / g medium constants, spp,
+    max_depth, seed, max_march_steps and scene_radius."""
+    missing = [k for k in KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"scene_from_arrays: missing {missing}")
+    a = arrays
+    density = np.asarray(a["density"], np.float32)
+    majorant = np.asarray(a["majorant"], np.float32)
+    med = MediumSpec(
+        sigma_a_spec=constant_spectrum(a["sigma_a"]),
+        sigma_s_spec=constant_spectrum(a["sigma_s"]),
+        g=float(a["g"]), scale=float(a["scale"]),
+        density=torch.as_tensor(density, device=device),
+        m2w=np.linalg.inv(np.asarray(a["w2m"], np.float64)),
+        majorant_res=tuple(int(r) for r in majorant.shape[::-1]),
+        majorant=torch.as_tensor(majorant, device=device),
+    )
+    c2w = np.asarray(a["c2w"], np.float64)
+    cam = PerspectiveCamera(
+        c2w=Transform.from_numpy(c2w, np.linalg.inv(c2w), device),
+        fov_deg=float(a["fov_deg"]), width=int(a["width"]),
+        height=int(a["height"]))
+    radius = float(a["scene_radius"])
+    return Scene(
+        camera=cam, medium=med,
+        lights=[
+            lm.DistantLight(
+                direction=torch.as_tensor(np.asarray(a["sun_dir"]),
+                                          dtype=torch.float32, device=device),
+                spectrum=constant_spectrum(a["sun_L"]), scene_radius=radius),
+            lm.UniformInfiniteLight(spectrum=constant_spectrum(a["sky_L"]),
+                                    scene_radius=radius),
+        ],
+        max_depth=int(a["max_depth"]), spp=int(a["spp"]),
+        seed=int(a["seed"]), max_march_steps=int(a["max_march_steps"]),
+        scene_radius=radius, filter=GaussianFilter(),
+    )

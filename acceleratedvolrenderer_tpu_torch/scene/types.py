@@ -1,0 +1,43 @@
+"""Scene description (port of acceleratedvolrenderer_tpu/scene/types.py)."""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import List, Optional
+
+from ..models.film import GaussianFilter
+from ..models.media import MediumSpec
+
+
+@dataclass
+class Scene:
+    camera: object                       # PerspectiveCamera
+    medium: Optional[MediumSpec] = None
+    lights: List = field(default_factory=list)
+    max_depth: int = 5
+    filter: object = field(default_factory=GaussianFilter)
+    scene_radius: float = 1e4
+    spp: int = 16
+    seed: int = 0
+    sampler: str = "independent"
+    max_march_steps: int = 100000
+    light_sampler: str = "uniform"
+
+    @property
+    def width(self):
+        return self.camera.width
+
+    @property
+    def height(self):
+        return self.camera.height
+
+    def to(self, device):
+        """The same scene with every tensor on `device`."""
+        med = self.medium
+        if med is not None:
+            med = replace(
+                med,
+                density=None if med.density is None else med.density.to(device),
+                majorant=(None if med.majorant is None
+                          else med.majorant.to(device)))
+        return replace(self, camera=self.camera.to(device), medium=med,
+                       lights=[lt.to(device) for lt in self.lights])

@@ -1,0 +1,22 @@
+"""Color space conversion (port of acceleratedvolrenderer_tpu/utils/colorspace.py)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# sRGB primaries, D65 white (IEC 61966-2-1)
+XYZ_TO_SRGB = np.array(
+    [
+        [3.2406, -1.5372, -0.4986],
+        [-0.9689, 1.8758, 0.0415],
+        [0.0557, -0.2040, 1.0570],
+    ],
+    np.float32,
+)
+_M = XYZ_TO_SRGB.tolist()   # float32 values, exact as python floats
+
+
+def xyz_to_rgb(xyz):
+    """(..., 3) XYZ -> linear sRGB as explicit multiply-adds (fixed order)."""
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    return torch.stack([x * r[0] + y * r[1] + z * r[2] for r in _M], dim=-1)

@@ -1,0 +1,13 @@
+"""Scalar math helpers (port of acceleratedvolrenderer_tpu/utils/math.py)."""
+from __future__ import annotations
+
+import torch
+
+INV_4PI = 0.07957747154594766788
+
+# largest float32 below 1 (exactly representable, so a python float is exact)
+ONE_MINUS_EPSILON = 1.0 - 2.0 ** -24
+
+
+def safe_sqrt(x):
+    return torch.sqrt(torch.clamp(x, min=0.0))

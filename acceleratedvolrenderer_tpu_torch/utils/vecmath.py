@@ -1,0 +1,123 @@
+"""Vector / transform / bounds math on [..., 3] tensors
+(port of acceleratedvolrenderer_tpu/utils/vecmath.py).
+
+Dot products and 3x3 products are written as explicit multiply-adds in a
+fixed order, like the reference, so float32 results do not depend on a
+library's reduction order.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .math import safe_sqrt
+
+
+def dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def length(v):
+    return torch.sqrt(dot(v, v))
+
+
+def normalize(v):
+    return v / torch.clamp(length(v)[..., None], min=1e-24)
+
+
+def coordinate_system(v):
+    """Orthonormal basis (t, b) completing unit v (Duff et al. 2017)."""
+    sign = torch.where(v[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + v[..., 2])
+    b = v[..., 0] * v[..., 1] * a
+    t = torch.stack(
+        [1.0 + sign * v[..., 0] * v[..., 0] * a, sign * b, -sign * v[..., 0]],
+        dim=-1)
+    bt = torch.stack([b, sign + v[..., 1] * v[..., 1] * a, -v[..., 1]], dim=-1)
+    return t, bt
+
+
+def spherical_direction(sin_theta, cos_theta, phi):
+    sin_theta = torch.clamp(sin_theta, -1.0, 1.0)
+    cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
+    return torch.stack(
+        [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta],
+        dim=-1)
+
+
+def frame_from_z(z):
+    x, y = coordinate_system(z)
+    return x, y, z
+
+
+def from_local(x, y, z, v):
+    return v[..., 0:1] * x + v[..., 1:2] * y + v[..., 2:3] * z
+
+
+class Transform(NamedTuple):
+    """(4, 4) float32 matrix and its inverse, on the render device."""
+    m: torch.Tensor
+    m_inv: torch.Tensor
+
+    @staticmethod
+    def from_numpy(m, m_inv, device):
+        as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                         device=device)
+        return Transform(as_t(m), as_t(m_inv))
+
+    def to(self, device):
+        return Transform(self.m.to(device), self.m_inv.to(device))
+
+    def _mat3_vec(self, m, v):
+        return (v[..., 0:1] * m[:3, 0] + v[..., 1:2] * m[:3, 1]
+                + v[..., 2:3] * m[:3, 2])
+
+    def apply_point(self, p):
+        r = self._mat3_vec(self.m, p) + self.m[:3, 3]
+        w = (p[..., 0] * self.m[3, 0] + p[..., 1] * self.m[3, 1]
+             + p[..., 2] * self.m[3, 2] + self.m[3, 3])
+        return r / w[..., None]
+
+    def apply_vector(self, v):
+        return self._mat3_vec(self.m, v)
+
+
+def look_at(eye, look, up, device) -> Transform:
+    """Camera-to-world transform (pbrt LookAt: left-handed, +z forward)."""
+    eye = np.asarray(eye, np.float64)
+    d = np.asarray(look, np.float64) - eye
+    d = d / np.linalg.norm(d)
+    up = np.asarray(up, np.float64)
+    right = np.cross(up / np.linalg.norm(up), d)
+    nr = np.linalg.norm(right)
+    if nr < 1e-12:
+        raise ValueError("LookAt: up vector parallel to viewing direction")
+    right = right / nr
+    c2w = np.eye(4)
+    c2w[:3, 0] = right
+    c2w[:3, 1] = np.cross(d, right)
+    c2w[:3, 2] = d
+    c2w[:3, 3] = eye
+    return Transform.from_numpy(c2w, np.linalg.inv(c2w), device)
+
+
+def intersect_aabb(o, d, t_max, lo, hi):
+    """Slab-test ray/AABB intersection -> (hit, t0, t1), t0 clamped >= 0.
+    lo / hi are python sequences of 3 floats."""
+    inv_d = 1.0 / d
+    t_lo = torch.stack([(lo[i] - o[..., i]) * inv_d[..., i] for i in range(3)],
+                       dim=-1)
+    t_hi = torch.stack([(hi[i] - o[..., i]) * inv_d[..., i] for i in range(3)],
+                       dim=-1)
+    t_near = torch.minimum(t_lo, t_hi)
+    t_far = torch.maximum(t_lo, t_hi)
+    t_near = torch.where(torch.isnan(t_near), -torch.inf, t_near)
+    t_far = torch.where(torch.isnan(t_far), torch.inf, t_far)
+    t0 = torch.amax(t_near, dim=-1)
+    t1 = torch.amin(t_far, dim=-1)
+    t1 = t1 * (1.0 + 4.0 * float(np.finfo(np.float32).eps))
+    hit = (t0 <= t1) & (t1 > 0.0) & (t0 < t_max)
+    t0 = torch.clamp(t0, min=0.0)
+    return hit, t0, torch.minimum(t1, t_max)

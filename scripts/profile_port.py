@@ -1,0 +1,113 @@
+#!/usr/bin/env python
+"""Profile the PyTorch/CUDA port's cloud render on one GPU.
+
+    python scripts/profile_port.py [--out profile.txt]
+
+1. March kernel: device time per launch (torch.profiler, CUPTI) and
+   wrapper time per call (CUDA events over back-to-back calls) at the
+   render's shape (N 16384, K 8, 16^3), beside the plain version's.
+2. Slice window: the 1280x720 cloud, 256^3 grid, bench knobs, spp 16,
+   with max_march_steps = 1, which caps the loop at refills + 1 = 901
+   iterations of the real workload.  One unprofiled timed run gives the
+   host time per iteration; one profiled run (device activity only) gives
+   the device busy time per iteration, the kernel count per iteration and
+   the kernels that take the device time.  Idle share = 1 - busy / wall.
+The kernel table goes to --out.
+"""
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from acceleratedvolrenderer_tpu_torch.ops import march  # noqa: E402
+from acceleratedvolrenderer_tpu_torch.parallel import render  # noqa: E402
+from acceleratedvolrenderer_tpu_torch.scene import presets  # noqa: E402
+
+KNOBS = dict(k_substeps=8, stochastic_filter=True, accum_spp=True,
+             work_stride="auto", retire_groups=32, n_lanes=16384)
+
+
+def device_us(prof):
+    """Total device time (us) of the kernels in a profile."""
+    return sum(e.self_device_time_total for e in prof.key_averages())
+
+
+def events_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="profile.txt")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_port: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    report = [f"card: {card}"]
+
+    lanes = {k: torch.as_tensor(v, device=dev) for k, v in
+             march.random_lanes(16384, (16, 16, 16), seed=7).items()}
+    kw = dict(K=8, maj_res=(16, 16, 16), **lanes)
+    for name, fn, reps in (("kernel", march.march_block, 200),
+                           ("plain", march.march_block_plain, 20)):
+        call_ms = events_ms(lambda: fn(**kw), reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(**kw)
+            torch.cuda.synchronize()
+        line = (f"march {name}: {call_ms:.4f} ms per call (CUDA events, "
+                f"back to back), device time {device_us(prof) / reps:.2f} us "
+                "per call (profiler)")
+        print(line, flush=True)
+        report += [line, prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=8)]
+
+    scene = presets.cloud(1280, 720, spp=16, max_depth=16, grid_res=256,
+                          device=dev)
+    scene.max_march_steps = 1
+    render.render_regen(scene, device=dev, **KNOBS)          # warm-up
+    _, st = render.render_regen(scene, device=dev, **KNOBS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, st_p = render.render_regen(scene, device=dev, **KNOBS)
+    it = st["iterations"]
+    busy_ms = device_us(prof) / 1e3
+    n_kernels = sum(e.count for e in prof.key_averages())
+    wall_ms = st["render_time"] * 1e3
+    line = (f"slice window: {it} iterations, host {wall_ms / it:.3f} ms per "
+            f"iteration, device busy {busy_ms / st_p['iterations']:.3f} ms "
+            f"per iteration, {n_kernels / st_p['iterations']:.0f} kernels "
+            f"per iteration, idle share {1 - busy_ms / wall_ms:.4f}")
+    print(line, flush=True)
+    report += [line, prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=25)]
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text("\n".join(report) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    t0 = time.time()
+    rc = main()
+    print(f"profile_port: {time.time() - t0:.1f} s", flush=True)
+    sys.exit(rc)
