@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into one shared library with a
-plain C interface, `build/kernels/libavrt_kernels.so` at the repository
-root, on first use, and loaded with ctypes.  The library is rebuilt when a
-source is newer than it.  `-fmad=false` keeps the kernels' float32 rounding
+Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, `build/kernels/libavrt_kernels.so` at the repository root, on
+first use; it is loaded with ctypes.  The library is rebuilt when a source
+is newer than it.  `-fmad=false` keeps the kernels' float32 rounding
 identical to the eager PyTorch versions they are checked against (no
 multiply-add contraction).
 """
@@ -21,8 +22,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libavrt_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_seconds = None    # wall time of this process's build, None if reused
@@ -45,20 +45,38 @@ def _stale() -> bool:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into LIB_PATH (atomically) when it is stale."""
+    """Compile csrc/*.cu, one nvcc per source in parallel, and link them
+    into LIB_PATH (atomically) when it is stale."""
     global build_seconds, build_log
     if not _stale():
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *sorted(str(p) for p in CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    tag = f"tmp{os.getpid()}"
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, LIB_PATH)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "\n".join(f"[{s.name}]\n{log}" for s, log in zip(srcs, logs))
+    failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = LIB_PATH.with_suffix(f".so.{tag}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{build_log}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.time() - t0
     return LIB_PATH
 
@@ -69,3 +87,17 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
+
+
+def check_arg(who, name, t, dtype, shape, device):
+    """Raise unless tensor `t` lies on `device` with `dtype`, `shape` and a
+    contiguous layout, as a kernel wrapper requires of its arguments."""
+    if t.device != device:
+        raise ValueError(f"{who}: {name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{who}: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{who}: {name} is not contiguous")

@@ -3,20 +3,44 @@
 
 Every lane carries one path through a small program counter (MARCH / NEE /
 DONE).  Each loop iteration advances every unfinished lane: a K-voxel march
-to the next tentative collision (the CUDA kernel of ops/march.py), the
-masked event block (density tap, absorb / scatter / null choice, HG bounce,
-ratio-tracked NEE shadow segment), and the retire stage, which banks a
-finished sample, runs the pixel's next sample in the same lane and splats
-the pixel once all its samples are banked (accum_spp).
+to the next tentative collision, the masked event block (density tap,
+absorb / scatter / null choice, HG bounce, ratio-tracked NEE shadow
+segment), and the retire stage, which banks a finished sample, runs the
+pixel's next sample in the same lane and splats the pixel once all its
+samples are banked (accum_spp).
+
+The march takes one of two routes, chosen as the reference chooses them
+(ops/march.py::available, the rule of pallas_march.available): the fused
+route, one launch of the march kernel (csrc/march.cu), or the window route
+(march.march_window: the walk in eager PyTorch and one gather of the
+window's majorants through the kernel of ops/gather.py).  Per-sample
+estimates do not depend on the route or on the lane count.
+
+Differentiability (the reference docstring's detached estimator): with the
+majorant held fixed, sample positions and event choices do not depend on
+the medium parameters, so every pdf denominator, pdf-ratio tracker
+(r_u / r_l / r_l_s / r_u_s), event probability and sampled distance is
+detached, and only the sigma(x) numerators carry gradient.  The
+sampling-side density is `med.density_s` when given (frozen), else the
+density detached.  Detaching is an identity in the forward pass, so one
+code path serves both.
 
 Ported: volumetric scalar-grid media in regen mode with accum_spp.  The
 loop runs on the host: `n_steps` is a python int, so the retire group is a
-plain slice, and termination is checked every `CHECK_EVERY` iterations
-(iterations after completion are exact no-ops: every lane is DONE, no
-work is left, and masked draws do not advance streams).
+plain slice.  Without `fixed_steps`, termination is checked every
+`CHECK_EVERY` iterations (iterations after completion are exact no-ops:
+every lane is DONE, no work is left, and masked draws do not advance
+streams), and the film is updated in place (index_add_).  With
+`fixed_steps=n` the loop runs exactly n iterations with no readback, the
+film (or the loss-cotangent scalar) is updated out of place, and every
+iteration runs under torch.utils.checkpoint, so a backward pass through the
+loop keeps one carry per iteration; `remat_window=w` checkpoints windows of
+w iterations instead (ceil(n / w) * w iterations run), keeping one carry
+per window plus one window's saved tensors.  Either way the backward sweep
+runs each iteration's forward once more.
 
 Lane tensors are rebuilt with torch.where each stage, as the reference
-does; the film is the one tensor updated in place (index_add_).
+does.
 """
 from __future__ import annotations
 
@@ -24,6 +48,7 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ...ops import grid as gridops
 from ...ops import march
@@ -92,6 +117,11 @@ class _Regs:
     rgb_acc: torch.Tensor     # (N, 3) banked rgb of the pixel's samples
 
 
+def _fields(c: _Regs) -> tuple:
+    """The carry's tensors in field order (_Regs(*t) rebuilds it)."""
+    return tuple(getattr(c, f.name) for f in dataclasses.fields(c))
+
+
 def li(
     med: MediumArrays,
     lights: list,
@@ -105,6 +135,7 @@ def li(
     max_march_steps: int = 100000,
     k_substeps: int = 8,
     fixed_steps=None,
+    remat_window=None,
     rgb_mode: bool = False,
     prims: tuple = (),
     record_alive: bool = False,
@@ -120,14 +151,18 @@ def li(
 ) -> LiResult:
     """Render the regen workload described by `regen` (see
     parallel/render.py::make_regen_renderer); o / d / lam / rng only give
-    the lane count, wavelength count and device."""
+    the lane count, wavelength count and device.  `regen["loss_cotangent"]`,
+    a flat (3 * (H*W + 1),) cotangent, makes the retire stage accumulate
+    sum(cot . film) into the (1,) `regen["film_rgb"]` instead of the film
+    (parallel/diff.py)."""
     unsupported = [name for name, on in (
         ("surfaces (prims)", len(prims) > 0), ("rgb_mode", rgb_mode),
         ("homogeneous media", homogeneous), ("Le_grid", Le_grid is not None),
         ("residual_shadow", residual_shadow),
         ("event_groups > 1", event_groups > 1),
         ("retire_every > 1", retire_every > 1),
-        ("fixed_steps (backward)", fixed_steps is not None),
+        ("record_alive with fixed_steps",
+         record_alive and fixed_steps is not None),
         ("non-regen rendering", regen is None),
         ("regen without accum_spp", not accum_spp)) if on]
     if unsupported:
@@ -139,11 +174,15 @@ def li(
     dev = o.device
     f32 = torch.float32
     g = med.g
-    g_samp = g
+    g_samp = g.detach()
     rz, ry, rx = med.majorant.shape
     maj_flat = med.majorant.reshape(-1).contiguous()
     dens_flat = med.density.reshape(-1)
+    dens_s_flat = (med.density_s.reshape(-1) if med.density_s is not None
+                   else None)
     dens_dims = tuple(int(x) for x in med.density.shape)
+    route = (march.march_block if march.available(maj_flat.numel(), N)
+             else march.march_window)
 
     R_H, R_W, R_spp = regen["H"], regen["W"], regen["spp"]
     R_HW = R_H * R_W
@@ -151,6 +190,7 @@ def li(
     R_cam, R_filt = regen["camera"], regen["filter"]
     R_kind, R_seed = regen["sampler"], regen["seed"]
     R_stride = int(regen.get("work_stride", 1))
+    R_cot = regen.get("loss_cotangent", None)
     assert R_total % R_spp == 0, "accum_spp: total_work % spp != 0"
     R_items = R_total // R_spp       # a work item is one PIXEL
 
@@ -178,13 +218,17 @@ def li(
         s_le = regen["Le_fn"](lam_cur)
         return s_a + s_s, s_a, s_s, s_le
 
+    def samp_sigma(c: _Regs):
+        """Sampling-side spectra: the live ones, detached."""
+        return c.s_a.detach(), c.s_s.detach(), c.s_t.detach()
+
     def init_segment(so, sd, t_max, rng, need, old):
         """(Re)initialize the DDA registers of lanes in `need` and draw
         their first optical-depth target."""
         dda, t0 = dda_init(so, sd, t_max, med.w2m, maj_res)
         rng, u0 = pcg_uniform_masked(rng, need & dda.in_medium)
         u0 = torch.clamp(u0, max=ONE_MINUS_EPSILON)
-        st0 = old.s_t[:, 0]
+        st0 = samp_sigma(old)[2][:, 0]   # sampling stays detached
         dl0 = torch.where(st0 > 0, -torch.log1p(-u0)
                           / torch.clamp(st0, min=1e-30), torch.inf)
         sel = need
@@ -241,15 +285,16 @@ def li(
     )
     inf_n = torch.full((N,), torch.inf, dtype=f32, device=dev)
     regs = init_segment(o, d, inf_n, rng, valid0, regs)
-    film_rgb = regen["film_rgb"]
     ch_off = torch.arange(3, dtype=i64, device=dev) * (R_HW + 1)
 
     def block_substep(c: _Regs, K: int) -> _Regs:
-        """K-voxel march of every hunting lane: one kernel launch."""
+        """K-voxel march of every hunting lane, by the route chosen above.
+        Its outputs are sampling-side quantities: detached."""
         hunting = (c.pc != PC_DONE) & ~c.reached & ~c.seg_escaped
-        r = march.march_block(
+        r = route(
             maj_flat, c.voxel, c.next_t, c.dt, c.step, c.t_exit, c.t_cur,
             c.dl_target, c.dl_since, c.maxd, hunting, K, (rx, ry, rz))
+        r = {k: v.detach() for k, v in r.items()}
         return dataclasses.replace(
             c, voxel=r["voxel"], next_t=r["next_t"], t_cur=r["t_cur"],
             dl_target=r["dl_target"], dl_since=r["dl_since"], maxd=r["maxd"],
@@ -268,23 +313,29 @@ def li(
             rng, uf2 = pcg_uniform_masked(rng, col_any)
             rng, uf3 = pcg_uniform_masked(rng, col_any)
             u3f = torch.stack([uf1, uf2, uf3], -1)
-            dens = gridops.trilerp_stochastic_flat(dens_flat, dens_dims, p_m,
-                                                   u3f)
+            tap = lambda grid: gridops.trilerp_stochastic_flat(
+                grid, dens_dims, p_m, u3f)
         else:
-            dens = gridops.trilerp_flat(dens_flat, dens_dims, p_m)
+            tap = lambda grid: gridops.trilerp_flat(grid, dens_dims, p_m)
+        dens = tap(dens_flat)
         maxd = c.maxd
-        # forward pass: sampling-side quantities equal the evaluation side
-        st_smp = c.s_t
-        sa = c.s_a * dens[:, None]
+        sa = c.s_a * dens[:, None]                 # evaluation side (diff)
         ss = c.s_s * dens[:, None]
-        sa_d, ss_d = sa, ss
         sig_maj = c.s_t * maxd[:, None]
-        sig_maj_d = sig_maj
-        sig_maj0 = sig_maj_d[:, 0]
         T_maj = torch.exp(-c.s_t * c.dl_since[:, None])
-        T_maj_d = T_maj
         sig_n = torch.clamp(sig_maj - sa - ss, min=0.0)
-        sig_n_d = sig_n
+        # decision / pdf side: the same values detached (no launch), or
+        # recomputed from the frozen density when one is given
+        sa_smp, ss_smp, st_smp = samp_sigma(c)
+        sig_maj_d, T_maj_d = sig_maj.detach(), T_maj.detach()
+        if dens_s_flat is None:
+            sa_d, ss_d, sig_n_d = sa.detach(), ss.detach(), sig_n.detach()
+        else:
+            dens_d = tap(dens_s_flat)
+            sa_d = sa_smp * dens_d[:, None]
+            ss_d = ss_smp * dens_d[:, None]
+            sig_n_d = torch.clamp(sig_maj_d - sa_d - ss_d, min=0.0)
+        sig_maj0 = sig_maj_d[:, 0]
 
         # ---- main-path collisions (pc == MARCH) ----
         col_m = col_any & (c.pc == PC_MARCH)
@@ -297,36 +348,40 @@ def li(
         is_scatter = col_m & ~is_absorb & (u_ev < p_absorb + p_scatter)
         is_null = col_m & ~is_absorb & ~is_scatter
 
-        # emission at every main collision while depth < max_depth
-        pdf_e = sig_maj0 * T_maj_d[:, 0]
+        # emission at every main collision while depth < max_depth (pdf and
+        # ratio trackers detached: sampling-side quantities)
+        pdf_e = (sig_maj0 * T_maj_d[:, 0]).detach()
         pdf_e_c = torch.clamp(pdf_e, min=1e-30)[:, None]
         betap = c.beta * T_maj / pdf_e_c
-        r_e = (c.r_u * sig_maj_d * T_maj_d) / pdf_e_c
-        r_e_avg = torch.mean(r_e, dim=-1)
+        r_e = (c.r_u * sig_maj_d * T_maj_d).detach() / pdf_e_c
+        r_e_avg = torch.mean(r_e, dim=-1).detach()
         contrib_e = (betap * sa * c.s_le
                      / torch.clamp(r_e_avg, min=1e-30)[:, None])
         emit_ok = col_m & (pdf_e > 0) & (r_e_avg > 0) & (c.depth < max_depth)
         L_acc = c.L + torch.where(emit_ok[:, None], contrib_e, 0.0)
 
-        # null / scatter weights and ratio trackers
-        pdf_null = T_maj_d[:, 0] * sig_n_d[:, 0]
+        # null / scatter weights: pdf denominators and ratio trackers on
+        # the sampling side; only beta's sigma numerators carry gradient
+        pdf_null = (T_maj_d[:, 0] * sig_n_d[:, 0]).detach()
         null_ok = (pdf_null > 0)[:, None]
         pdf_null_c = torch.clamp(pdf_null, min=1e-30)[:, None]
         f_null = torch.where(null_ok, T_maj * sig_n / pdf_null_c, 0.0)
-        f_null_d = torch.where(null_ok, T_maj_d * sig_n_d / pdf_null_c, 0.0)
-        f_null_l = torch.where(null_ok, T_maj_d * sig_maj_d / pdf_null_c, 0.0)
-        pdf_sc = T_maj_d[:, 0] * ss_d[:, 0]
+        f_null_d = torch.where(null_ok, T_maj_d * sig_n_d / pdf_null_c,
+                               0.0).detach()
+        f_null_l = torch.where(null_ok, T_maj_d * sig_maj_d / pdf_null_c,
+                               0.0).detach()
+        pdf_sc = (T_maj_d[:, 0] * ss_d[:, 0]).detach()
         sc_ok = (pdf_sc > 0)[:, None]
         pdf_sc_c = torch.clamp(pdf_sc, min=1e-30)[:, None]
         f_sc = torch.where(sc_ok, T_maj * ss / pdf_sc_c, 0.0)
-        f_sc_d = torch.where(sc_ok, T_maj_d * ss_d / pdf_sc_c, 0.0)
+        f_sc_d = torch.where(sc_ok, T_maj_d * ss_d / pdf_sc_c, 0.0).detach()
 
         nul3, sca3 = is_null[:, None], is_scatter[:, None]
         beta = torch.where(nul3, c.beta * f_null,
                            torch.where(sca3, c.beta * f_sc, c.beta))
         r_u = torch.where(nul3, c.r_u * f_null_d,
-                          torch.where(sca3, c.r_u * f_sc_d, c.r_u))
-        r_l = torch.where(nul3, c.r_l * f_null_l, c.r_l)
+                          torch.where(sca3, c.r_u * f_sc_d, c.r_u)).detach()
+        r_l = torch.where(nul3, c.r_l * f_null_l, c.r_l).detach()
         dead_null = is_null & ~(r_u != 0.0).any(dim=-1)
 
         # a scatter at the depth cap terminates
@@ -336,20 +391,23 @@ def li(
 
         # ---- main-path segment end (pc == MARCH): escape to the sky ----
         esc_m = c.seg_escaped & (c.pc == PC_MARCH)
+        # residual T_maj / T_maj[0]: evaluation numerator over the
+        # sampling-side pdf; the trackers take the all-sampling-side form
         T_res = torch.exp(-c.s_t * c.dl_since[:, None])
-        f_res = T_res / torch.clamp(T_res[:, 0:1], min=1e-30)
-        f_res_d = f_res
+        T_res_d = T_res.detach()
+        f_res = T_res / torch.clamp(T_res_d[:, 0:1], min=1e-30)
+        f_res_d = f_res.detach()
         esc3 = esc_m[:, None]
         beta = torch.where(esc3, beta * f_res, beta)
-        r_u = torch.where(esc3, r_u * f_res_d, r_u)
-        r_l = torch.where(esc3, r_l * f_res_d, r_l)
+        r_u = torch.where(esc3, r_u * f_res_d, r_u).detach()
+        r_l = torch.where(esc3, r_l * f_res_d, r_l).detach()
         to_sky = esc_m
 
         Le_inf, pdf_inf = lights_mod.escaped_radiance(lights, c.d_main, c.lam)
         first = c.depth == 0
         denom_first = torch.mean(r_u, dim=-1)
         denom_mis = torch.mean(r_u + r_l * pdf_inf[:, None], dim=-1)
-        denom = torch.where(first, denom_first, denom_mis)
+        denom = torch.where(first, denom_first, denom_mis).detach()
         contrib_inf = beta * Le_inf / torch.clamp(denom, min=1e-30)[:, None]
         L_acc = L_acc + torch.where((to_sky & (denom > 0))[:, None],
                                     contrib_inf, 0.0)
@@ -365,7 +423,7 @@ def li(
             lights, p_scat, u1, torch.stack([u2a, u2b], -1), c.lam,
             strategy=light_strategy)
         f_hat = phase_ops.hg_phase(wo, ls.wi, g)
-        f_hat_d = phase_ops.hg_phase(wo, ls.wi, g_samp)
+        f_hat_d = phase_ops.hg_phase(wo, ls.wi, g_samp).detach()  # pdf role
         f_spec = f_hat[:, None] * one_s
         spdf_d = f_hat_d
         nee_valid = want_nee & ls.valid & (ls.pdf > 0) & (f_hat_d > 0)
@@ -373,14 +431,14 @@ def li(
 
         # ---- NEE collisions (pc == NEE): ratio tracking ----
         col_s = col_any & (c.pc == PC_NEE)
-        pdf_rt = T_maj_d[:, 0] * sig_maj0
+        pdf_rt = (T_maj_d[:, 0] * sig_maj0).detach()
         inv_rt = (1.0 / torch.clamp(pdf_rt, min=1e-30))[:, None]
         rt3 = (col_s & (pdf_rt > 0))[:, None]
         T_ray = torch.where(rt3, c.T_ray * T_maj * sig_n * inv_rt, c.T_ray)
         r_l_s = torch.where(rt3, c.r_l_s * T_maj_d * sig_maj_d * inv_rt,
-                            c.r_l_s)
+                            c.r_l_s).detach()
         r_u_s = torch.where(rt3, c.r_u_s * T_maj_d * sig_n_d * inv_rt,
-                            c.r_u_s)
+                            c.r_u_s).detach()
         denom_rr = torch.mean(r_l_s + r_u_s, dim=-1)
         Tr = r_u_s / torch.clamp(denom_rr, min=1e-30)[:, None]
         rr = col_s & (torch.amax(Tr, dim=-1) < 0.05)
@@ -399,7 +457,8 @@ def li(
         r_l_nee = r_l_sf * c.r_u * c.ls_pdf[:, None]
         r_u_nee = r_u_sf * c.r_u * c.spdf_d[:, None]
         denom_nee = torch.where(c.is_delta, torch.mean(r_l_nee, dim=-1),
-                                torch.mean(r_l_nee + r_u_nee, dim=-1))
+                                torch.mean(r_l_nee + r_u_nee,
+                                           dim=-1)).detach()
         contrib_nee = (c.beta * c.f_spec * T_ray_f * c.ls_L
                        / torch.clamp(denom_nee, min=1e-30)[:, None])
         L_acc = L_acc + torch.where((esc_s & (denom_nee > 0))[:, None],
@@ -412,6 +471,8 @@ def li(
         wo2 = -c.d_main
         wi, ps_pdf = phase_ops.sample_hg(wo2, torch.stack([u3a, u3b], -1),
                                          g_samp)
+        ps_pdf = ps_pdf.detach()
+        # beta *= p(theta) / pdf: 1 in the forward pass
         p_theta = phase_ops.hg_phase(wo2, wi, g)
         f_over = (p_theta[:, None]
                   / torch.clamp(ps_pdf, min=1e-30)[:, None])
@@ -420,7 +481,7 @@ def li(
         beta = beta * torch.where(go[:, None], f_over, 1.0)
         r_l_new = torch.where(go[:, None],
                               r_u / torch.clamp(ps_pdf, min=1e-30)[:, None],
-                              r_l)
+                              r_l).detach()
         p_resume = torch.where(esc_s[:, None], c.so, p_scat)
         d_new = torch.where(go[:, None], wi, c.d_main)
 
@@ -469,11 +530,12 @@ def li(
         return init_segment(new_o, new_d, new_tmax, c2.rng, nee_valid | go,
                             c2)
 
-    def retire_respawn_accum(c: _Regs, n_step: int) -> _Regs:
+    def retire_respawn_accum(c: _Regs, film, n_step: int):
         """Bank each finished sample's rgb in registers, run the pixel's next
         sample in the same lane, and splat a pixel once all its samples are
         banked; only the lanes of retire group n_step % retire_groups may
-        splat this iteration."""
+        splat this iteration.  Returns (c, film): the film, or with a loss
+        cotangent the (1,) running sum(cot . film)."""
         fresh = (c.pc == PC_DONE) & (c.work >= 0) & (c.samp < R_spp)
         swl = spu.SampledWavelengths(c.lam, c.lam_pdf)
         rgb = cspace.xyz_to_rgb(spu.to_xyz(c.L, swl))
@@ -495,7 +557,13 @@ def li(
         tgt = torch.where(retire & (c.work < R_items), p_idx, R_HW)
         acc_m = torch.where(retire[:, None], rgb_acc, 0.0)
         tgt3 = (tgt[lo:hi, None] + ch_off).reshape(-1)
-        film_rgb.index_add_(0, tgt3, acc_m[lo:hi].reshape(-1))
+        vals = acc_m[lo:hi].reshape(-1)
+        if R_cot is not None:
+            film = film + torch.sum(R_cot[tgt3] * vals)[None]
+        elif fixed_steps is None:
+            film.index_add_(0, tgt3, vals)
+        else:               # out of place: autograd and checkpointing
+            film = film.index_add(0, tgt3, vals)
 
         # respawn: the next sample of the same pixel, or a fresh pixel
         nxt = fresh & (samp < R_spp)
@@ -533,25 +601,46 @@ def li(
             rgb_acc=torch.where(retire[:, None], 0.0, rgb_acc),
             cursor=torch.clamp(c.cursor + retire.sum(), max=R_items),
         )
-        return init_segment(o2, d2, inf_n, c.rng, can, c)
+        return init_segment(o2, d2, inf_n, c.rng, can, c), film
 
     def busy(c: _Regs) -> bool:
         return bool(((c.pc != PC_DONE) | (c.work >= 0)).any())
 
-    hist = []
-    n_steps = 0
-    c = regs
-    while n_steps < max_march_steps:
-        if n_steps % CHECK_EVERY == 0 and not busy(c):
-            break
-        if record_alive:
-            hist.append((c.pc != PC_DONE).sum())
+    def step(c: _Regs, film, n_step: int):
         c = block_substep(c, k_substeps)
         c = handle_events(c)
-        c = retire_respawn_accum(c, n_steps)
-        n_steps += 1
+        return retire_respawn_accum(c, film, n_step)
+
+    hist = []
+    c, film = regs, regen["film_rgb"]
+    if fixed_steps is None:
+        n_steps = 0
+        while n_steps < max_march_steps:
+            if n_steps % CHECK_EVERY == 0 and not busy(c):
+                break
+            if record_alive:
+                hist.append((c.pc != PC_DONE).sum())
+            c, film = step(c, film, n_steps)
+            n_steps += 1
+    else:
+        w = (int(remat_window) if remat_window is not None
+             and int(fixed_steps) > int(remat_window) else 1)
+        n_win = -(-int(fixed_steps) // w)
+
+        def window(start: int, *state):
+            c, film = _Regs(*state[:-1]), state[-1]
+            for i in range(w):
+                c, film = step(c, film, start + i)
+            return (*_fields(c), film)
+
+        state = (*_fields(c), film)
+        for k in range(n_win):
+            state = checkpoint(window, k * w, *state, use_reentrant=False,
+                               preserve_rng_state=False)
+        c, film = _Regs(*state[:-1]), state[-1]
+        n_steps = n_win * w
     return LiResult(
-        film_rgb=film_rgb, iterations=n_steps,
+        film_rgb=film, iterations=n_steps,
         alive_hist=(torch.stack(hist) if hist else
                     torch.zeros((0,), dtype=i64, device=dev))
         if record_alive else None)

@@ -9,7 +9,7 @@ intermediate stays below 2^49 and the low 32 bits are exact.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -67,11 +67,15 @@ class MediumArrays(NamedTuple):
     majorant: (rz, ry, rx) per-cell max density
     w2m:      (4, 4) world -> unit-cube medium transform
     g:        0-d float32 HG asymmetry
+    density_s: optional frozen sampling-side density grid for the detached
+              differentiable estimator (None => the density itself,
+              detached); see volpath_fused
     """
     density: torch.Tensor
     majorant: torch.Tensor
     w2m: torch.Tensor
     g: torch.Tensor
+    density_s: Optional[torch.Tensor] = None
 
 
 def world_to_medium(w2m, p):

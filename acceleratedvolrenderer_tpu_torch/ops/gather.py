@@ -1,0 +1,79 @@
+"""Gather from a small table
+(counterpart of acceleratedvolrenderer_tpu/ops/pallas_gather.py).
+
+`table_gather` is the wrapper of the hand-written CUDA kernel
+`csrc/gather.cu`; `table_gather_plain` is the same gather in eager
+PyTorch.  The reference entry serves only tables of V % 128 == 0 and
+V <= 32^3 entries and index batches of a multiple of 128 with its kernel
+(a TPU tiling and VMEM limit) and takes `jnp.take` for the rest; the CUDA
+kernel has no such limit, so on CUDA tensors the wrapper launches it for
+every shape, or raises on a bad input.  Tensors on the CPU take the plain
+version and launch nothing.  `launches` counts kernel launches, so a run
+can show that its path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import kernels
+
+launches = 0
+
+
+def table_gather_plain(table, idx):
+    """table[idx] for a (V,) table and integer indices of any shape; an
+    index outside [0, V) reads 0, as the reference's row-select kernel
+    (no row matches) and csrc/gather.cu do."""
+    v = table.shape[0]
+    idx = idx.long()
+    inside = (idx >= 0) & (idx < v)
+    return torch.where(inside, table[torch.clamp(idx, 0, v - 1)], 0.0)
+
+
+_argtypes = None
+
+
+def _entry():
+    global _argtypes
+    fn = kernels.library().avrt_table_gather
+    if _argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _argtypes = [p, i, p, p, ctypes.c_longlong, p]
+        fn.argtypes = _argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def table_gather(table, idx):
+    """table[idx]: table (V,) float32 with 0 < V < 2^31, idx int32 of any
+    shape.  CPU tensors run the plain version; CUDA tensors launch
+    csrc/gather.cu."""
+    global launches
+    dev = table.device
+    if dev.type == "cpu" and idx.device.type == "cpu":
+        return table_gather_plain(table, idx)
+    if dev.type != "cuda":
+        raise ValueError(f"table_gather: unsupported device {dev}")
+    v, n = table.shape[0], idx.numel()
+    check = functools.partial(kernels.check_arg, "table_gather")
+    check("table", table, torch.float32, (v,), dev)
+    check("idx", idx, torch.int32, tuple(idx.shape), dev)
+    if not 0 < v < 2 ** 31:
+        raise ValueError(f"table_gather: table of {v} entries, expected "
+                         "0 < V < 2^31")
+    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    fn = _entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(table.data_ptr(), v, idx.data_ptr(), out.data_ptr(), n,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"table_gather: CUDA kernel launch failed "
+                           f"(cudaError {err})")
+    launches += 1
+    return out

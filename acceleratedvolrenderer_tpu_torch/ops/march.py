@@ -4,6 +4,9 @@
 `march_block` is the wrapper of the hand-written CUDA kernel
 `csrc/march.cu`; `march_block_plain` is the same computation in eager
 PyTorch, the K-loop of the TPU kernel written over the lane dimension.
+`march_window` is the integrator's other route, taken where `available`
+says no: the K-voxel walk in eager PyTorch with one gather of the window's
+majorants through the kernel of ops/gather.py.
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  `launches` counts kernel
 launches, so a run can show that its main path went through the kernel.
@@ -13,9 +16,13 @@ The outputs are sampling-side quantities and carry no gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
+
+from .. import kernels
+from . import gather
 
 launches = 0
 
@@ -137,25 +144,11 @@ def march_block_plain(majorant, voxel, next_t, dt, step, t_exit, t_cur,
     return out
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"march_block: {name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"march_block: {name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"march_block: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"march_block: {name} is not contiguous")
-
-
 _argtypes = None
 
 
 def _entry():
     global _argtypes
-    from .. import kernels
-
     fn = kernels.library().avrt_march_block
     if _argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -184,6 +177,7 @@ def march_block(majorant, voxel, next_t, dt, step, t_exit, t_cur,
     f32, i32 = torch.float32, torch.int32
     V = rx * ry * rz
     use_ctrl = control is not None
+    _check = functools.partial(kernels.check_arg, "march_block")
     _check("majorant", majorant, f32, (V,), dev)
     for name, t, dt_, shp in (
             ("voxel", voxel, i32, (n, 3)), ("next_t", next_t, f32, (n, 3)),
@@ -224,6 +218,124 @@ def march_block(majorant, voxel, next_t, dt, step, t_exit, t_cur,
     if use_ctrl:
         out["ctrld"], out["ctrl_since"] = o_c
     return out
+
+
+_LANES = 128             # the TPU's lane width
+MAX_TABLE_ROWS = 2048    # the fused route's table cap, in 128-wide rows
+_ROW_SELECT_MAX = 32     # rows above which the TPU kernel gathers by MXU
+_MXU_CHUNK = 8           # sublane rows per MXU gather dispatch
+
+
+def available(majorant_size: int, n: int) -> bool:
+    """Whether the integrator takes the fused route (march_block) for a
+    majorant of `majorant_size` cells and `n` lanes: the rule of
+    pallas_march.available without its backend test, so the port routes a
+    (table, lane count) as the reference routes it on the TPU.  Otherwise
+    the window route (march_window) runs."""
+    lanes = _LANES
+    if not (majorant_size % lanes == 0
+            and 0 < majorant_size <= MAX_TABLE_ROWS * lanes
+            and n % lanes == 0):
+        return False
+    if majorant_size > _ROW_SELECT_MAX * lanes:
+        return n % (lanes * _MXU_CHUNK) == 0
+    return True
+
+
+def march_window(majorant, voxel, next_t, dt, step, t_exit, t_cur,
+                 dl_target, dl_since, maxd_in, hunting, K, maj_res,
+                 control=None, resid=None, ctrld_in=None, csince_in=None):
+    """The window route of the march step (port of
+    volpath_fused.py::_block_substep_xla): the K-voxel geometric walk of
+    every lane, then ONE (N, K) majorant gather through
+    gather.table_gather, then the free-flight target resolved in closed
+    form over the window.  Arguments and outputs are march_block's.
+
+    Two choices hold it lane for lane to march_block_plain:
+      * the running optical depth is summed column by column, in the
+        fused kernel's order.  torch.cumsum accumulates float32 in double
+        on the CPU and by a tree on CUDA, and either can move a landing
+        test `cum >= dl_target` by one ulp;
+      * a lane escapes when it is no longer live after the K-th step, as
+        in the fused kernel.  The reference window route counts only the
+        live steps (n_live < K), so a lane whose K-th step leaves the
+        segment escapes one iteration later there, with the same estimate.
+    Residual mode (the minorant table) is not ported yet."""
+    if control is not None:
+        raise NotImplementedError(
+            "march_window: residual mode is not ported yet")
+    rx, ry, rz = (int(r) for r in maj_res)
+    res = torch.tensor([rx, ry, rz], dtype=torch.int32, device=voxel.device)
+    vox, nt, s_k, live = voxel, next_t, t_cur, hunting
+    v_list, nt_list, s_list, len_list, live_list = [], [], [], [], []
+    for _ in range(int(K)):
+        end_raw = torch.amin(nt, dim=-1)
+        end_k = torch.minimum(end_raw, t_exit)
+        len_list.append(torch.clamp(end_k - s_k, min=0.0))
+        hit_exit = end_raw >= t_exit
+        v_list.append(vox)
+        nt_list.append(nt)
+        s_list.append(s_k)
+        live_list.append(live)
+        # advance one voxel; argmin takes the first minimum, as the kernel
+        onehot = torch.nn.functional.one_hot(torch.argmin(nt, dim=-1),
+                                             3).bool()
+        vox = torch.where(onehot, vox + step, vox)
+        # where (not + onehot * dt): dt is inf on degenerate axes
+        nt = torch.where(onehot, nt + dt, nt)
+        out = ((vox < 0) | (vox >= res)).any(dim=-1)
+        live = live & ~hit_exit & ~out
+        s_k = end_k
+    v_stack = torch.stack(v_list, 1)                # (N, K, 3)
+    nt_stack = torch.stack(nt_list, 1)
+    s_stack = torch.stack(s_list + [s_k], 1)        # (N, K+1) segment starts
+    len_stack = torch.stack(len_list, 1)            # (N, K)
+    live_stack = torch.stack(live_list, 1)
+
+    # ---- ONE majorant gather over the window ----
+    vc = torch.minimum(torch.clamp(v_stack, min=0), res - 1)
+    flat = ((vc[..., 2] * ry + vc[..., 1]) * rx + vc[..., 0]).contiguous()
+    maj = gather.table_gather(majorant, flat)       # (N, K)
+
+    # ---- closed-form free-flight resolution ----
+    dl = torch.where(live_stack & (maj > 0),
+                     maj * torch.clamp(len_stack, max=_F_INF), 0.0)
+    cum_k = torch.zeros_like(t_cur)
+    cums = []
+    for k in range(int(K)):
+        cum_k = cum_k + dl[:, k]
+        cums.append(cum_k)
+    cum = torch.stack(cums, 1)
+    prev_cum = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
+    ok = live_stack & (dl > 0) & (cum >= dl_target[:, None])
+    landed = hunting & ok.any(dim=1)
+    k_star = torch.argmax(ok.to(torch.int8), dim=1, keepdim=True)  # first
+    take = lambda a: torch.gather(a, 1, k_star)[:, 0]
+    take3 = lambda a: torch.gather(
+        a, 1, k_star[:, :, None].expand(-1, 1, 3))[:, 0]
+    t_col = (take(s_stack[:, :-1])
+             + (dl_target - take(prev_cum)) / torch.clamp(take(maj),
+                                                          min=1e-30))
+    n_live = live_stack.sum(dim=1, keepdim=True)
+    t_end = torch.gather(s_stack, 1, n_live)[:, 0]
+    maxd_last = torch.gather(maj, 1, torch.clamp(n_live - 1, min=0))[:, 0]
+    dl_tot = torch.where(hunting, cum[:, -1], 0.0)
+
+    sel = landed
+    adv = hunting & ~landed
+    pick = lambda s, a, old: torch.where(sel, s, torch.where(adv, a, old))
+    pick3 = lambda s, a, old: torch.where(
+        sel[:, None], s, torch.where(adv[:, None], a, old))
+    return dict(
+        voxel=pick3(take3(v_stack), vox, voxel),
+        next_t=pick3(take3(nt_stack), nt, next_t),
+        t_cur=pick(t_col, t_end, t_cur),
+        dl_target=torch.where(adv, dl_target - dl_tot, dl_target),
+        dl_since=dl_since + torch.where(sel, dl_target,
+                                        torch.where(adv, dl_tot, 0.0)),
+        maxd=pick(take(maj), maxd_last, maxd_in),
+        landed=sel, escaped=adv & ~live,
+    )
 
 
 def random_lanes(n, maj_res, seed, residual=False):

@@ -7,9 +7,6 @@ float32 formulas; the kernels differ only in op order).  The 16^3 table
 takes the TPU kernel's row-select gather, the 64^3 table its one-hot MXU
 gather; 64^3 values are pre-rounded to bf16 in numpy so that the MXU
 path's bf16 rounding is a no-op and both sides read the same majorant."""
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +14,8 @@ import torch
 
 from acceleratedvolrenderer_tpu.ops import pallas_march
 from acceleratedvolrenderer_tpu_torch.ops import march
+
+from torch_port_util import interpret_pallas  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -26,17 +25,6 @@ N = 1024
 def _bf16(a):
     """Round float32 to the nearest bf16-representable value (numpy)."""
     return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
-
-
-@pytest.fixture
-def interpret_pallas(monkeypatch):
-    from jax.experimental import pallas
-
-    jax.clear_caches()
-    monkeypatch.setattr(pallas, "pallas_call",
-                        functools.partial(pallas.pallas_call, interpret=True))
-    yield
-    jax.clear_caches()
 
 
 @pytest.mark.parametrize("res", [(16, 16, 16), (64, 64, 64)])

@@ -82,6 +82,8 @@ def test_import_leaves_jax_out(tmp_path):
     """Importing the port, and writing a film through the reference's
     JAX-free image module, loads no jax."""
     code = ("import sys, numpy as np, acceleratedvolrenderer_tpu_torch.parallel.render, "
+            "acceleratedvolrenderer_tpu_torch.parallel.diff, "
+            "acceleratedvolrenderer_tpu_torch.ops.gather, "
             "acceleratedvolrenderer_tpu_torch.scene.presets, "
             "acceleratedvolrenderer_tpu_torch.scene.convert, "
             "acceleratedvolrenderer_tpu_torch.models.film as f; "

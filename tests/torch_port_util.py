@@ -1,6 +1,23 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py)."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    """Run every pl.pallas_call of the JAX package in interpret mode, so a
+    TPU kernel itself runs on the CPU."""
+    from jax.experimental import pallas
+
+    jax.clear_caches()
+    monkeypatch.setattr(pallas, "pallas_call",
+                        functools.partial(pallas.pallas_call, interpret=True))
+    yield
+    jax.clear_caches()
 
 
 def arrays_from_jax_scene(js):
