@@ -25,12 +25,16 @@ sampling-side density is `med.density_s` when given (frozen), else the
 density detached.  Detaching is an identity in the forward pass, so one
 code path serves both.
 
-Ported: volumetric scalar-grid media in regen mode with accum_spp.  The
-loop runs on the host: `n_steps` is a python int, so the retire group is a
-plain slice.  Without `fixed_steps`, termination is checked every
-`CHECK_EVERY` iterations (iterations after completion are exact no-ops:
-every lane is DONE, no work is left, and masked draws do not advance
-streams), and the film is updated in place (index_add_).  With
+Ported: volumetric scalar-grid media, in regen mode with accum_spp and in
+wave mode (`regen=None`: the lanes trace the given camera rays once, there
+is no retire stage, and the result is the per-lane radiance `L`).  Wave
+mode takes the reference's optional medium fields: the `Le_grid` emission
+scale, frozen sampling-side spectra `sigma_a_s` / `sigma_s_s` and a frozen
+sampling-side `g_s`.  The loop runs on the host: `n_steps` is a python int,
+so the retire group is a plain slice.  Without `fixed_steps`, termination
+is checked every `CHECK_EVERY` iterations (iterations after completion are
+exact no-ops: every lane is DONE, no work is left, and masked draws do not
+advance streams), and the film is updated in place (index_add_).  With
 `fixed_steps=n` the loop runs exactly n iterations with no readback, the
 film (or the loss-cotangent scalar) is updated out of place, and every
 iteration runs under torch.utils.checkpoint, so a backward pass through the
@@ -69,9 +73,10 @@ CHECK_EVERY = 16
 
 
 class LiResult(NamedTuple):
-    film_rgb: torch.Tensor                  # (3 * (H*W + 1),) channel-major
+    film_rgb: Optional[torch.Tensor]        # regen: (3 * (H*W + 1),) film
     iterations: int                         # loop iterations run
     alive_hist: Optional[torch.Tensor] = None   # (iterations,) alive lanes
+    L: Optional[torch.Tensor] = None        # wave mode: (N, L) radiance
 
 
 @dataclasses.dataclass
@@ -147,24 +152,28 @@ def li(
     event_groups: int = 1,
     light_strategy: str = "uniform",
     residual_shadow: bool = False,
-    Le_grid=None,
 ) -> LiResult:
-    """Render the regen workload described by `regen` (see
+    """Wave mode (`regen=None`): trace the rays o / d with wavelengths lam
+    and PCG streams rng through `med` (whose sigma_a / sigma_s / Le hold
+    the per-ray spectra) and return their radiance `L`.  Regen mode: render
+    the workload described by `regen` (see
     parallel/render.py::make_regen_renderer); o / d / lam / rng only give
     the lane count, wavelength count and device.  `regen["loss_cotangent"]`,
     a flat (3 * (H*W + 1),) cotangent, makes the retire stage accumulate
     sum(cot . film) into the (1,) `regen["film_rgb"]` instead of the film
     (parallel/diff.py)."""
+    has_samp_sigma = med.sigma_a_s is not None
     unsupported = [name for name, on in (
         ("surfaces (prims)", len(prims) > 0), ("rgb_mode", rgb_mode),
-        ("homogeneous media", homogeneous), ("Le_grid", Le_grid is not None),
+        ("homogeneous media", homogeneous),
         ("residual_shadow", residual_shadow),
         ("event_groups > 1", event_groups > 1),
         ("retire_every > 1", retire_every > 1),
         ("record_alive with fixed_steps",
          record_alive and fixed_steps is not None),
-        ("non-regen rendering", regen is None),
-        ("regen without accum_spp", not accum_spp)) if on]
+        ("regen without accum_spp", regen is not None and not accum_spp),
+        ("sampling-side sigma overrides in regen mode",
+         regen is not None and has_samp_sigma)) if on]
     if unsupported:
         raise NotImplementedError(
             "volpath_fused.li: not ported yet: " + ", ".join(unsupported))
@@ -174,7 +183,7 @@ def li(
     dev = o.device
     f32 = torch.float32
     g = med.g
-    g_samp = g.detach()
+    g_samp = (g if med.g_s is None else med.g_s).detach()
     rz, ry, rx = med.majorant.shape
     maj_flat = med.majorant.reshape(-1).contiguous()
     dens_flat = med.density.reshape(-1)
@@ -184,43 +193,60 @@ def li(
     route = (march.march_block if march.available(maj_flat.numel(), N)
              else march.march_window)
 
-    R_H, R_W, R_spp = regen["H"], regen["W"], regen["spp"]
-    R_HW = R_H * R_W
-    R_total = int(regen["total_work"])
-    R_cam, R_filt = regen["camera"], regen["filter"]
-    R_kind, R_seed = regen["sampler"], regen["seed"]
-    R_stride = int(regen.get("work_stride", 1))
-    R_cot = regen.get("loss_cotangent", None)
-    assert R_total % R_spp == 0, "accum_spp: total_work % spp != 0"
-    R_items = R_total // R_spp       # a work item is one PIXEL
+    le_grid_flat = (med.Le_grid.reshape(-1) if med.Le_grid is not None
+                    else None)
+    le_grid_dims = (tuple(int(x) for x in med.Le_grid.shape)
+                    if le_grid_flat is not None else None)
 
-    def work_pixel(gw):
-        p_raw = gw % R_HW
-        if R_stride == 1:
-            return p_raw
-        return (p_raw * R_stride) % R_HW
+    if regen is not None:
+        R_H, R_W, R_spp = regen["H"], regen["W"], regen["spp"]
+        R_HW = R_H * R_W
+        R_total = int(regen["total_work"])
+        R_cam, R_filt = regen["camera"], regen["filter"]
+        R_kind, R_seed = regen["sampler"], regen["seed"]
+        R_stride = int(regen.get("work_stride", 1))
+        R_cot = regen.get("loss_cotangent", None)
+        assert R_total % R_spp == 0, "accum_spp: total_work % spp != 0"
+        R_items = R_total // R_spp       # a work item is one PIXEL
 
-    def spawn(work, samp):
-        """Camera ray, wavelengths and PCG stream for (pixel, sample)."""
-        p_idx = work_pixel(work)
-        pixxy = torch.stack([p_idx % R_W, p_idx // R_W], -1).to(torch.int32)
-        ua, ub, rng_s = samplers.film_sample(R_kind, p_idx, samp, R_spp,
-                                             seed=R_seed)
-        off = R_filt.sample_offset(torch.stack([ua, ub], -1)) + 0.5
-        rng_s, ul = pcg_uniform(rng_s)
-        swl = spu.sample_wavelengths_visible(ul)
-        o_s, d_s = R_cam.generate_rays(pixxy, off)
-        return o_s, d_s, swl.lam, swl.pdf, rng_s
+        def work_pixel(gw):
+            p_raw = gw % R_HW
+            if R_stride == 1:
+                return p_raw
+            return (p_raw * R_stride) % R_HW
 
-    def spectra_for(lam_cur):
-        s_a = regen["sigma_a_fn"](lam_cur)
-        s_s = regen["sigma_s_fn"](lam_cur)
-        s_le = regen["Le_fn"](lam_cur)
-        return s_a + s_s, s_a, s_s, s_le
+        def spawn(work, samp):
+            """Camera ray, wavelengths and PCG stream for (pixel, sample)."""
+            p_idx = work_pixel(work)
+            pixxy = torch.stack([p_idx % R_W, p_idx // R_W],
+                                -1).to(torch.int32)
+            ua, ub, rng_s = samplers.film_sample(R_kind, p_idx, samp,
+                                                 R_spp, seed=R_seed)
+            off = R_filt.sample_offset(torch.stack([ua, ub], -1)) + 0.5
+            rng_s, ul = pcg_uniform(rng_s)
+            swl = spu.sample_wavelengths_visible(ul)
+            o_s, d_s = R_cam.generate_rays(pixxy, off)
+            return o_s, d_s, swl.lam, swl.pdf, rng_s
 
-    def samp_sigma(c: _Regs):
-        """Sampling-side spectra: the live ones, detached."""
-        return c.s_a.detach(), c.s_s.detach(), c.s_t.detach()
+        def spectra_for(lam_cur):
+            s_a = regen["sigma_a_fn"](lam_cur)
+            s_s = regen["sigma_s_fn"](lam_cur)
+            s_le = regen["Le_fn"](lam_cur)
+            return s_a + s_s, s_a, s_s, s_le
+
+    if has_samp_sigma:
+        # frozen sampling-side spectra: sample paths stay independent of
+        # the evaluation-side sigma_a / sigma_s (the FD == AD contract)
+        _sa_smp = torch.broadcast_to(med.sigma_a_s.detach(), (N, LANES))
+        _ss_smp = torch.broadcast_to(med.sigma_s_s.detach(), (N, LANES))
+        _st_smp = _sa_smp + _ss_smp
+
+        def samp_sigma(c: _Regs):
+            return _sa_smp, _ss_smp, _st_smp
+    else:
+        def samp_sigma(c: _Regs):
+            """Sampling-side spectra: the live ones, detached."""
+            return c.s_a.detach(), c.s_s.detach(), c.s_t.detach()
 
     def init_segment(so, sd, t_max, rng, need, old):
         """(Re)initialize the DDA registers of lanes in `need` and draw
@@ -251,20 +277,40 @@ def li(
             rng=rng,
         )
 
-    # ---- initial work items: the first N pixels, sample 0 ----
     i64 = torch.int64
-    work0 = torch.arange(N, dtype=i64, device=dev)
-    valid0 = work0 < R_items
     zeros_i = torch.zeros((N,), dtype=i64, device=dev)
-    o, d, lam, lam_pdf0, rng = spawn(torch.clamp(work0, max=R_items - 1),
-                                     zeros_i)
-    s_t0, s_a0, s_s0, s_le0 = spectra_for(lam)
     zero_s = torch.zeros((N, LANES), dtype=f32, device=dev)
     one_s = torch.ones((N, LANES), dtype=f32, device=dev)
     zero_n = torch.zeros((N,), dtype=f32, device=dev)
     false_n = torch.zeros((N,), dtype=torch.bool, device=dev)
+    if regen is not None:
+        # ---- initial work items: the first N pixels, sample 0 ----
+        work0 = torch.arange(N, dtype=i64, device=dev)
+        need0 = work0 < R_items
+        o, d, lam, lam_pdf0, rng = spawn(
+            torch.clamp(work0, max=R_items - 1), zeros_i)
+        s_t0, s_a0, s_s0, s_le0 = spectra_for(lam)
+        work_init = torch.where(need0, work0, -1)
+        cursor_init = torch.tensor(min(N, R_items), dtype=i64, device=dev)
+        samp_init = zeros_i
+        rgb_acc_init = torch.zeros((N, 3), dtype=f32, device=dev)
+        ch_off = torch.arange(3, dtype=i64, device=dev) * (R_HW + 1)
+    else:
+        # ---- wave mode: every lane starts its given camera ray ----
+        need0 = torch.ones((N,), dtype=torch.bool, device=dev)
+        lam_pdf0 = one_s
+        shape = (N, LANES)
+        s_a0 = torch.broadcast_to(med.sigma_a, shape)
+        s_s0 = torch.broadcast_to(med.sigma_s, shape)
+        s_t0 = torch.broadcast_to(med.sigma_a + med.sigma_s, shape)
+        s_le0 = torch.broadcast_to(med.Le, shape)
+        # regen-only registers: (1,) placeholders
+        work_init = torch.zeros((1,), dtype=i64, device=dev)
+        cursor_init = torch.zeros((), dtype=i64, device=dev)
+        samp_init = work_init
+        rgb_acc_init = torch.zeros((1, 3), dtype=f32, device=dev)
     regs = _Regs(
-        pc=torch.where(valid0, PC_MARCH, PC_DONE),
+        pc=torch.where(need0, PC_MARCH, PC_DONE),
         depth=zeros_i, rng=rng, lam=lam, lam_pdf=lam_pdf0,
         s_t=s_t0, s_a=s_a0, s_s=s_s0, s_le=s_le0,
         so=o, sd=d, d_main=d,
@@ -278,14 +324,11 @@ def li(
         T_ray=one_s, r_l_s=one_s, r_u_s=one_s,
         ls_L=zero_s, ls_pdf=zero_n, f_spec=zero_s, spdf_d=zero_n,
         is_delta=false_n,
-        work=torch.where(valid0, work0, -1),
-        cursor=torch.tensor(min(N, R_items), dtype=i64, device=dev),
-        samp=zeros_i,
-        rgb_acc=torch.zeros((N, 3), dtype=f32, device=dev),
+        work=work_init, cursor=cursor_init, samp=samp_init,
+        rgb_acc=rgb_acc_init,
     )
     inf_n = torch.full((N,), torch.inf, dtype=f32, device=dev)
-    regs = init_segment(o, d, inf_n, rng, valid0, regs)
-    ch_off = torch.arange(3, dtype=i64, device=dev) * (R_HW + 1)
+    regs = init_segment(o, d, inf_n, rng, need0, regs)
 
     def block_substep(c: _Regs, K: int) -> _Regs:
         """K-voxel march of every hunting lane, by the route chosen above.
@@ -313,10 +356,11 @@ def li(
             rng, uf2 = pcg_uniform_masked(rng, col_any)
             rng, uf3 = pcg_uniform_masked(rng, col_any)
             u3f = torch.stack([uf1, uf2, uf3], -1)
-            tap = lambda grid: gridops.trilerp_stochastic_flat(
-                grid, dens_dims, p_m, u3f)
+            tap = lambda grid, dims=dens_dims: (
+                gridops.trilerp_stochastic_flat(grid, dims, p_m, u3f))
         else:
-            tap = lambda grid: gridops.trilerp_flat(grid, dens_dims, p_m)
+            tap = lambda grid, dims=dens_dims: gridops.trilerp_flat(
+                grid, dims, p_m)
         dens = tap(dens_flat)
         maxd = c.maxd
         sa = c.s_a * dens[:, None]                 # evaluation side (diff)
@@ -327,11 +371,16 @@ def li(
         # decision / pdf side: the same values detached (no launch), or
         # recomputed from the frozen density when one is given
         sa_smp, ss_smp, st_smp = samp_sigma(c)
-        sig_maj_d, T_maj_d = sig_maj.detach(), T_maj.detach()
-        if dens_s_flat is None:
+        if has_samp_sigma:
+            sig_maj_d = st_smp * maxd[:, None]
+            T_maj_d = torch.exp(-st_smp * c.dl_since[:, None])
+        else:
+            sig_maj_d, T_maj_d = sig_maj.detach(), T_maj.detach()
+        if dens_s_flat is None and not has_samp_sigma:
             sa_d, ss_d, sig_n_d = sa.detach(), ss.detach(), sig_n.detach()
         else:
-            dens_d = tap(dens_s_flat)
+            dens_d = (tap(dens_s_flat) if dens_s_flat is not None
+                      else dens.detach())
             sa_d = sa_smp * dens_d[:, None]
             ss_d = ss_smp * dens_d[:, None]
             sig_n_d = torch.clamp(sig_maj_d - sa_d - ss_d, min=0.0)
@@ -355,7 +404,10 @@ def li(
         betap = c.beta * T_maj / pdf_e_c
         r_e = (c.r_u * sig_maj_d * T_maj_d).detach() / pdf_e_c
         r_e_avg = torch.mean(r_e, dim=-1).detach()
-        contrib_e = (betap * sa * c.s_le
+        # per-voxel emission scale (GridMedium's LeScale grid analogue)
+        Le_here = (c.s_le if le_grid_flat is None
+                   else c.s_le * tap(le_grid_flat, le_grid_dims)[:, None])
+        contrib_e = (betap * sa * Le_here
                      / torch.clamp(r_e_avg, min=1e-30)[:, None])
         emit_ok = col_m & (pdf_e > 0) & (r_e_avg > 0) & (c.depth < max_depth)
         L_acc = c.L + torch.where(emit_ok[:, None], contrib_e, 0.0)
@@ -394,9 +446,10 @@ def li(
         # residual T_maj / T_maj[0]: evaluation numerator over the
         # sampling-side pdf; the trackers take the all-sampling-side form
         T_res = torch.exp(-c.s_t * c.dl_since[:, None])
-        T_res_d = T_res.detach()
-        f_res = T_res / torch.clamp(T_res_d[:, 0:1], min=1e-30)
-        f_res_d = f_res.detach()
+        T_res_d = T_maj_d if has_samp_sigma else T_res.detach()
+        T0_c = torch.clamp(T_res_d[:, 0:1], min=1e-30)
+        f_res = T_res / T0_c
+        f_res_d = T_res_d / T0_c if has_samp_sigma else f_res.detach()
         esc3 = esc_m[:, None]
         beta = torch.where(esc3, beta * f_res, beta)
         r_u = torch.where(esc3, r_u * f_res_d, r_u).detach()
@@ -604,15 +657,20 @@ def li(
         return init_segment(o2, d2, inf_n, c.rng, can, c), film
 
     def busy(c: _Regs) -> bool:
-        return bool(((c.pc != PC_DONE) | (c.work >= 0)).any())
+        live = c.pc != PC_DONE
+        return bool((live if regen is None else live | (c.work >= 0)).any())
 
     def step(c: _Regs, film, n_step: int):
         c = block_substep(c, k_substeps)
         c = handle_events(c)
+        if regen is None:
+            return c, film
         return retire_respawn_accum(c, film, n_step)
 
     hist = []
-    c, film = regs, regen["film_rgb"]
+    # wave mode carries a (1,) placeholder in the film's place
+    c, film = regs, (regen["film_rgb"] if regen is not None
+                     else torch.zeros((1,), dtype=f32, device=dev))
     if fixed_steps is None:
         n_steps = 0
         while n_steps < max_march_steps:
@@ -640,7 +698,8 @@ def li(
         c, film = _Regs(*state[:-1]), state[-1]
         n_steps = n_win * w
     return LiResult(
-        film_rgb=film, iterations=n_steps,
+        film_rgb=film if regen is not None else None, iterations=n_steps,
         alive_hist=(torch.stack(hist) if hist else
                     torch.zeros((0,), dtype=i64, device=dev))
-        if record_alive else None)
+        if record_alive else None,
+        L=c.L if regen is None else None)

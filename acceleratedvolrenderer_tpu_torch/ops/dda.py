@@ -70,12 +70,24 @@ class MediumArrays(NamedTuple):
     density_s: optional frozen sampling-side density grid for the detached
               differentiable estimator (None => the density itself,
               detached); see volpath_fused
+    sigma_a, sigma_s, Le: per-ray (N, L) or broadcastable spectra of the
+              wave path (the regen path evaluates its own per lane)
+    Le_grid:  optional per-voxel emission scale grid
+    sigma_a_s, sigma_s_s: optional frozen sampling-side spectra
+    g_s:      optional frozen sampling-side HG asymmetry
     """
     density: torch.Tensor
     majorant: torch.Tensor
     w2m: torch.Tensor
     g: torch.Tensor
     density_s: Optional[torch.Tensor] = None
+    sigma_a: Optional[torch.Tensor] = None
+    sigma_s: Optional[torch.Tensor] = None
+    Le: Optional[torch.Tensor] = None
+    Le_grid: Optional[torch.Tensor] = None
+    sigma_a_s: Optional[torch.Tensor] = None
+    sigma_s_s: Optional[torch.Tensor] = None
+    g_s: Optional[torch.Tensor] = None
 
 
 def world_to_medium(w2m, p):

@@ -1,17 +1,24 @@
-"""Render entry points, path-regeneration form
+"""Render entry points
 (port of acceleratedvolrenderer_tpu/parallel/render.py: work_stride_for,
-make_regen_renderer and render_regen)."""
+make_wave_renderer, make_regen_renderer, render_regen and render).
+
+Every entry point runs on the CUDA card unless given another `device`
+(utils/device.py::resolve)."""
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..models import samplers
+from ..models.film import Film
 from ..models.integrators import volpath_fused as volpath
 from ..ops import dda
 from ..utils import spectrum as sp
+from ..utils.device import resolve
 
 
 def work_stride_for(hw: int) -> int:
@@ -27,7 +34,108 @@ def work_stride_for(hw: int) -> int:
     return int(s) if s < hw else hw - 1
 
 
-def make_regen_renderer(scene, *, device, n_lanes: int = 4096,
+def _wave_pixels(W, H, pixel_bounds):
+    """(P, 2) int32 (x, y) of the pixels a wave renders: the whole frame, or
+    the film-clipped `pixel_bounds` (x0, x1, y0, y1) rectangle."""
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    pix = np.stack([xs.reshape(-1), ys.reshape(-1)], -1).astype(np.int32)
+    if pixel_bounds is None:
+        return pix
+    x0, x1, y0, y1 = (int(v) for v in pixel_bounds)
+    cx0, cx1, cy0, cy1 = max(0, x0), min(W, x1), max(0, y0), min(H, y1)
+    if cx0 >= cx1 or cy0 >= cy1:
+        raise ValueError(f"pixel bounds ({x0},{x1},{y0},{y1}) do not "
+                         f"intersect the {W}x{H} film")
+    if (cx0, cx1, cy0, cy1) != (x0, x1, y0, y1):
+        warnings.warn(f"pixel bounds clipped to film extent: "
+                      f"({cx0},{cx1},{cy0},{cy1})")
+    keep = ((pix[:, 0] >= cx0) & (pix[:, 0] < cx1)
+            & (pix[:, 1] >= cy0) & (pix[:, 1] < cy1))
+    return pix[keep]
+
+
+def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
+                       device=None):
+    """Single-wave renderer: one camera sample for every pixel, traced in
+    chunks of `rays_per_wave` rays (default 262144; the last chunk is padded
+    with pixel (-1, -1), whose samples the film drops).  PCG streams are
+    keyed by the flat pixel index, so a pixel-bounds render reproduces the
+    full frame's pixels.
+
+    Returns (render_wave, density, majorant), where render_wave(film,
+    density, majorant, sample_idx) -> (film, [loop iterations of each
+    chunk]).  Only scenes with a grid medium are ported; surfaces, the
+    `path` integrators and environment-only scenes raise
+    NotImplementedError."""
+    device = resolve(device)
+    scene = scene.to(device)
+    cam = scene.camera
+    H, W = cam.height, cam.width
+    med_spec = scene.medium
+    if med_spec is None:
+        what = ("surfaces without a medium" if scene.primitives
+                else "environment-only scenes")
+        raise NotImplementedError(f"make_wave_renderer: not ported yet: "
+                                  f"{what}")
+    maj_res = med_spec.maj_res()
+    density = med_spec.density
+    majorant = med_spec.build_majorant()
+    w2m = torch.as_tensor(np.asarray(med_spec.world_to_unit(), np.float32),
+                          device=device)
+    g = torch.tensor(med_spec.g, dtype=torch.float32, device=device)
+
+    pix_all = _wave_pixels(W, H, scene.pixel_bounds)
+    total = len(pix_all)
+    chunk = min(rays_per_wave or 262144, total)
+    n_chunks = (total + chunk - 1) // chunk
+    pad = n_chunks * chunk - total
+    if pad:
+        pix_all = np.concatenate([pix_all, np.full((pad, 2), -1, np.int32)])
+    idx_all = (pix_all[:, 1].astype(np.int64) * W + pix_all[:, 0]) & 0xFFFFFFFF
+    pix_chunks = torch.as_tensor(pix_all.reshape(n_chunks, chunk, 2),
+                                 device=device)
+    idx_chunks = torch.as_tensor(idx_all.reshape(n_chunks, chunk),
+                                 device=device)
+
+    def render_chunk(film, density, majorant, sample_idx, pix, pixidx):
+        sidx = torch.full(pixidx.shape, int(sample_idx), dtype=torch.int64,
+                          device=device)
+        ua, ub, rng = samplers.film_sample(scene.sampler, pixidx, sidx,
+                                           scene.spp, seed=scene.seed)
+        off = scene.filter.sample_offset(torch.stack([ua, ub], -1)) + 0.5
+        if scene.disable_pixel_jitter:
+            off = torch.full_like(off, 0.5)
+        rng, ul = dda.pcg_uniform(rng)
+        if scene.disable_wavelength_jitter:
+            ul = torch.full_like(ul, 0.5)
+        swl = sp.sample_wavelengths_visible(ul)
+        o, d = cam.generate_rays(pix, off)
+        Le = (med_spec.Le_spec(swl.lam) * med_spec.Le_scale
+              if med_spec.Le_spec is not None else torch.zeros_like(swl.lam))
+        med = dda.MediumArrays(
+            density=density, majorant=majorant, w2m=w2m, g=g,
+            sigma_a=med_spec.sigma_a_spec(swl.lam) * med_spec.scale,
+            sigma_s=med_spec.sigma_s_spec(swl.lam) * med_spec.scale, Le=Le)
+        res = volpath.li(
+            med, scene.lights, o, d, swl.lam, rng, maj_res=maj_res,
+            homogeneous=med_spec.homogeneous, max_depth=scene.max_depth,
+            max_march_steps=scene.max_march_steps,
+            prims=tuple(scene.primitives),
+            light_strategy=scene.light_sampler)
+        return film.add_samples(pix, res.L, swl), res.iterations
+
+    def render_wave(film, density, majorant, sample_idx):
+        iterations = []
+        for ci in range(n_chunks):
+            film, it = render_chunk(film, density, majorant, sample_idx,
+                                    pix_chunks[ci], idx_chunks[ci])
+            iterations.append(it)
+        return film, iterations
+
+    return render_wave, density, majorant
+
+
+def make_regen_renderer(scene, *, device=None, n_lanes: int = 4096,
                         spp: Optional[int] = None, k_substeps: int = 16,
                         stochastic_filter: bool = False,
                         retire_every: int = 1,
@@ -42,6 +150,7 @@ def make_regen_renderer(scene, *, device, n_lanes: int = 4096,
     full lane occupancy.  Returns (run, density, majorant), where
     run(density, majorant, film_rgb) -> volpath_fused.LiResult adds the
     frame into the flat channel-major film (in place)."""
+    device = resolve(device)
     scene = scene.to(device)
     cam = scene.camera
     H, W = cam.height, cam.width
@@ -100,6 +209,11 @@ def make_regen_renderer(scene, *, device, n_lanes: int = 4096,
     return run, density, majorant
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def film_to_image(film_rgb, H, W, spp):
     """Flat channel-major film (3 * (H*W + 1),) -> (H, W, 3) float32 numpy
     image; the per-sample weight is 1, so the normalizer is spp."""
@@ -109,26 +223,24 @@ def film_to_image(film_rgb, H, W, spp):
 
 def render_regen(scene, spp: Optional[int] = None, n_lanes: int = 4096,
                  k_substeps: int = 16, stochastic_filter: bool = False, *,
-                 device, **knobs):
+                 device=None, **knobs):
     """Full render via path regeneration on `device`: ((H, W, 3) numpy
     image, stats).  Extra knobs (retire_groups, accum_spp, work_stride,
     record_alive, ...) forward to make_regen_renderer.  The stats hold the
     loop's iteration count and, with record_alive, the mean lane occupancy
     over the iterations that had a live lane."""
+    dev = resolve(device)
     spp = spp if spp is not None else scene.spp
     H, W = scene.height, scene.width
     run, density, majorant = make_regen_renderer(
-        scene, device=device, n_lanes=n_lanes, spp=spp,
+        scene, device=dev, n_lanes=n_lanes, spp=spp,
         k_substeps=k_substeps, stochastic_filter=stochastic_filter, **knobs)
     film_rgb = torch.zeros((3 * (H * W + 1),), dtype=torch.float32,
-                           device=device)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+                           device=dev)
+    _sync(dev)
     t0 = time.time()
     res = run(density, majorant, film_rgb)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     dt = time.time() - t0
     stats = {"render_time": dt, "spp": spp,
              "rays_per_sec": H * W * spp / dt, "iterations": res.iterations}
@@ -138,3 +250,33 @@ def render_regen(scene, spp: Optional[int] = None, n_lanes: int = 4096,
         n = min(n_lanes, H * W * spp)
         stats["occupancy"] = float(h.sum()) / (live * n) if live else 0.0
     return film_to_image(res.film_rgb, H, W, spp), stats
+
+
+def render(scene, spp: Optional[int] = None, progress: bool = False, *,
+           device=None):
+    """Full render through the wave renderer (chunks of the default
+    262144 rays), the library's default entry: returns ((H, W, 3) numpy
+    image, stats).  The stats hold the render seconds, spp, rays per
+    second, the loop iterations summed over the chunks and waves, and those
+    of each chunk in wave order.  Other chunk sizes: make_wave_renderer."""
+    dev = resolve(device)
+    spp = spp if spp is not None else scene.spp
+    H, W = scene.height, scene.width
+    render_wave, density, majorant = make_wave_renderer(scene, device=dev)
+    film = Film.create(H, W, dev)
+    chunk_iterations = []
+    _sync(dev)
+    t0 = time.time()
+    for s in range(spp):
+        film, its = render_wave(film, density, majorant, s)
+        chunk_iterations += its
+        if progress and (s & (s + 1)) == 0:
+            _sync(dev)
+            print(f"  wave {s + 1}/{spp}  {time.time() - t0:.1f}s",
+                  flush=True)
+    img = film.to_image().cpu().numpy()
+    dt = time.time() - t0
+    return img, {"render_time": dt, "spp": spp,
+                 "rays_per_sec": H * W * spp / dt,
+                 "iterations": sum(chunk_iterations),
+                 "chunk_iterations": chunk_iterations}

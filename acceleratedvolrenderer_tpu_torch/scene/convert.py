@@ -11,8 +11,9 @@ import torch
 
 from ..models import lights as lm
 from ..models.cameras import PerspectiveCamera
-from ..models.film import GaussianFilter
+from ..models.film import BoxFilter, GaussianFilter, TriangleFilter
 from ..models.media import MediumSpec
+from ..utils.device import resolve
 from ..utils.spectrum import constant_spectrum
 from ..utils.vecmath import Transform
 from .types import Scene
@@ -21,24 +22,35 @@ KEYS = ("density", "majorant", "w2m", "c2w", "fov_deg", "width", "height",
         "sun_dir", "sun_L", "sky_L", "sigma_a", "sigma_s", "scale", "g",
         "spp", "max_depth", "seed", "max_march_steps", "scene_radius")
 
+FILTERS = {"gaussian": GaussianFilter, "box": BoxFilter,
+           "triangle": TriangleFilter}
 
-def scene_from_arrays(arrays: dict, device) -> Scene:
+
+def scene_from_arrays(arrays: dict, device=None) -> Scene:
     """arrays: density (nz, ny, nx), majorant (rz, ry, rx), w2m (4, 4)
     world -> unit-cube medium, c2w (4, 4) camera -> world, fov_deg, width,
     height, sun_dir (3,) propagation direction, sun_L / sky_L constant
-    radiances, sigma_a / sigma_s / scale / g medium constants, spp,
-    max_depth, seed, max_march_steps and scene_radius."""
+    radiances (None: no such light), sigma_a / sigma_s / scale / g medium
+    constants, spp, max_depth, seed, max_march_steps and scene_radius.
+    Optional: Le / Le_scale constant medium emission, filter (name, *args)
+    with a name of FILTERS (default Gaussian), and the wave renderer's
+    disable_pixel_jitter, disable_wavelength_jitter and pixel_bounds.
+    Tensors go to `device` (the CUDA card by default)."""
     missing = [k for k in KEYS if k not in arrays]
     if missing:
         raise KeyError(f"scene_from_arrays: missing {missing}")
+    device = resolve(device)
     a = arrays
     density = np.asarray(a["density"], np.float32)
     majorant = np.asarray(a["majorant"], np.float32)
+    le = a.get("Le")
     med = MediumSpec(
         sigma_a_spec=constant_spectrum(a["sigma_a"]),
         sigma_s_spec=constant_spectrum(a["sigma_s"]),
         g=float(a["g"]), scale=float(a["scale"]),
         density=torch.as_tensor(density, device=device),
+        Le_spec=None if le is None else constant_spectrum(le),
+        Le_scale=float(a.get("Le_scale", 1.0)),
         m2w=np.linalg.inv(np.asarray(a["w2m"], np.float64)),
         majorant_res=tuple(int(r) for r in majorant.shape[::-1]),
         majorant=torch.as_tensor(majorant, device=device),
@@ -49,17 +61,23 @@ def scene_from_arrays(arrays: dict, device) -> Scene:
         fov_deg=float(a["fov_deg"]), width=int(a["width"]),
         height=int(a["height"]))
     radius = float(a["scene_radius"])
+    lights = []
+    if a["sun_L"] is not None:
+        lights.append(lm.DistantLight(
+            direction=torch.as_tensor(np.asarray(a["sun_dir"]),
+                                      dtype=torch.float32, device=device),
+            spectrum=constant_spectrum(a["sun_L"]), scene_radius=radius))
+    if a["sky_L"] is not None:
+        lights.append(lm.UniformInfiniteLight(
+            spectrum=constant_spectrum(a["sky_L"]), scene_radius=radius))
+    name, *fargs = a.get("filter", ("gaussian",))
     return Scene(
-        camera=cam, medium=med,
-        lights=[
-            lm.DistantLight(
-                direction=torch.as_tensor(np.asarray(a["sun_dir"]),
-                                          dtype=torch.float32, device=device),
-                spectrum=constant_spectrum(a["sun_L"]), scene_radius=radius),
-            lm.UniformInfiniteLight(spectrum=constant_spectrum(a["sky_L"]),
-                                    scene_radius=radius),
-        ],
+        camera=cam, medium=med, lights=lights,
         max_depth=int(a["max_depth"]), spp=int(a["spp"]),
         seed=int(a["seed"]), max_march_steps=int(a["max_march_steps"]),
-        scene_radius=radius, filter=GaussianFilter(),
+        scene_radius=radius, filter=FILTERS[name](*fargs),
+        disable_pixel_jitter=bool(a.get("disable_pixel_jitter", False)),
+        disable_wavelength_jitter=bool(a.get("disable_wavelength_jitter",
+                                             False)),
+        pixel_bounds=a.get("pixel_bounds"),
     )

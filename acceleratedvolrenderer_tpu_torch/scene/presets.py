@@ -11,6 +11,7 @@ from ..models.film import GaussianFilter
 from ..models.media import MediumSpec, bake_cloud_density
 from ..ops import grid as gridops
 from ..utils import spectrum as sp
+from ..utils.device import resolve
 from ..utils.vecmath import Transform
 from .types import Scene
 
@@ -30,10 +31,11 @@ CLOUD_SUN_DIR = np.array([-0.5826, -0.7660, -0.2717])
 
 
 def cloud(width=1280, height=720, spp=16, max_depth=40, grid_res=256,
-          g=0.877, sigma_scale=2.0, *, device):
+          g=0.877, sigma_scale=2.0, *, device=None):
     """Disney-cloud-720p analog: baked procedural grid_res^3 density with a
     16^3 majorant, strong forward scattering, sun plus sky.  Every tensor
-    of the scene is created on `device`."""
+    of the scene is created on `device` (the CUDA card by default)."""
+    device = resolve(device)
     density = bake_cloud_density(res=(grid_res, grid_res, grid_res),
                                  density=1.0, extent=0.48, frequency=6.0)
     half = 100.0

@@ -21,6 +21,12 @@ class Scene:
     sampler: str = "independent"
     max_march_steps: int = 100000
     light_sampler: str = "uniform"
+    primitives: List = field(default_factory=list)   # no shape is ported
+    # wave renderer knobs (--disable-pixel-jitter, --disable-wavelength-
+    # jitter, --pixelbounds (x0, x1, y0, y1))
+    disable_pixel_jitter: bool = False
+    disable_wavelength_jitter: bool = False
+    pixel_bounds: Optional[tuple] = None
 
     @property
     def width(self):

@@ -73,3 +73,10 @@ def to_xyz(values, swl: SampledWavelengths):
     ok = swl.pdf > 0.0
     w = torch.where(ok, values / torch.where(ok, swl.pdf, 1.0), 0.0)
     return torch.mean(w[..., None] * xyz, dim=-2) / CIE_Y_INTEGRAL
+
+
+def y_luminance(values, swl: SampledWavelengths):
+    """MC estimate of the luminance Y of a spectral sample -> (...,)."""
+    ok = swl.pdf > 0.0
+    w = torch.where(ok, values / torch.where(ok, swl.pdf, 1.0), 0.0)
+    return torch.mean(w * cie_y(swl.lam), dim=-1) / CIE_Y_INTEGRAL

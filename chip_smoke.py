@@ -9,8 +9,9 @@ Phases (any failure raises, and the script exits non-zero):
      with nvcc into build/kernels/ and prints the build time;
   3. kernel vs plain: the march kernel against its eager PyTorch version on
      random lanes (N 16384 and 1000, K 1/8/16, 16^3/32^3/64^3 tables,
-     residual mode off and on): integers and flags equal, floats to
-     rtol 1e-6; times both at the render's shape (N 16384, K 8, 16^3);
+     residual mode off and on; and N 262144, K 8, 16^3, the lane count of
+     the wave path's chunks): integers and flags equal, floats to rtol
+     1e-6; times both at the render's shape (N 16384, K 8, 16^3);
   4. gather kernel vs plain: the table gather against its eager version,
      V 128 / 1000 / 4096 / 32768 / 64^3 (staged in shared memory, or read
      in place above the opt-in limit) and n 100 / 96*8 / 208*8 / 1000*8 /
@@ -36,22 +37,53 @@ Phases (any failure raises, and the script exits non-zero):
      (fused route); central differences on the 3 largest-gradient voxels
      equal the gradient to 1%;
   8. slice: the 1280x720 cloud over the 256^3 grid, 16384 lanes, the bench
-     knobs, spp 16: one warm-up render, then one timed render.  The film
-     must be finite with a positive mean, and the march kernel must have
-     launched exactly once per loop iteration;
+     knobs, spp 16: one timed render (the earlier phases have run every
+     kernel and code path of it).  The film must be finite with a positive
+     mean, and the march kernel must have launched exactly once per loop
+     iteration;
   9. full-frame gradient: the same scene at spp 4 (bench.py's backward
      leg): a record_alive forward gives the iterations, then the gradient
      over int(1.12 * iterations) + 16 checkpointed steps in windows of
      max(sqrt(steps), 16).  Loss finite and positive, gradient finite with
      a nonzero maximum, and the march kernel launched twice per step run
      (forward sweep and recompute); prints the seconds, Mrays/s and peak
-     device memory.
-The last two lines are the kernels' JSON record and the result JSON.
+     device memory;
+ 10. dma kernel vs plain: the tile-DMA gather against its eager version
+     over the 256^3 table, chunk 16 / 100 / 1000 / 16384 random in-range
+     tile ids and one chunk with out-of-range ids, bitwise equal, one launch
+     each; times both at chunk 16384, and the one PyTorch call that
+     returns the same tile, t3[tile_idx[j*]]; prints the bound of the
+     design's fetches and that of the output alone;
+ 11. gather designs: scripts/measure_gather_designs_torch.py's measure(16384,
+     200), the dma kernel's path: ns per element of the baseline gather,
+     the tile-DMA design and the argsort bound; the wrapper is called
+     1 + 200 times (warm-up and graph capture) and the kernel runs
+     1 + 3 * 200 times (the graph is replayed three times);
+ 12. wave frame, small: the 32x24 cloud through make_wave_renderer and Film
+     (render()'s loop) on the GPU and the CPU at 256 rays per chunk (fused
+     route: one march launch per loop iteration) and 200 (window route: one
+     gather launch per iteration), compared at phase 5's tolerances;
+ 13. wave gradient FD gate: make_diff_renderer_multi on the 6x6 scene of
+     tests/test_diff.py (window route) and on a 16x16 cloud with a 16^3
+     grid, absorption and emission (256 lanes, fused route): all four
+     DIFF_PARAMS families finite and nonzero, central differences equal
+     the gradient to test_diff's tolerances (density 2e-3, sigma_a /
+     sigma_s and Le_grid 5e-3), two launches per step per sample;
+ 14. wave frame, full width: phase 8's scene through render() at spp 1 in
+     chunks of 262144 rays: finite, positive mean within 2% of phase 8's
+     regen frame mean (both estimate one image), march launches equal to
+     the loop iterations summed over the chunks.
+Each phase prints its seconds.  The last two lines are the kernels' JSON
+record (with each kernel's bound: bytes read once plus written once over
+3.35 TB/s, against operations over 67 TFLOP/s float32; the dma kernel's
+launches are its runs on the card in phase 11, beside its wrapper calls)
+and the result JSON.
 """
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -69,6 +101,11 @@ GRAD_SMALL = dict(width=16, height=12, spp=2, max_depth=4, grid_res=16)
 GRAD_SMALL_KW = dict(fixed_steps=96, spp=2, accum_spp=True, retire_groups=2,
                      k_substeps=8, stochastic_filter=True, remat_window=16,
                      work_stride="auto")
+WAVE_LANES = (256, 200)          # fused and window route of the 32x24 cloud
+WAVE_GRAD_KW = dict(fixed_steps=96, spp=2)
+DMA_CHUNKS = (16, 100, 1000, 16384)
+HBM_BYTES_PER_MS = 3.35e9        # H100 SXM device memory, 3.35 TB/s
+F32_OPS_PER_MS = 67e9            # H100 SXM float32 outside the tensor cores
 
 
 def card_line():
@@ -112,30 +149,51 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    b, o = n_bytes / HBM_BYTES_PER_MS, n_ops / F32_OPS_PER_MS
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
 def phase_kernel(dev):
     from acceleratedvolrenderer_tpu_torch.ops import march
 
     max_err = 0.0
     cases = 0
-    for n in (16384, 1000):
-        for res in ((16, 16, 16), (32, 32, 32), (64, 64, 64)):
-            for residual in (False, True):
-                lanes = to_dev(march.random_lanes(n, res, seed=n + res[0],
-                                                  residual=residual), dev)
-                for K in (1, 8, 16):
-                    out = march.march_block(K=K, maj_res=res, **lanes)
-                    ref = march.march_block_plain(K=K, maj_res=res, **lanes)
-                    torch.cuda.synchronize()
-                    max_err = max(max_err, compare_march(out, ref))
-                    cases += 1
+    grid = [(n, res, residual, K) for n in (16384, 1000)
+            for res in ((16, 16, 16), (32, 32, 32), (64, 64, 64))
+            for residual in (False, True) for K in (1, 8, 16)]
+    # the wave path's chunks: 262144 lanes, K 8 over the 16^3 majorant
+    grid += [(262144, (16, 16, 16), residual, 8) for residual in (False, True)]
+    for n, res, residual, K in grid:
+        lanes = to_dev(march.random_lanes(n, res, seed=n + res[0],
+                                          residual=residual), dev)
+        out = march.march_block(K=K, maj_res=res, **lanes)
+        ref = march.march_block_plain(K=K, maj_res=res, **lanes)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare_march(out, ref))
+        cases += 1
     lanes = to_dev(march.random_lanes(16384, (16, 16, 16), seed=7), dev)
     kw = dict(K=8, maj_res=(16, 16, 16), **lanes)
     ms = time_ms(lambda: march.march_block(**kw), 200)
     plain_ms = time_ms(lambda: march.march_block_plain(**kw), 20)
-    print(f"kernel vs plain: {cases} cases equal, max |err| {max_err:.3e}; "
-          f"N 16384 K 8 16^3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-          flush=True)
-    return max_err, ms, plain_ms
+    # bytes: the inputs (table and lane registers) and the outputs once;
+    # operations: about 30 float32 operations per voxel step of a hunting
+    # lane (DDA advance, majorant product, target test)
+    out = march.march_block(**kw)
+    b = bound(nbytes(*lanes.values()) + nbytes(*out.values()),
+              30 * 8 * int(lanes["hunting"].sum()))
+    print(f"kernel vs plain: {cases} cases equal (N 16384 / 1000 and "
+          f"262144), max |err| {max_err:.3e}; "
+          f"N 16384 K 8 16^3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b[0]:.6f} ms ({b[1]})", flush=True)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1], library_ms=None)
 
 
 def phase_gather(dev):
@@ -167,6 +225,10 @@ def phase_gather(dev):
                           device=dev)
     ms = time_ms(lambda: gather.table_gather(table, idx), 200)
     plain_ms = time_ms(lambda: gather.table_gather_plain(table, idx), 200)
+    # yardstick: the one PyTorch call that computes the same gather on
+    # these in-range indices
+    library_ms = time_ms(lambda: table[idx], 200)
+    b = bound(nbytes(table, idx) + 4 * idx.numel(), 0)   # + the output
     win_err = 0.0
     for n in (1000, WINDOW_LANES, 16384):
         lanes = to_dev(march.random_lanes(n, (16, 16, 16), seed=n), dev)
@@ -180,10 +242,12 @@ def phase_gather(dev):
         win_err = max(win_err, compare_march(out,
                                              march.march_block_plain(**kw)))
     print(f"gather vs plain: {cases} cases bitwise equal; n 16384*8 V 4096: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; window route vs "
-          f"plain march (N 1000, {WINDOW_LANES} and 16384, K 8): equal, one "
-          f"gather launch each, max |err| {win_err:.3e}", flush=True)
-    return err, ms, plain_ms
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, table[idx] "
+          f"{library_ms:.4f} ms, bound {b[0]:.6f} ms ({b[1]}); window route "
+          f"vs plain march (N 1000, {WINDOW_LANES} and 16384, K 8): equal, "
+          f"one gather launch each, max |err| {win_err:.3e}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], library_ms=library_ms)
 
 
 def compare_frames(what, a, b):
@@ -315,8 +379,6 @@ def phase_slice(dev, card):
                           device=dev)
     scene.max_march_steps = 4096
     print(f"scene built in {time.time() - t0:.1f} s", flush=True)
-    render.render_regen(scene, device=dev, record_alive=True,
-                        **BENCH_KNOBS)                       # warm-up
     march.launches = 0
     img, st = render.render_regen(scene, device=dev, record_alive=True,
                                   **BENCH_KNOBS)
@@ -333,7 +395,7 @@ def phase_slice(dev, card):
           f"{st['iterations']} iterations, occupancy {st['occupancy']:.4f}, "
           f"{st['render_time']:.3f} s, {mrays:.4f} Mrays/s, film mean "
           f"{img.mean():.6f} on {card}", flush=True)
-    return launches, scene
+    return launches, scene, float(img.mean())
 
 
 def phase_grad_full(dev, scene, card):
@@ -386,6 +448,261 @@ def phase_grad_full(dev, scene, card):
     return counts[0]
 
 
+def phase_dma(dev):
+    from acceleratedvolrenderer_tpu_torch.ops import dma_gather as dma
+
+    v = 256 ** 3
+    n_tiles = v // dma.TILE_ELEMS
+    table = torch.rand(v, generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    cases = [(c, np.random.default_rng(c).integers(0, n_tiles, c))
+             for c in DMA_CHUNKS]
+    oob = np.random.default_rng(5).integers(-40, n_tiles + 40, 1000)
+    oob[dma.last_slot0(1000)] = n_tiles + 3        # slot 0 ends as zeros
+    cases.append(("1000 out of range", oob))
+    for what, ids in cases:
+        idx = torch.as_tensor(ids.astype(np.int32), device=dev)
+        before = dma.launches
+        out = dma.dma_gather(table, idx)
+        ref = dma.dma_gather_plain(table, idx)
+        torch.cuda.synchronize()
+        if dma.launches != before + 1 or not torch.equal(out, ref):
+            raise AssertionError(f"dma chunk {what}: kernel and plain "
+                                 "disagree or the kernel did not launch")
+    if not bool((out == 0).all()):
+        raise AssertionError("dma: an out-of-range last id must give zeros")
+    idx16k = torch.as_tensor(cases[3][1].astype(np.int32), device=dev)
+    ms = time_ms(lambda: dma.dma_gather(table, idx16k), 20)
+    plain_ms = time_ms(lambda: dma.dma_gather_plain(table, idx16k), 200)
+    # yardstick: the one PyTorch call that returns the output tile; it does
+    # none of the design's 16384 fetches, which are what the kernel measures
+    t3, j = table.view(-1, *dma.TILE), dma.last_slot0(idx16k.shape[0])
+    library_ms = time_ms(lambda: t3[idx16k[j]], 200)
+    # bytes: every distinct tile fetched once, the ids and the output tile;
+    # beside it, the output alone: one id read, one tile read and written
+    distinct = int(torch.unique(idx16k).numel())
+    b = bound(distinct * 4 * dma.TILE_ELEMS + nbytes(idx16k) + 4 * 1024, 0)
+    b_out = bound(4 + 2 * 4 * 1024, 0)
+    print(f"dma kernel vs plain: {len(cases)} cases bitwise equal (chunks "
+          f"{DMA_CHUNKS} and 1000 with out-of-range ids), one launch each; "
+          f"chunk 16384 over 256^3 ({distinct} distinct tiles): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, t3[tile_idx[j*]] "
+          f"{library_ms:.4f} ms, bound of the fetches {b[0]:.6f} ms "
+          f"({b[1]}), of the output alone {b_out[0]:.6f} ms", flush=True)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], library_ms=library_ms,
+                bound_output_ms=b_out[0])
+
+
+def phase_gather_designs(dev):
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import measure_gather_designs_torch as designs
+    from acceleratedvolrenderer_tpu_torch.ops import dma_gather as dma
+
+    iters = 200
+    dma.launches = 0
+    out = designs.measure(16384, iters, device=dev)
+    calls, runs = dma.launches, out["dma_kernel_runs"]
+    print(f"gather designs (N 16384, {iters} dependent steps, 256^3 table, "
+          f"best of {designs.REPLAYS} CUDA-graph replays): baseline "
+          f"table[idx] {out['xla_gather_ns_per_el']:.4f} ns/element, tile "
+          f"DMA {out['dma_tile_ns_per_el']:.4f}, argsort bound "
+          f"{out['argsort_ns_per_el']:.4f}; dma wrapper calls {calls}, "
+          f"kernel runs {runs}", flush=True)
+    if (calls, out["dma_wrapper_calls"], runs) != (
+            1 + iters, 1 + iters, 1 + designs.REPLAYS * iters):
+        raise AssertionError(f"gather designs: dma wrapper calls {calls}, "
+                             f"kernel runs {runs}, expected {1 + iters} and "
+                             f"{1 + designs.REPLAYS * iters}")
+    return runs, calls
+
+
+def wave_frame(scene, rays_per_wave, dev):
+    """render()'s loop at a chosen chunk size: make_wave_renderer and a
+    Film over scene.spp waves; ((H, W, 3) numpy image, loop iterations)."""
+    from acceleratedvolrenderer_tpu_torch.models.film import Film
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    render_wave, density, majorant = render.make_wave_renderer(
+        scene, rays_per_wave=rays_per_wave, device=dev)
+    film, iterations = Film.create(scene.height, scene.width, dev), 0
+    for s in range(scene.spp):
+        film, its = render_wave(film, density, majorant, s)
+        iterations += sum(its)
+    return film.to_image().cpu().numpy(), iterations
+
+
+def phase_wave_small(dev):
+    from acceleratedvolrenderer_tpu_torch.ops import gather, march
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    for lanes, route in zip(WAVE_LANES, ("fused", "window")):
+        imgs = []
+        for d in (dev, torch.device("cpu")):
+            march.launches = gather.launches = 0
+            img, it = wave_frame(presets.cloud(**SMALL, device=d), lanes, d)
+            counts = (march.launches, gather.launches)
+            if d.type != "cuda":
+                want = (0, 0)                 # the CPU launches nothing
+            else:
+                want = (it, 0) if route == "fused" else (0, it)
+            if counts != want:
+                raise AssertionError(f"wave {route} on {d}: (march, gather) "
+                                     f"launches {counts}, expected {want}")
+            imgs.append((img, it))
+        gpu, cpu = imgs[0][0], imgs[1][0]
+        if gpu.shape != (24, 32, 3) or not np.isfinite(gpu).all():
+            raise AssertionError("wave small: bad shape or non-finite pixels")
+        print(f"wave frame ({lanes} rays per chunk, {route} route): "
+              f"iterations gpu {imgs[0][1]} cpu {imgs[1][1]}, one "
+              f"{'march' if route == 'fused' else 'gather'} launch each on "
+              "the gpu", flush=True)
+        compare_frames(f"wave frame {route} gpu vs cpu", gpu, cpu)
+
+
+def diff_small_scene(dev):
+    """tests/test_diff.py's small_scene(sigma_a=0.6, sigma_s=0.9, le=1.5),
+    built through the port: a random 4^3 density in the unit cube, a 2^3
+    majorant, a 6x6 look_at camera, sun and sky, a box filter."""
+    from acceleratedvolrenderer_tpu_torch.models import lights as lm
+    from acceleratedvolrenderer_tpu_torch.models.cameras import (
+        PerspectiveCamera)
+    from acceleratedvolrenderer_tpu_torch.models.film import BoxFilter
+    from acceleratedvolrenderer_tpu_torch.models.media import MediumSpec
+    from acceleratedvolrenderer_tpu_torch.scene.types import Scene
+    from acceleratedvolrenderer_tpu_torch.utils.spectrum import (
+        constant_spectrum as flat)
+    from acceleratedvolrenderer_tpu_torch.utils.vecmath import look_at
+
+    rng = np.random.default_rng(0)
+    dens = (0.5 + 0.5 * rng.random((4, 4, 4))).astype(np.float32)
+    med = MediumSpec(sigma_a_spec=flat(0.6), sigma_s_spec=flat(0.9), g=0.0,
+                     scale=1.0, density=torch.as_tensor(dens, device=dev),
+                     Le_spec=flat(1.5), majorant_res=(2, 2, 2))
+    cam = PerspectiveCamera(
+        c2w=look_at((0.5, 0.5, -2.5), (0.5, 0.5, 0.5), (0, 1, 0), dev),
+        fov_deg=30.0, width=6, height=6)
+    lights = [lm.DistantLight(direction=torch.tensor([0.0, -1.0, 0.0],
+                                                     device=dev),
+                              spectrum=flat(5.0), scene_radius=10.0),
+              lm.UniformInfiniteLight(spectrum=flat(0.3), scene_radius=10.0)]
+    return Scene(camera=cam, medium=med, lights=lights, max_depth=3,
+                 filter=BoxFilter(), spp=2, scene_radius=10.0)
+
+
+def wave_cloud16(dev):
+    """A 16x16 cloud over a 16^3 grid (256 lanes: the fused route), with
+    absorption and emission so that every DIFF_PARAMS family has a
+    gradient."""
+    import dataclasses
+
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+    from acceleratedvolrenderer_tpu_torch.utils.spectrum import (
+        constant_spectrum as flat)
+
+    scene = presets.cloud(16, 16, spp=2, max_depth=4, grid_res=16,
+                          device=dev)
+    scene.medium = dataclasses.replace(scene.medium, sigma_a_spec=flat(0.3),
+                                       Le_spec=flat(1.5))
+    return scene
+
+
+def phase_wave_grad_fd(dev):
+    from acceleratedvolrenderer_tpu_torch.ops import gather, march
+    from acceleratedvolrenderer_tpu_torch.parallel import diff
+
+    steps, spp = WAVE_GRAD_KW["fixed_steps"], WAVE_GRAD_KW["spp"]
+    for route, scene in (("window", diff_small_scene(dev)),
+                         ("fused", wave_cloud16(dev))):
+        loss_fn, grad_fn = diff.make_diff_renderer_multi(
+            scene, device=dev, **WAVE_GRAD_KW)
+        dens = scene.medium.density
+        shape = tuple(dens.shape)
+        le_grid = torch.as_tensor(
+            (0.5 + np.random.default_rng(1).random(shape)).astype(np.float32),
+            device=dev)
+        params = {"density": dens, "sigma_a": 1.0, "sigma_s": 1.0,
+                  "Le_grid": le_grid}
+        march.launches = gather.launches = 0
+        g = grad_fn(params)
+        counts = (march.launches, gather.launches)
+        n = 2 * spp * steps          # forward sweep and recompute
+        want = (0, n) if route == "window" else (n, 0)
+        if counts != want:
+            raise AssertionError(f"wave grad {route}: (march, gather) "
+                                 f"launches {counts}, expected {want}")
+        g = {k: v.cpu().numpy() for k, v in g.items()}
+        for k, v in g.items():
+            if not (np.isfinite(v).all() and np.abs(v).max() > 0):
+                raise AssertionError(f"wave grad {route}: {k} gradient not "
+                                     "finite or identically zero")
+
+        def fd(key, delta, eps):
+            with torch.no_grad():
+                p1 = dict(params, **{key: params[key] + delta})
+                p2 = dict(params, **{key: params[key] - delta})
+                return (float(loss_fn(p1)) - float(loss_fn(p2))) / (2 * eps)
+
+        def voxel(key, eps, flat_idx):
+            e = torch.zeros(int(np.prod(shape)), device=dev)
+            e[int(flat_idx)] = eps
+            return fd(key, e.reshape(shape), eps)
+
+        rows = []
+        checks = [("density", 2e-3, 2e-3, 1e-3, fi) for fi in
+                  np.argsort(np.abs(g["density"]).reshape(-1))[::-1][:2]]
+        checks += [(k, 1e-3, 5e-3, 1e-3, None) for k in ("sigma_a",
+                                                          "sigma_s")]
+        checks.append(("Le_grid", 2e-3, 5e-3, 1e-4,
+                       int(np.argmax(np.abs(g["Le_grid"])))))
+        for key, eps, tol, floor, fi in checks:
+            if fi is None:
+                f, a = fd(key, eps, eps), float(g[key])
+            else:
+                f, a = voxel(key, eps, fi), float(g[key].reshape(-1)[fi])
+            rows.append(f"{key}{'' if fi is None else f' voxel {int(fi)}'} "
+                        f"fd {f:.6e} ad {a:.6e}")
+            if abs(f - a) > tol * max(abs(f), abs(a), floor):
+                raise AssertionError(f"wave grad {route}: {rows[-1]}")
+        print(f"wave grad fd == ad ({route} route, {scene.width}x"
+              f"{scene.height}, (march, gather) launches {counts}): "
+              + "; ".join(rows), flush=True)
+
+
+def phase_wave_full(dev, scene, regen_mean, card):
+    from acceleratedvolrenderer_tpu_torch.ops import march
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    march.launches = 0
+    img, st = render.render(scene, spp=1, device=dev)
+    launches = march.launches
+    rel = abs(float(img.mean()) - regen_mean) / regen_mean
+    mrays = scene.width * scene.height / st["render_time"] / 1e6
+    print(f"wave frame {scene.width}x{scene.height} spp 1 grid 256^3, "
+          f"{len(st['chunk_iterations'])} chunks of 262144 rays: iterations "
+          f"{st['chunk_iterations']} (sum {st['iterations']}), march "
+          f"launches {launches}, {st['render_time']:.3f} s, {mrays:.4f} "
+          f"Mrays/s, film mean {img.mean():.6f} vs regen {regen_mean:.6f} "
+          f"(rel diff {rel:.4e}) on {card}", flush=True)
+    if img.shape != (scene.height, scene.width, 3) or not np.isfinite(
+            img).all() or not img.mean() > 0:
+        raise AssertionError("wave full: bad shape, non-finite film or "
+                             "non-positive mean")
+    if launches != st["iterations"]:
+        raise AssertionError(f"wave full: {launches} march launches for "
+                             f"{st['iterations']} loop iterations")
+    if rel > 0.02:
+        raise AssertionError(f"wave full: mean {img.mean()} is not within "
+                             f"2% of the regen frame's {regen_mean}")
+
+
+def timed(name, fn, *args):
+    t0 = time.time()
+    out = fn(*args)
+    print(f"[phase {name}: {time.time() - t0:.1f} s]", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -403,26 +720,32 @@ def main():
              else f"{kernels.build_seconds:.1f} s")
     print(f"build: {built}\n{kernels.build_log.strip()}", flush=True)
 
-    max_err, ms, plain_ms = phase_kernel(dev)
-    g_err, g_ms, g_plain_ms = phase_gather(dev)
-    fused_gpu = phase_small_frame(dev)
-    g_launches = phase_window_frame(dev, fused_gpu)
-    phase_grad_fd(dev)
-    launches, scene = phase_slice(dev, card)
-    phase_grad_full(dev, scene, card)
+    march_rec = timed("kernel", phase_kernel, dev)
+    gather_rec = timed("gather", phase_gather, dev)
+    dma_rec = timed("dma", phase_dma, dev)
+    dma_runs, dma_calls = timed("gather designs", phase_gather_designs,
+                                dev)
+    fused_gpu = timed("small frame", phase_small_frame, dev)
+    g_launches = timed("window frame", phase_window_frame, dev, fused_gpu)
+    timed("wave small", phase_wave_small, dev)
+    timed("grad fd", phase_grad_fd, dev)
+    timed("wave grad fd", phase_wave_grad_fd, dev)
+    launches, scene, regen_mean = timed("slice", phase_slice, dev, card)
+    timed("wave full", phase_wave_full, dev, scene, regen_mean, card)
+    timed("grad full", phase_grad_full, dev, scene, card)
 
+    src = "acceleratedvolrenderer_tpu_torch/csrc/"
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "march_block", "route": "cuda",
-        "source": "acceleratedvolrenderer_tpu_torch/csrc/march.cu",
-        "replaces": "acceleratedvolrenderer_tpu/ops/pallas_march.py:105",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}, {
-        "name": "table_gather", "route": "cuda",
-        "source": "acceleratedvolrenderer_tpu_torch/csrc/gather.cu",
-        "replaces": "acceleratedvolrenderer_tpu/ops/pallas_gather.py:33",
-        "launches": g_launches, "max_abs_err": g_err, "ms": g_ms,
-        "plain_ms": g_plain_ms}]}))
+    print(json.dumps({"kernels": [
+        dict(name="march_block", route="cuda", source=src + "march.cu",
+             replaces="acceleratedvolrenderer_tpu/ops/pallas_march.py:105",
+             launches=launches, **march_rec),
+        dict(name="table_gather", route="cuda", source=src + "gather.cu",
+             replaces="acceleratedvolrenderer_tpu/ops/pallas_gather.py:33",
+             launches=g_launches, **gather_rec),
+        dict(name="dma_gather", route="cuda", source=src + "dma_gather.cu",
+             replaces="scripts/measure_gather_designs.py:44",
+             launches=dma_runs, wrapper_calls=dma_calls, **dma_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -8,18 +8,26 @@ toolkit:
 
 March: integer outputs and flags must be equal; floats agree to rtol 1e-6
 (the kernel is built without multiply-add contraction, so it rounds as the
-eager version does).  Gather: bitwise equal (a gather does no arithmetic).
-The small gradient on the card against the same gradient on the CPU: loss
-to 1e-3 relative, gradient to relative L2 1e-2 with 99% of voxels within
-rtol 1e-3 / atol 1e-6 * max|g| (exp, log1p and erfinv differ by ulps
-between the two devices, and one flipped choice reroutes a sample)."""
+eager version does).  Gather and tile-DMA gather: bitwise equal (they do
+no arithmetic).  The small gradients and wave frames on the card against
+the same on the CPU: loss to 1e-3 relative, gradient to relative L2 1e-2
+with 99% of voxels within rtol 1e-3 / atol 1e-6 * max|g|, frame means to
+1e-3 and 99% of pixels to rtol 1e-3 / atol 1e-5 (exp, log1p and erfinv
+differ by ulps between the two devices, and one flipped choice reroutes a
+sample)."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from acceleratedvolrenderer_tpu_torch.ops import dma_gather as dma
 from acceleratedvolrenderer_tpu_torch.ops import gather, march
 from acceleratedvolrenderer_tpu_torch.parallel import diff
 from acceleratedvolrenderer_tpu_torch.scene import presets
+
+from torch_wave_util import wave_frame
 
 pytestmark = pytest.mark.cuda
 
@@ -147,4 +155,116 @@ def test_small_gradient_matches_cpu(dev, n_lanes):
     np.testing.assert_allclose(lg, lc, rtol=1e-3)
     assert np.linalg.norm(gg - gc) <= 1e-2 * np.linalg.norm(gc)
     close = np.isclose(gg, gc, rtol=1e-3, atol=1e-6 * np.abs(gc).max())
+    assert close.mean() >= 0.99, close.mean()
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 100, 1000, 16384])
+@pytest.mark.parametrize("n_tiles", [64, 16384])
+def test_dma_kernel_matches_plain(dev, chunk, n_tiles):
+    rng = np.random.default_rng(chunk + n_tiles)
+    table = torch.as_tensor(rng.random(n_tiles * 1024).astype(np.float32),
+                            device=dev)
+    idx = rng.integers(0, n_tiles, chunk).astype(np.int32)
+    before = dma.launches
+    out = dma.dma_gather(table, torch.as_tensor(idx, device=dev))
+    assert dma.launches == before + 1
+    torch.cuda.synchronize()
+    want = table.reshape(-1, 8, 128)[int(idx[dma.last_slot0(chunk)])]
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("bad", [-1, 64, 10 ** 6])
+def test_dma_kernel_out_of_range_reads_zeros(dev, bad):
+    table = torch.rand(64 * 1024, device=dev)
+    idx = np.random.default_rng(0).integers(-3, 67, 100).astype(np.int32)
+    idx[dma.last_slot0(100)] = bad
+    idx = torch.as_tensor(idx, device=dev)
+    out = dma.dma_gather(table, idx)
+    torch.cuda.synchronize()
+    assert not out.any() and torch.equal(out, dma.dma_gather_plain(table,
+                                                                   idx))
+
+
+def test_dma_wrapper_rejects_bad_input(dev):
+    table = torch.rand(64 * 1024, device=dev)
+    idx = torch.zeros(32, dtype=torch.int32, device=dev)
+    before = dma.launches
+    for args, err in (((table, idx.long()), TypeError),
+                      ((table[:1000], idx), ValueError),
+                      ((table, idx[:0]), ValueError),
+                      ((table, idx.cpu()), ValueError)):
+        with pytest.raises(err):
+            dma.dma_gather(*args)
+    assert dma.launches == before
+
+
+def test_dma_wrapper_rejects_misaligned_table(dev):
+    big = torch.rand(65 * 1024, device=dev)
+    table = big[1:1 + 64 * 1024]          # contiguous, 4 bytes past 16
+    assert table.is_contiguous() and table.data_ptr() % 16 == 4
+    idx = torch.zeros(32, dtype=torch.int32, device=dev)
+    before = dma.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        dma.dma_gather(table, idx)
+    assert dma.launches == before
+    out = dma.dma_gather(big[4:4 + 64 * 1024], idx)    # aligned: launches
+    torch.cuda.synchronize()
+    assert torch.equal(out, big[4:4 + 1024].reshape(8, 128))
+
+
+def test_gather_designs_count_the_dma_kernel_runs(dev):
+    """measure() captures its dependent steps in a CUDA graph: the wrapper
+    is called for the warm-up and each captured step, and the kernel runs
+    once for the warm-up and once per step in each replay."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    import measure_gather_designs_torch as designs
+
+    before = dma.launches
+    out = designs.measure(1024, 5, device=dev)
+    assert dma.launches - before == out["dma_wrapper_calls"] == 1 + 5
+    assert out["dma_kernel_runs"] == 1 + designs.REPLAYS * 5
+    for k in ("xla_gather_ns_per_el", "dma_tile_ns_per_el",
+              "argsort_ns_per_el"):
+        assert out[k] > 0
+
+
+@pytest.mark.parametrize("rays_per_wave", [256, 200])
+def test_wave_frame_matches_cpu(dev, rays_per_wave):
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        march.launches = gather.launches = 0
+        img, chunk_its = wave_frame(
+            presets.cloud(32, 24, spp=2, max_depth=8, grid_res=32, device=d),
+            rays_per_wave, d)
+        imgs.append(img)
+        if d.type == "cuda":
+            it = sum(chunk_its)
+            fused = rays_per_wave == 256
+            assert (march.launches, gather.launches) == (
+                (it, 0) if fused else (0, it))
+    gpu, cpu = imgs
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    assert abs(gpu.mean() - cpu.mean()) / cpu.mean() < 1e-3
+    assert np.isclose(gpu, cpu, rtol=1e-3, atol=1e-5).all(-1).mean() >= 0.99
+
+
+def test_wave_multi_gradient_matches_cpu(dev):
+    out = []
+    for d in (dev, torch.device("cpu")):
+        scene = presets.cloud(16, 16, spp=2, max_depth=4, grid_res=16,
+                              device=d)
+        loss_fn, grad_fn = diff.make_diff_renderer_multi(
+            scene, fixed_steps=64, spp=1, device=d)
+        params = {"density": scene.medium.density, "sigma_s": 1.0}
+        with torch.no_grad():
+            loss = float(loss_fn(params))
+        out.append((loss, {k: v.cpu().numpy()
+                           for k, v in grad_fn(params).items()}))
+    (lg, gg), (lc, gc) = out
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+    np.testing.assert_allclose(gg["sigma_s"], gc["sigma_s"], rtol=1e-3)
+    a, b = gg["density"], gc["density"]
+    assert np.isfinite(a).all() and np.abs(a).max() > 0
+    assert np.linalg.norm(a - b) <= 1e-2 * np.linalg.norm(b)
+    close = np.isclose(a, b, rtol=1e-3, atol=1e-6 * np.abs(b).max())
     assert close.mean() >= 0.99, close.mean()

@@ -79,17 +79,28 @@ def test_unported_options_raise(knob):
 
 
 def test_import_leaves_jax_out(tmp_path):
-    """Importing the port, and writing a film through the reference's
-    JAX-free image module, loads no jax."""
-    code = ("import sys, numpy as np, acceleratedvolrenderer_tpu_torch.parallel.render, "
-            "acceleratedvolrenderer_tpu_torch.parallel.diff, "
-            "acceleratedvolrenderer_tpu_torch.ops.gather, "
-            "acceleratedvolrenderer_tpu_torch.scene.presets, "
-            "acceleratedvolrenderer_tpu_torch.scene.convert, "
-            "acceleratedvolrenderer_tpu_torch.models.film as f; "
-            f"f.write_film({str(tmp_path / 'a.exr')!r}, np.ones((2, 3, 3), np.float32)); "
-            "print('jax' in sys.modules)")
+    """Importing every module of the port, chip_smoke.py and
+    scripts/measure_gather_designs_torch.py, and writing a film through the
+    port's own EXR writer, loads neither jax nor any module of the JAX
+    package."""
+    root = Path(__file__).resolve().parents[1]
+    pkg = root / "acceleratedvolrenderer_tpu_torch"
+    mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
+                  for p in pkg.rglob("*.py"))
+    code = (f"import sys, importlib, numpy as np; sys.path[:0] = "
+            f"[{str(root)!r}, {str(root / 'scripts')!r}]\n"
+            f"for m in {mods + ['chip_smoke', 'measure_gather_designs_torch']!r}:"
+            "\n    importlib.import_module(m)\n"
+            "from acceleratedvolrenderer_tpu_torch.models import film as f\n"
+            f"f.write_film({str(tmp_path / 'a.exr')!r}, "
+            "np.ones((2, 3, 3), np.float32))\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "'jax.') or m == 'acceleratedvolrenderer_tpu' or m.startswith("
+            "'acceleratedvolrenderer_tpu.')]\n"
+            "print(len(sys.modules), bad)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, check=True,
-                         cwd=Path(__file__).resolve().parents[1])
-    assert out.stdout.strip() == "False", out.stdout + out.stderr
+                         text=True, check=True, cwd=tmp_path)
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert bad == "[]", out.stdout + out.stderr
+    assert len(mods) > 20 and int(n) > len(mods)
+    assert (tmp_path / "a.exr").stat().st_size > 0
