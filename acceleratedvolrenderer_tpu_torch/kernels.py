@@ -17,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -101,3 +103,38 @@ def check_arg(who, name, t, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{who}: {name} is not contiguous")
+
+
+def entry(name, argtypes):
+    """The C function `name` of the kernel library (built on first use),
+    with its ctypes argument types and a cudaError_t (int) result."""
+    fn = getattr(library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_tensor(who, name, t, dtype, ndim, device):
+    """check_arg in one test for a wrapper's launch path: `t` on `device`
+    with `dtype`, `ndim` dimensions (any number if None) and a contiguous
+    layout.  The field-by-field check runs only to name a fault."""
+    if (t.device == device and t.dtype == dtype and t.is_contiguous()
+            and (ndim is None or t.dim() == ndim)):
+        return
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{who}: {name} has {t.dim()} dimensions, expected "
+                         f"{ndim}")
+    check_arg(who, name, t, dtype, tuple(t.shape), device)
+
+
+def launch_target(who, device):
+    """(device index, PyTorch's current stream on `device` as an int) for a
+    kernel launch; raises unless `device` is a CUDA device.  Read on every
+    call: a CUDA graph capture changes the current stream.  The C entry
+    makes the device current only if it is not already, in place of a
+    torch.cuda.device context around the call.  The stream comes from a
+    private binding, cheaper than torch.cuda.current_stream; a card test
+    in tests/test_torch_cuda.py holds the two equal."""
+    if device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {device}")
+    return device.index, torch._C._cuda_getCurrentRawStream(device.index)

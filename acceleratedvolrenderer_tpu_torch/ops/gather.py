@@ -14,7 +14,6 @@ can show that its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -33,18 +32,16 @@ def table_gather_plain(table, idx):
     return torch.where(inside, table[torch.clamp(idx, 0, v - 1)], 0.0)
 
 
-_argtypes = None
+_fn = None
 
 
-def _entry():
-    global _argtypes
-    fn = kernels.library().avrt_table_gather
-    if _argtypes is None:
+def _kernel():
+    global _fn
+    if _fn is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _argtypes = [p, i, p, p, ctypes.c_longlong, p]
-        fn.argtypes = _argtypes
-        fn.restype = ctypes.c_int
-    return fn
+        _fn = kernels.entry("avrt_table_gather",
+                            [p, i, p, p, ctypes.c_longlong, i, p])
+    return _fn
 
 
 def table_gather(table, idx):
@@ -55,23 +52,27 @@ def table_gather(table, idx):
     dev = table.device
     if dev.type == "cpu" and idx.device.type == "cpu":
         return table_gather_plain(table, idx)
-    if dev.type != "cuda":
-        raise ValueError(f"table_gather: unsupported device {dev}")
+    index, stream = kernels.launch_target("table_gather", dev)
+    kernels.check_tensor("table_gather", "table", table, torch.float32, 1,
+                         dev)
+    kernels.check_tensor("table_gather", "idx", idx, torch.int32, None, dev)
     v, n = table.shape[0], idx.numel()
-    check = functools.partial(kernels.check_arg, "table_gather")
-    check("table", table, torch.float32, (v,), dev)
-    check("idx", idx, torch.int32, tuple(idx.shape), dev)
     if not 0 < v < 2 ** 31:
         raise ValueError(f"table_gather: table of {v} entries, expected "
                          "0 < V < 2^31")
-    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
     if n == 0:
-        return out
-    fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(table.data_ptr(), v, idx.data_ptr(), out.data_ptr(), n,
-                 stream)
+        return torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    idx_ptr = idx.data_ptr()
+    # the kernel's 16-byte loads and stores need out at idx's offset modulo
+    # 16 bytes; a fresh allocation is at offset 0
+    phase = idx_ptr % 16 // 4
+    if phase:
+        out = torch.empty(n + 3, dtype=torch.float32, device=dev)[
+            phase:phase + n].view(idx.shape)
+    else:
+        out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    err = _kernel()(table.data_ptr(), v, idx_ptr, out.data_ptr(), n, index,
+                    stream)
     if err != 0:
         raise RuntimeError(f"table_gather: CUDA kernel launch failed "
                            f"(cudaError {err})")

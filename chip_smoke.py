@@ -11,14 +11,17 @@ Phases (any failure raises, and the script exits non-zero):
      random lanes (N 16384 and 1000, K 1/8/16, 16^3/32^3/64^3 tables,
      residual mode off and on; and N 262144, K 8, 16^3, the lane count of
      the wave path's chunks): integers and flags equal, floats to rtol
-     1e-6; times both at the render's shape (N 16384, K 8, 16^3);
+     1e-6; times both at the render's shape (N 16384, K 8, 16^3), the
+     kernel also by its device time (torch.profiler);
   4. gather kernel vs plain: the table gather against its eager version,
-     V 128 / 1000 / 4096 / 32768 / 64^3 (staged in shared memory, or read
-     in place above the opt-in limit) and n 100 / 96*8 / 208*8 / 1000*8 /
-     16384*8 random indices (a few out of range), bitwise equal, one
-     launch each; times both at n 16384*8, V 4096; the window route of the
-     march step on the card against the plain march (N 1000, 208 and
-     16384, K 8, 16^3), as phase 3 compares, one gather launch each;
+     V 128 / 1000 / 4096 / 32768 / 64^3 and n 100 / 96*8 / 208*8 /
+     1000*8 / 16384*8 random indices (a few out of range), and index views
+     0-3 elements past a 16-byte boundary with n 1 .. 9 and 16384*8 + 5,
+     bitwise equal, one launch each; at n 16384*8, V 4096 the kernel and
+     table[idx] timed in turns (wrapper ms by CUDA events, device us by
+     torch.profiler) and the plain version; the window route of the march
+     step on the card against the plain march (N 1000, 208 and 16384, K 8,
+     16^3), as phase 3 compares, one gather launch each;
   5. small frame: the 32x24 test cloud rendered through the port on the GPU
      and on the CPU must agree (frame means to 1e-3 relative, >= 99% of
      pixels to rtol 1e-3 / atol 1e-5: transcendental functions differ by
@@ -49,11 +52,17 @@ Phases (any failure raises, and the script exits non-zero):
      (forward sweep and recompute); prints the seconds, Mrays/s and peak
      device memory;
  10. dma kernel vs plain: the tile-DMA gather against its eager version
-     over the 256^3 table, chunk 16 / 100 / 1000 / 16384 random in-range
-     tile ids and one chunk with out-of-range ids, bitwise equal, one launch
-     each; times both at chunk 16384, and the one PyTorch call that
-     returns the same tile, t3[tile_idx[j*]]; prints the bound of the
-     design's fetches and that of the output alone;
+     over the 256^3 table, chunk 1 / 16 / 17 / 100 / 1000 / 2112 / 16384 /
+     65536 random in-range tile ids, one chunk with out-of-range ids and
+     one of repeated ids, bitwise equal, one launch each; at chunk 16384
+     the kernel warm (back to back: wrapper ms by CUDA events, 200 calls,
+     and device us by torch.profiler) and cold (a 256 MB buffer rewritten
+     before each launch: device us, and ms by each launch's own events;
+     and device us after a flush that only reads the buffer),
+     its device time at chunk 16 warm and cold (the time follows the
+     fetches), the plain version, the one PyTorch call that returns the
+     same tile, t3[tile_idx[j*]]; prints the bound of the design's
+     fetches and that of the output alone;
  11. gather designs: scripts/measure_gather_designs_torch.py's measure(16384,
      200), the dma kernel's path: ns per element of the baseline gather,
      the tile-DMA design and the argsort bound; the wrapper is called
@@ -75,9 +84,10 @@ Phases (any failure raises, and the script exits non-zero):
      the loop iterations summed over the chunks.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
-3.35 TB/s, against operations over 67 TFLOP/s float32; the dma kernel's
-launches are its runs on the card in phase 11, beside its wrapper calls)
-and the result JSON.
+3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
+of the kernel and of its library call; the dma kernel's cold times, and
+its launches, which are its runs on the card in phase 11, beside its
+wrapper calls) and the result JSON.
 """
 import json
 import subprocess
@@ -149,6 +159,42 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def device_us(fn, reps, name=None):
+    """Device time per call (us) of the kernels fn() launches, by
+    torch.profiler (as scripts/profile_port.py takes it): every kernel, or
+    only those whose name holds `name`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if name is None or name in e.key) / reps
+
+
+def cold_ms(fn, reps, flush):
+    """Median ms of fn() timed by its own pair of CUDA events, each call
+    after flush() has rewritten a buffer larger than the 50 MB L2 (the
+    flush runs longer than the host takes to enqueue fn, so the first
+    event does not wait on the host)."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -181,6 +227,7 @@ def phase_kernel(dev):
     lanes = to_dev(march.random_lanes(16384, (16, 16, 16), seed=7), dev)
     kw = dict(K=8, maj_res=(16, 16, 16), **lanes)
     ms = time_ms(lambda: march.march_block(**kw), 200)
+    dev_us = device_us(lambda: march.march_block(**kw), 200)
     plain_ms = time_ms(lambda: march.march_block_plain(**kw), 20)
     # bytes: the inputs (table and lane registers) and the outputs once;
     # operations: about 30 float32 operations per voxel step of a hunting
@@ -190,44 +237,58 @@ def phase_kernel(dev):
               30 * 8 * int(lanes["hunting"].sum()))
     print(f"kernel vs plain: {cases} cases equal (N 16384 / 1000 and "
           f"262144), max |err| {max_err:.3e}; "
-          f"N 16384 K 8 16^3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b[0]:.6f} ms ({b[1]})", flush=True)
+          f"N 16384 K 8 16^3: kernel {ms:.4f} ms (device {dev_us:.2f} us), "
+          f"plain {plain_ms:.4f} ms, bound {b[0]:.6f} ms ({b[1]})",
+          flush=True)
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b[0], bound_by=b[1], library_ms=None)
+                bound_ms=b[0], bound_by=b[1], library_ms=None,
+                device_us=dev_us, library_device_us=None)
 
 
 def phase_gather(dev):
     from acceleratedvolrenderer_tpu_torch.ops import gather, march
 
     cases, err = 0, 0.0
-    for v in (128, 1000, 4096, 32768, 64 ** 3):
-        for n in (100, 96 * 8, 208 * 8, 1000 * 8, 16384 * 8):
-            rng = np.random.default_rng(v + n)
-            table = torch.as_tensor(
-                rng.uniform(0.0, 2.0, v).astype(np.float32), device=dev)
-            idx = rng.integers(0, v, n).astype(np.int32)
-            idx[:3] = [-1, v, v + 77]
-            idx = torch.as_tensor(idx.reshape(-1, 8) if n % 8 == 0 else idx,
-                                  device=dev)
-            before = gather.launches
-            out = gather.table_gather(table, idx)
-            ref = gather.table_gather_plain(table, idx)
-            torch.cuda.synchronize()
-            if gather.launches != before + 1 or not torch.equal(out, ref):
-                raise AssertionError(f"gather V {v} n {n}: kernel and plain "
-                                     "disagree or the kernel did not launch")
-            err = max(err, float((out - ref).abs().max()))
-            cases += 1
+    grid = [(v, n, 0) for v in (128, 1000, 4096, 32768, 64 ** 3)
+            for n in (100, 96 * 8, 208 * 8, 1000 * 8, 16384 * 8)]
+    # idx views 1-3 elements past a 16-byte boundary, and the tails of n
+    # 1 .. 9 (the kernel's scalar head and tail around its 16-byte body)
+    grid += [(4096, n, off) for off in (0, 1, 2, 3)
+             for n in (*range(1, 10), 16384 * 8 + 5)]
+    for v, n, off in grid:
+        rng = np.random.default_rng(v + n + off)
+        table = torch.as_tensor(
+            rng.uniform(0.0, 2.0, v).astype(np.float32), device=dev)
+        idx = rng.integers(0, v, n + off).astype(np.int32)
+        idx[off:off + 3] = [-1, v, v + 77][:min(3, n)]
+        idx = torch.as_tensor(idx, device=dev)[off:]
+        if n % 8 == 0:
+            idx = idx.view(-1, 8)
+        before = gather.launches
+        out = gather.table_gather(table, idx)
+        ref = gather.table_gather_plain(table, idx)
+        torch.cuda.synchronize()
+        if gather.launches != before + 1 or not torch.equal(out, ref):
+            raise AssertionError(f"gather V {v} n {n} offset {off}: kernel "
+                                 "and plain disagree or the kernel did not "
+                                 "launch")
+        err = max(err, float((out - ref).abs().max()))
+        cases += 1
     rng = np.random.default_rng(0)
     table = torch.as_tensor(rng.uniform(0.0, 2.0, 4096).astype(np.float32),
                             device=dev)
     idx = torch.as_tensor(rng.integers(0, 4096, (16384, 8)).astype(np.int32),
                           device=dev)
-    ms = time_ms(lambda: gather.table_gather(table, idx), 200)
-    plain_ms = time_ms(lambda: gather.table_gather_plain(table, idx), 200)
     # yardstick: the one PyTorch call that computes the same gather on
-    # these in-range indices
-    library_ms = time_ms(lambda: table[idx], 200)
+    # these in-range indices; timed in turns with the kernel
+    kernel = lambda: gather.table_gather(table, idx)
+    library = lambda: table[idx]
+    lib_ms = [time_ms(library, 200)]
+    ms = [time_ms(kernel, 200), time_ms(kernel, 200)]
+    lib_ms.append(time_ms(library, 200))
+    dev_us = device_us(kernel, 200)
+    lib_us = device_us(library, 200)
+    plain_ms = time_ms(lambda: gather.table_gather_plain(table, idx), 200)
     b = bound(nbytes(table, idx) + 4 * idx.numel(), 0)   # + the output
     win_err = 0.0
     for n in (1000, WINDOW_LANES, 16384):
@@ -241,13 +302,18 @@ def phase_gather(dev):
                                  "never")
         win_err = max(win_err, compare_march(out,
                                              march.march_block_plain(**kw)))
-    print(f"gather vs plain: {cases} cases bitwise equal; n 16384*8 V 4096: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, table[idx] "
-          f"{library_ms:.4f} ms, bound {b[0]:.6f} ms ({b[1]}); window route "
-          f"vs plain march (N 1000, {WINDOW_LANES} and 16384, K 8): equal, "
-          f"one gather launch each, max |err| {win_err:.3e}", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-                bound_by=b[1], library_ms=library_ms)
+    print(f"gather vs plain: {cases} cases bitwise equal (idx views at "
+          f"offsets 0-3, n 1-9 tails); n 16384*8 V 4096, in turns: table[idx] "
+          f"{lib_ms[0]:.4f} ms, kernel {ms[0]:.4f} / {ms[1]:.4f} ms, "
+          f"table[idx] {lib_ms[1]:.4f} ms; device {dev_us:.2f} us, table[idx] "
+          f"{lib_us:.2f} us; plain {plain_ms:.4f} ms, bound {b[0]:.6f} ms "
+          f"({b[1]}); window route vs plain march (N 1000, {WINDOW_LANES} and "
+          f"16384, K 8): equal, one gather launch each, max |err| "
+          f"{win_err:.3e}", flush=True)
+    return dict(max_abs_err=err, ms=float(np.mean(ms)), plain_ms=plain_ms,
+                bound_ms=b[0], bound_by=b[1],
+                library_ms=float(np.mean(lib_ms)), device_us=dev_us,
+                library_device_us=lib_us)
 
 
 def compare_frames(what, a, b):
@@ -460,6 +526,11 @@ def phase_dma(dev):
     oob = np.random.default_rng(5).integers(-40, n_tiles + 40, 1000)
     oob[dma.last_slot0(1000)] = n_tiles + 3        # slot 0 ends as zeros
     cases.append(("1000 out of range", oob))
+    # slices of one block and of 16 ids per block; repeated ids
+    cases += [(c, np.random.default_rng(c).integers(0, n_tiles, c))
+              for c in (1, 17, 132 * 16, 65536)]
+    cases.append(("4096 repeated", np.repeat(
+        np.random.default_rng(6).integers(0, n_tiles, 64), 64)))
     for what, ids in cases:
         idx = torch.as_tensor(ids.astype(np.int32), device=dev)
         before = dma.launches
@@ -469,29 +540,56 @@ def phase_dma(dev):
         if dma.launches != before + 1 or not torch.equal(out, ref):
             raise AssertionError(f"dma chunk {what}: kernel and plain "
                                  "disagree or the kernel did not launch")
-    if not bool((out == 0).all()):
-        raise AssertionError("dma: an out-of-range last id must give zeros")
+        if what == "1000 out of range" and bool(out.any()):
+            raise AssertionError("dma: an out-of-range last id must give "
+                                 "zeros")
     idx16k = torch.as_tensor(cases[3][1].astype(np.int32), device=dev)
-    ms = time_ms(lambda: dma.dma_gather(table, idx16k), 20)
+    idx16 = torch.as_tensor(cases[0][1].astype(np.int32), device=dev)
+    name = "dma_gather_kernel"
+    scratch = torch.empty(64 * 2 ** 20, device=dev)     # 256 MB > L2
+    flush = scratch.zero_
+    kernel = lambda: dma.dma_gather(table, idx16k)
+    cold = lambda: (flush(), kernel())
+    ms = time_ms(kernel, 200)
+    warm_us = device_us(kernel, 200, name)
+    c_ms = cold_ms(kernel, 200, flush)
+    cold_us = device_us(cold, 200, name)
+    small = lambda: dma.dma_gather(table, idx16)
+    small_us = device_us(small, 200, name)
+    small_cold_us = device_us(lambda: (flush(), small()), 200, name)
+    # cold after a flush that reads the buffer: the L2 then holds clean
+    # lines, and the kernel's misses write nothing back
+    read_cold_us = device_us(lambda: (scratch.amax(), kernel()), 200, name)
     plain_ms = time_ms(lambda: dma.dma_gather_plain(table, idx16k), 200)
     # yardstick: the one PyTorch call that returns the output tile; it does
     # none of the design's 16384 fetches, which are what the kernel measures
     t3, j = table.view(-1, *dma.TILE), dma.last_slot0(idx16k.shape[0])
-    library_ms = time_ms(lambda: t3[idx16k[j]], 200)
+    library = lambda: t3[idx16k[j]]
+    library_ms = time_ms(library, 200)
+    lib_us = device_us(library, 200)
     # bytes: every distinct tile fetched once, the ids and the output tile;
     # beside it, the output alone: one id read, one tile read and written
     distinct = int(torch.unique(idx16k).numel())
     b = bound(distinct * 4 * dma.TILE_ELEMS + nbytes(idx16k) + 4 * 1024, 0)
+    b16 = bound(int(torch.unique(idx16).numel()) * 4 * dma.TILE_ELEMS
+                + nbytes(idx16) + 4 * 1024, 0)
     b_out = bound(4 + 2 * 4 * 1024, 0)
     print(f"dma kernel vs plain: {len(cases)} cases bitwise equal (chunks "
-          f"{DMA_CHUNKS} and 1000 with out-of-range ids), one launch each; "
-          f"chunk 16384 over 256^3 ({distinct} distinct tiles): kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, t3[tile_idx[j*]] "
-          f"{library_ms:.4f} ms, bound of the fetches {b[0]:.6f} ms "
-          f"({b[1]}), of the output alone {b_out[0]:.6f} ms", flush=True)
+          f"{DMA_CHUNKS}, 1, 17, {132 * 16}, 65536, 1000 with out-of-range "
+          f"ids, 4096 repeated ids), one launch each; chunk 16384 over 256^3 "
+          f"({distinct} distinct tiles): kernel {ms:.4f} ms per call, device "
+          f"warm {warm_us:.2f} us, cold {cold_us:.2f} us (per-launch events "
+          f"cold {c_ms:.4f} ms; cold after a read-only flush "
+          f"{read_cold_us:.2f} us); chunk 16: device warm {small_us:.2f} us, "
+          f"cold {small_cold_us:.2f} us, bound {b16[0] * 1e3:.4f} us; plain "
+          f"{plain_ms:.4f} ms, t3[tile_idx[j*]] {library_ms:.4f} ms (device "
+          f"{lib_us:.2f} us), bound of the fetches {b[0]:.6f} ms ({b[1]}), "
+          f"of the output alone {b_out[0]:.6f} ms", flush=True)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
                 bound_by=b[1], library_ms=library_ms,
-                bound_output_ms=b_out[0])
+                bound_output_ms=b_out[0], device_us=warm_us,
+                library_device_us=lib_us, cold_ms=c_ms,
+                cold_device_us=cold_us)
 
 
 def phase_gather_designs(dev):

@@ -9,8 +9,9 @@ this step gathered, so no step can start before the previous one ends.
   1. baseline   - the gather table[idx] of N elements;
   2. tile DMA   - ops/dma_gather.py (csrc/dma_gather.cu): one 4 KB tile
                   bulk copy per index into a 16-slot shared-memory ring,
-                  16 copies in flight; the loop carries tile[0, 0] into the
-                  next tile ids;
+                  the chunk spread over about one block per SM, each with
+                  its own ring and 16 copies in flight; the loop carries
+                  tile[0, 0] into the next tile ids;
   3. sort bound - argsort of the N keys, a lower bound on the brick-binned
                   design (sort by brick, then select), which pays it every
                   step before any select work.
@@ -119,8 +120,9 @@ def measure(n=16384, iters=200, device=None):
     out["dma_tile_ns_per_el"] = ns(ms)
     out["dma_wrapper_calls"] = dma.launches - calls0
     out["dma_kernel_runs"] = runs
-    out["dma_note"] = ("one 4 KB tile bulk copy per element, 16 in flight, "
-                       "one block (csrc/dma_gather.cu)")
+    out["dma_note"] = ("one 4 KB tile bulk copy per element, a 16-slot ring "
+                       "in each of about one block per SM "
+                       "(csrc/dma_gather.cu)")
 
     def step_sort(st):
         (idx,) = st

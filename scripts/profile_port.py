@@ -6,9 +6,8 @@
 1. March kernel: device time per launch (torch.profiler, CUPTI) and
    wrapper time per call (CUDA events over back-to-back calls) at the
    render's shape (N 16384, K 8, 16^3), beside the plain version's.
-   Gather kernel: the same two times at n 16384*8 and 208*8 (V 4096,
-   staged in shared memory) and at n 16384*8 from a 64^3 table (read in
-   place).
+   Gather kernel: the same two times at n 16384*8 and 208*8 (V 4096)
+   and at n 16384*8 from a 64^3 table.
 2. Slice window: the 1280x720 cloud, 256^3 grid, bench knobs, spp 16,
    with max_march_steps = 1, which caps the loop at refills + 1 = 901
    iterations of the real workload.  One unprofiled timed run gives the

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from acceleratedvolrenderer_tpu_torch import kernels
 from acceleratedvolrenderer_tpu_torch.ops import dma_gather as dma
 from acceleratedvolrenderer_tpu_torch.ops import gather, march
 from acceleratedvolrenderer_tpu_torch.parallel import diff
@@ -95,11 +96,10 @@ def _gather_inputs(v, n, seed, dev):
     table = torch.as_tensor(rng.uniform(0.0, 2.0, v).astype(np.float32),
                             device=dev)
     idx = rng.integers(0, v, n).astype(np.int32)
-    idx[:3] = [-1, v, v + 77]                 # out of range: reads 0
+    idx[:3] = [-1, v, v + 77][:n]             # out of range: reads 0
     return table, torch.as_tensor(idx, device=dev)
 
 
-# V 64^3 is above the shared-memory opt-in limit: read in place
 @pytest.mark.parametrize("v", [128, 1000, 4096, 32768, 64 ** 3])
 @pytest.mark.parametrize("n", [100, 96 * 8, 208 * 8, 1000 * 8, 16384 * 8])
 def test_gather_kernel_matches_plain(dev, v, n):
@@ -113,6 +113,24 @@ def test_gather_kernel_matches_plain(dev, v, n):
     torch.cuda.synchronize()
     assert out.shape == idx.shape
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("v", [1, 4096, 64 ** 3])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_gather_kernel_views_and_tails(dev, v, offset):
+    """idx views 0-3 elements past a 16-byte boundary (the kernel's 16-byte
+    body starts after a scalar head) and n 1 .. 9 (scalar tails)."""
+    for n in (*range(1, 10), 16384 * 8 + 5):
+        table, idx = _gather_inputs(v, n + offset, v + n + offset, dev)
+        idx = idx[offset:]
+        assert idx.data_ptr() % 16 == 4 * offset
+        before = gather.launches
+        out = gather.table_gather(table, idx)
+        assert gather.launches == before + 1
+        ref = gather.table_gather_plain(table, idx)
+        torch.cuda.synchronize()
+        assert out.shape == idx.shape
+        assert torch.equal(out, ref), n
 
 
 def test_gather_wrapper_rejects_bad_input(dev):
@@ -173,6 +191,60 @@ def test_dma_kernel_matches_plain(dev, chunk, n_tiles):
     assert torch.equal(out, want)
 
 
+def _dma_case(n_tiles, ids, dev):
+    """The kernel's tile against the plain version's, bitwise, one launch."""
+    table = torch.as_tensor(np.random.default_rng(n_tiles).random(
+        n_tiles * 1024).astype(np.float32), device=dev)
+    idx = torch.as_tensor(np.asarray(ids, np.int32), device=dev)
+    before = dma.launches
+    out = dma.dma_gather(table, idx)
+    assert dma.launches == before + 1
+    ref = dma.dma_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    return out
+
+
+@pytest.mark.parametrize("chunk", [1, 15, 16, 17, 131, 132 * 16, 16384,
+                                   65536])
+def test_dma_kernel_chunks_match_plain(dev, chunk):
+    _dma_case(4096, np.random.default_rng(chunk).integers(0, 4096, chunk),
+              dev)
+
+
+def _owner_positions(max_blocks):
+    """A chunk for each place j* can take in its block's slice."""
+    found = {}
+    for chunk in range(17, 70000):
+        _, per = dma.launch_geometry(chunk, max_blocks)
+        j = dma.last_slot0(chunk)
+        first = j // per * per
+        last = min(first + per, chunk) - 1
+        where = ("start" if j == first else "end" if j == last
+                 else "middle") if first < last else None
+        if where is not None:
+            found.setdefault(where, chunk)
+    return found
+
+
+@pytest.mark.parametrize("where", ["start", "end", "middle"])
+def test_dma_kernel_owner_slice_positions(dev, where):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = _owner_positions(sms)[where]
+    _dma_case(4096, np.random.default_rng(chunk).integers(0, 4096, chunk),
+              dev)
+
+
+def test_dma_kernel_all_out_of_range(dev):
+    ids = np.where(np.arange(1000) % 2 == 0, -7, 64 + np.arange(1000))
+    assert not _dma_case(64, ids, dev).any()
+
+
+def test_dma_kernel_repeated_ids(dev):
+    _dma_case(64, np.repeat(np.arange(64)[::-1], 37), dev)
+    _dma_case(64, np.full(16384, 5), dev)
+
+
 @pytest.mark.parametrize("bad", [-1, 64, 10 ** 6])
 def test_dma_kernel_out_of_range_reads_zeros(dev, bad):
     table = torch.rand(64 * 1024, device=dev)
@@ -210,6 +282,30 @@ def test_dma_wrapper_rejects_misaligned_table(dev):
     out = dma.dma_gather(big[4:4 + 64 * 1024], idx)    # aligned: launches
     torch.cuda.synchronize()
     assert torch.equal(out, big[4:4 + 1024].reshape(8, 128))
+
+
+@pytest.mark.parametrize("where", ["outside", "capture"])
+def test_launch_target_reads_the_current_stream(dev, where):
+    """launch_target reads the current stream through a private PyTorch
+    binding: it must name torch.cuda.current_stream's stream on the default
+    stream and a side stream, and inside a CUDA graph capture."""
+    def check():
+        assert kernels.launch_target("test", dev) == (
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+
+    if where == "outside":
+        check()
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            check()
+        return
+    x = torch.zeros(4, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        check()
+        x.add_(1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.ones(4, device=dev))
 
 
 def test_gather_designs_count_the_dma_kernel_runs(dev):

@@ -105,3 +105,32 @@ def test_cpu_wrapper_launches_nothing():
     out = dma.dma_gather(torch.as_tensor(_table()), idx)
     assert dma.launches == before
     assert torch.equal(out, torch.as_tensor(_table()).reshape(-1, 8, 128)[32])
+
+
+@pytest.mark.parametrize("max_blocks", [1, 2, 3, 16, 131, 132, 133, 264])
+def test_launch_geometry_covers_the_chunk(max_blocks):
+    """Over chunk 1 .. 70,000: the slices [b * per, min((b + 1) * per,
+    chunk)) of the blocks cover every id exactly once, none is empty or
+    longer than MAX_PER, there are about max_blocks of them (more only
+    where MAX_PER forces it), and the owner j* // per holds j*."""
+    for chunk in range(1, 70001):
+        blocks, per = dma.launch_geometry(chunk, max_blocks)
+        assert 1 <= per <= dma.MAX_PER
+        assert (blocks - 1) * per < chunk <= blocks * per
+        assert blocks <= max(max_blocks, -(-chunk // dma.MAX_PER))
+        j = dma.last_slot0(chunk)
+        owner = j // per
+        assert owner < blocks and owner * per <= j < min((owner + 1) * per,
+                                                         chunk)
+
+
+def test_launch_geometry_slices_are_disjoint():
+    """The slices, laid end to end, are the ids 0 .. chunk - 1 in order,
+    for every max_blocks from 1 to 264."""
+    for max_blocks in range(1, 265):
+        for chunk in (1, 15, 16, 17, 131, 132 * 16, 16384, 65536, 70000):
+            blocks, per = dma.launch_geometry(chunk, max_blocks)
+            ids = np.concatenate([np.arange(b * per,
+                                            min((b + 1) * per, chunk))
+                                  for b in range(blocks)])
+            assert np.array_equal(ids, np.arange(chunk)), (chunk, max_blocks)
