@@ -9,35 +9,54 @@
 // mode reads a second (minorant) table: `resid` lanes hunt at
 // max(maj - ctrl, 0) and accumulate the control depth ctrl*len.
 //
+// What bounds it: per lane per call 69 bytes are read (table lookups
+// aside) and 42 written, 111 B.  At the wave chunk's N = 262,144 that is
+// 29 MB, 8.7 us at 3.35 TB/s: bandwidth.  At the regen loop's N = 16,384 it
+// is 1.8 MB, 0.55 us, below a launch's own latency: there the launch and
+// the chain of round trips to memory (the lane's registers, then its K
+// table lookups) bound the call.
+//
 // Design for the card, not a block-by-block copy of the TPU kernel:
-//  * one thread per lane, reading the integrator's registers in place:
-//    voxel / next_t / dt / step as (N, 3), everything else as (N,);
-//  * the majorant is float32 throughout.  The TPU kernel's bf16 round-up /
-//    round-down and one-hot MXU gather existed only for the MXU;
-//  * tables that fit (16^3 = 16 KB, 32^3 = 128 KB, both tables together at
-//    most 227 KB) are staged once per block in dynamic shared memory;
-//    larger ones (64^3 = 1 MB) are read through __ldg and sit in L2.
+//  * one thread per lane in 128-thread blocks: N = 16,384 is 128 blocks,
+//    one per SM of the 132 (256-thread blocks left 68 SMs idle); the last
+//    block of a lane count that is not a multiple of 128 is masked;
+//  * every lane register is loaded at the start, all loads in flight
+//    together; the (N, 3) planes are read three words per lane at a
+//    12-byte stride (staging them through shared memory with 16-byte loads
+//    and stores measured slower at N = 262,144, the L1 absorbs the stride);
+//  * the majorant is float32 throughout, read in place through the
+//    read-only data cache (__ldg): no copy into shared memory and no
+//    barrier before the first step.  A bulk copy (TMA) of a 16^3 table into
+//    each block's shared memory measured 5% slower at N = 16,384, 2x slower
+//    with a 32^3 table and at N = 262,144 (a copy per block).  The TPU
+//    kernel's bf16 round-up / round-down and one-hot MXU gather existed only
+//    for the MXU;
+//  * for K = 8, the render's k_substeps (a template argument; other K run
+//    the same step in a loop), the K lookups are issued together: the voxel
+//    walk does not depend on the table, so a first pass walks the K voxels
+//    and loads their values, and the K steps then run on registers.  One
+//    round trip to the table instead of K in a row;
+//  * `landed` and `escaped` are written as two byte planes (0 or 1), the
+//    torch.bool outputs themselves, so a call is one launch.
 //
-// What bounds it: per lane per call about 92 B are read and 52 B written,
-// plus K table lookups in shared memory.  At the render's N = 16384 lanes
-// that is 64 blocks of 256 threads on 132 SMs, so launch and latency bound
-// the call, not bandwidth.
-//
-// Built with -fmad=false so every float32 operation rounds as the eager
-// PyTorch version (ops/march.py::march_block_plain) rounds it.
+// Built with -fmad=false and IEEE division so every float32 operation rounds
+// as the eager PyTorch version (ops/march.py::march_block_plain) rounds it;
+// the hoisted walk and the unrolling keep every float operation and its
+// order.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kFInf = 3.0e38f;
-constexpr int kThreads = 256;
-constexpr size_t kMaxSmem = 232448;   // 227 KB usable by one block
+constexpr int kThreads = 128;
+constexpr int kMainK = 8;                 // the render's k_substeps
 
-struct MarchArgs {
+// The wrapper's argument record (ops/march.py::_CALL), 8-byte fields in
+// this order.  Absent residual-mode pointers are null.
+struct MarchCall {
   const float* maj;
   const float* ctrl;
-  int n_table;
   const int32_t* voxel;
   const float* next_t;
   const float* dt;
@@ -57,50 +76,73 @@ struct MarchArgs {
   float* o_dl_target;
   float* o_dl_since;
   float* o_maxd;
-  int32_t* o_flags;
+  uint8_t* o_landed;
+  uint8_t* o_escaped;
   float* o_ctrld;
   float* o_csince;
-  int n;
-  int K;
-  int rx, ry, rz;
+  int64_t n_table, n, K, rx, ry, rz, device;
+  cudaStream_t stream;
+};
+static_assert(sizeof(MarchCall) == 33 * 8, "MarchCall layout");
+
+// The kernel's parameters: the record's pointers and 32-bit counts (the
+// record itself as the parameters, 64-bit counts, measured 4% slower at
+// N = 262,144, in turns on one card).
+struct MarchArgs {
+  const float* maj;
+  const float* ctrl;
+  const int32_t* voxel;
+  const float* next_t;
+  const float* dt;
+  const int32_t* step;
+  const float* t_exit;
+  const float* t_cur;
+  const float* dl_target;
+  const float* dl_since;
+  const float* maxd;
+  const uint8_t* hunting;
+  const uint8_t* resid;
+  const float* ctrld;
+  const float* csince;
+  int32_t* o_voxel;
+  float* o_next_t;
+  float* o_t_cur;
+  float* o_dl_target;
+  float* o_dl_since;
+  float* o_maxd;
+  uint8_t* o_landed;
+  uint8_t* o_escaped;
+  float* o_ctrld;
+  float* o_csince;
+  int n, K, rx, ry, rz;
 };
 
-template <bool SMEM>
-__device__ __forceinline__ float lookup(const float* t, int i) {
-  if (SMEM) return t[i];
-  return __ldg(t + i);
-}
-
-template <bool CTRL, bool SMEM>
-__global__ void __launch_bounds__(kThreads) march_kernel(MarchArgs a) {
-  extern __shared__ float smem[];
-  const float* maj = a.maj;
-  const float* ctl = a.ctrl;
-  if (SMEM) {
-    for (int j = threadIdx.x; j < a.n_table; j += blockDim.x) {
-      smem[j] = a.maj[j];
-      if (CTRL) smem[a.n_table + j] = a.ctrl[j];
-    }
-    __syncthreads();
-    maj = smem;
-    ctl = smem + a.n_table;
-  }
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// CTRL: residual mode.  KT: K as a template argument, with the lookups
+// hoisted (0: the runtime a.K, one lookup per step).
+template <bool CTRL, int KT>
+__global__ void __launch_bounds__(kThreads) march_kernel(const MarchArgs a) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= a.n) return;
+  const int vx0 = __ldg(a.voxel + 3 * i), vy0 = __ldg(a.voxel + 3 * i + 1),
+            vz0 = __ldg(a.voxel + 3 * i + 2);
+  const float ntx0 = __ldg(a.next_t + 3 * i),
+              nty0 = __ldg(a.next_t + 3 * i + 1),
+              ntz0 = __ldg(a.next_t + 3 * i + 2);
+  const float dtx = __ldg(a.dt + 3 * i), dty = __ldg(a.dt + 3 * i + 1),
+              dtz = __ldg(a.dt + 3 * i + 2);
+  const int sx = __ldg(a.step + 3 * i), sy = __ldg(a.step + 3 * i + 1),
+            sz = __ldg(a.step + 3 * i + 2);
+  const float t_exit = __ldg(a.t_exit + i);
+  const float t_cur0 = __ldg(a.t_cur + i);
+  const float dlt = __ldg(a.dl_target + i);
+  const bool hunting = __ldg(a.hunting + i) != 0;
+  const float resid_f = (CTRL && __ldg(a.resid + i) != 0) ? 1.0f : 0.0f;
+  const float dl_since = __ldg(a.dl_since + i);
+  const float maxd_in = __ldg(a.maxd + i);
+  const float ctrld_in = CTRL ? __ldg(a.ctrld + i) : 0.f;
+  const float csince_in = CTRL ? __ldg(a.csince + i) : 0.f;
 
   const int rx = a.rx, ry = a.ry, rz = a.rz;
-  const int vx0 = a.voxel[3 * i], vy0 = a.voxel[3 * i + 1],
-            vz0 = a.voxel[3 * i + 2];
-  const float ntx0 = a.next_t[3 * i], nty0 = a.next_t[3 * i + 1],
-              ntz0 = a.next_t[3 * i + 2];
-  const float dtx = a.dt[3 * i], dty = a.dt[3 * i + 1], dtz = a.dt[3 * i + 2];
-  const int sx = a.step[3 * i], sy = a.step[3 * i + 1], sz = a.step[3 * i + 2];
-  const float t_exit = a.t_exit[i];
-  const float t_cur0 = a.t_cur[i];
-  const float dlt = a.dl_target[i];
-  const bool hunting = a.hunting[i] != 0;
-  const float resid_f = (CTRL && a.resid[i] != 0) ? 1.0f : 0.0f;
-
   int vx = vx0, vy = vy0, vz = vz0;
   float ntx = ntx0, nty = nty0, ntz = ntz0;
   float s_k = t_cur0;
@@ -112,20 +154,21 @@ __global__ void __launch_bounds__(kThreads) march_kernel(MarchArgs a) {
   float sntx = ntx, snty = nty, sntz = ntz;
   float cumc = 0.f, ctrl_snap = 0.f, ctrl_last = 0.f, c_land = 0.f;
 
-  for (int k = 0; k < a.K; ++k) {
+  // the table cell of voxel (x, y, z), clamped into the grid
+  auto cell = [&](int x, int y, int z) {
+    return (min(max(z, 0), rz - 1) * ry + min(max(y, 0), ry - 1)) * rx +
+           min(max(x, 0), rx - 1);
+  };
+  // one voxel step on the cell's majorant (and control) value
+  auto step = [&](float maj_k, float ctrl_k) {
     const float end_raw = fminf(fminf(ntx, nty), ntz);
     const float end_k = fminf(end_raw, t_exit);
     const float len_k = fmaxf(end_k - s_k, 0.f);
     const bool hit_exit = end_raw >= t_exit;
 
-    const int cx = min(max(vx, 0), rx - 1);
-    const int cy = min(max(vy, 0), ry - 1);
-    const int cz = min(max(vz, 0), rz - 1);
-    const int flat = (cz * ry + cy) * rx + cx;
-    const float maj_k = lookup<SMEM>(maj, flat);
-    float ctrl_k = 0.f, rate_k = maj_k;
+    float rate_k = maj_k;
     if (CTRL) {
-      ctrl_k = lookup<SMEM>(ctl, flat) * resid_f;
+      ctrl_k = ctrl_k * resid_f;
       rate_k = fmaxf(maj_k - ctrl_k, 0.f);
     }
 
@@ -170,6 +213,35 @@ __global__ void __launch_bounds__(kThreads) march_kernel(MarchArgs a) {
                      vz >= rz;
     live = live && !hit_exit && !out;
     s_k = end_k;
+  };
+  if constexpr (KT > 0) {
+    // the walk does not depend on the table: walk the K voxels once to
+    // issue every lookup, then take the K steps on the values
+    float mk[KT], ck[KT];
+    int wx = vx, wy = vy, wz = vz;
+    float wtx = ntx, wty = nty, wtz = ntz;
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      const int flat = cell(wx, wy, wz);
+      mk[k] = __ldg(a.maj + flat);
+      ck[k] = CTRL ? __ldg(a.ctrl + flat) : 0.f;
+      const bool is_x = (wtx <= wty) && (wtx <= wtz);
+      const bool is_y = !is_x && (wty <= wtz);
+      if (is_x) {
+        wx += sx; wtx = wtx + dtx;
+      } else if (is_y) {
+        wy += sy; wty = wty + dty;
+      } else {
+        wz += sz; wtz = wtz + dtz;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < KT; ++k) step(mk[k], ck[k]);
+  } else {
+    for (int k = 0; k < a.K; ++k) {
+      const int flat = cell(vx, vy, vz);
+      step(__ldg(a.maj + flat), CTRL ? __ldg(a.ctrl + flat) : 0.f);
+    }
   }
 
   const bool sel = landed;
@@ -184,56 +256,59 @@ __global__ void __launch_bounds__(kThreads) march_kernel(MarchArgs a) {
   a.o_next_t[3 * i + 2] = sel ? sntz : (adv ? ntz : ntz0);
   a.o_t_cur[i] = sel ? t_col : (adv ? t_end : t_cur0);
   a.o_dl_target[i] = adv ? dlt - dl_tot : dlt;
-  a.o_dl_since[i] = a.dl_since[i] + (sel ? dlt : (adv ? dl_tot : 0.f));
-  a.o_maxd[i] = sel ? maj_snap : (adv ? maxd_last : a.maxd[i]);
-  a.o_flags[i] = (sel ? 1 : 0) + (escaped ? 2 : 0);
+  a.o_dl_since[i] = dl_since + (sel ? dlt : (adv ? dl_tot : 0.f));
+  a.o_maxd[i] = sel ? maj_snap : (adv ? maxd_last : maxd_in);
+  a.o_landed[i] = sel ? 1 : 0;
+  a.o_escaped[i] = escaped ? 1 : 0;
   if (CTRL) {
-    a.o_ctrld[i] = sel ? ctrl_snap : (adv ? ctrl_last : a.ctrld[i]);
-    a.o_csince[i] = a.csince[i] + (sel ? c_land : (adv ? cumc : 0.f));
+    a.o_ctrld[i] = sel ? ctrl_snap : (adv ? ctrl_last : ctrld_in);
+    a.o_csince[i] = csince_in + (sel ? c_land : (adv ? cumc : 0.f));
   }
 }
 
-template <bool CTRL, bool SMEM>
+template <bool CTRL, int KT>
 cudaError_t launch(const MarchArgs& a, cudaStream_t stream) {
-  const size_t smem =
-      SMEM ? size_t(a.n_table) * sizeof(float) * (CTRL ? 2 : 1) : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        march_kernel<CTRL, SMEM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return e;
-  }
   const int blocks = (a.n + kThreads - 1) / kThreads;
-  march_kernel<CTRL, SMEM><<<blocks, kThreads, smem, stream>>>(a);
+  march_kernel<CTRL, KT><<<blocks, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool CTRL>
+cudaError_t launch_k(const MarchArgs& a, cudaStream_t s) {
+  return a.K == kMainK ? launch<CTRL, kMainK>(a, s) : launch<CTRL, 0>(a, s);
 }
 
 }  // namespace
 
-// C entry: returns the cudaError_t of the launch (0 on success).
-extern "C" int avrt_march_block(
-    const float* maj, const float* ctrl, int n_table,
-    const int32_t* voxel, const float* next_t, const float* dt,
-    const int32_t* step, const float* t_exit, const float* t_cur,
-    const float* dl_target, const float* dl_since, const float* maxd,
-    const uint8_t* hunting, const uint8_t* resid, const float* ctrld,
-    const float* csince, int32_t* o_voxel, float* o_next_t, float* o_t_cur,
-    float* o_dl_target, float* o_dl_since, float* o_maxd, int32_t* o_flags,
-    float* o_ctrld, float* o_csince, int n, int K, int rx, int ry, int rz,
-    int use_ctrl, void* stream) {
-  if (n == 0) return 0;
-  MarchArgs a{maj, ctrl, n_table, voxel, next_t, dt, step, t_exit, t_cur,
-              dl_target, dl_since, maxd, hunting, resid, ctrld, csince,
-              o_voxel, o_next_t, o_t_cur, o_dl_target, o_dl_since, o_maxd,
-              o_flags, o_ctrld, o_csince, n, K, rx, ry, rz};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t need = size_t(n_table) * sizeof(float) * (use_ctrl ? 2 : 1);
-  const bool smem = need <= kMaxSmem;
-  cudaError_t e;
-  if (use_ctrl) {
-    e = smem ? launch<true, true>(a, s) : launch<true, false>(a, s);
-  } else {
-    e = smem ? launch<false, true>(a, s) : launch<false, false>(a, s);
+// C entry: one launch of the march kernel on the record's stream, for the
+// MarchCall record at `record`; returns the cudaError_t of the launch (0 on
+// success; n == 0 launches nothing).  `device` is the CUDA device of the
+// tensors and of the stream, made current for the launch only if it is not
+// already.
+extern "C" int avrt_march_block(const void* record) {
+  const MarchCall& c = *static_cast<const MarchCall*>(record);
+  if (c.n == 0) return 0;
+  if (c.n < 0 || c.n > 0x7fffffffLL / 3 || c.n_table <= 0 ||   // 3 * i fits
+      c.n_table > 0x7fffffffLL || c.K < 0 || c.K > 0x7fffffffLL ||
+      c.rx <= 0 || c.ry <= 0 || c.rz <= 0 ||
+      c.rx * c.ry * c.rz != c.n_table || c.maj == nullptr)
+    return int(cudaErrorInvalidValue);
+  const MarchArgs a{c.maj, c.ctrl, c.voxel, c.next_t, c.dt, c.step,
+                    c.t_exit, c.t_cur, c.dl_target, c.dl_since, c.maxd,
+                    c.hunting, c.resid, c.ctrld, c.csince, c.o_voxel,
+                    c.o_next_t, c.o_t_cur, c.o_dl_target, c.o_dl_since,
+                    c.o_maxd, c.o_landed, c.o_escaped, c.o_ctrld, c.o_csince,
+                    int(c.n), int(c.K), int(c.rx), int(c.ry), int(c.rz)};
+  const int device = int(c.device);
+  int current = 0;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  e = c.ctrl != nullptr ? launch_k<true>(a, c.stream)
+                        : launch_k<false>(a, c.stream);
+  if (current != device) {
+    const cudaError_t r = cudaSetDevice(current);
+    if (e == cudaSuccess) e = r;
   }
   return int(e);
 }

@@ -8,8 +8,11 @@ PyTorch, the K-loop of the TPU kernel written over the lane dimension.
 says no: the K-voxel walk in eager PyTorch with one gather of the window's
 majorants through the kernel of ops/gather.py.
 The wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  `launches` counts kernel
-launches, so a run can show that its main path went through the kernel.
+tensors it launches the kernel once or raises: the kernel writes every
+output, the landed / escaped flags as bool planes, into views of one new
+buffer (`alloc_outputs`), and takes its arguments as one packed record.
+`launches` counts kernel launches, so a run can show that its main path
+went through the kernel.
 
 The outputs are sampling-side quantities and carry no gradient.
 """
@@ -17,6 +20,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import struct
 
 import numpy as np
 import torch
@@ -144,25 +149,84 @@ def march_block_plain(majorant, voxel, next_t, dt, step, t_exit, t_cur,
     return out
 
 
-_argtypes = None
+# The C entry's argument record (csrc/march.cu::MarchCall): 25 addresses
+# (inputs, then outputs; 0 for an absent residual-mode tensor), n_table, n,
+# K, rx, ry, rz, device and the stream, 8 bytes each.  One packed record
+# crosses ctypes as one argument (31 separate arguments cost several us).
+_CALL = struct.Struct("<25Q7qQ")
+_fn = None
 
 
-def _entry():
-    global _argtypes
-    fn = kernels.library().avrt_march_block
-    if _argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        _argtypes = [p, p, i] + [p] * 22 + [i] * 6 + [p]
-        fn.argtypes = _argtypes
-        fn.restype = ctypes.c_int
-    return fn
+def _kernel():
+    global _fn
+    if _fn is None:
+        _fn = kernels.entry("avrt_march_block", [ctypes.c_char_p])
+    return _fn
+
+
+def output_layout(n, residual=False):
+    """Where the outputs of one march_block call on n lanes lie in the one
+    buffer the wrapper allocates for them: [(name, dtype, shape, byte
+    offset)] in the C record's order (the 4-byte outputs, then landed and
+    escaped, n bytes each) and the buffer's size in bytes.  Each output
+    takes whole 4-byte words (the kernel's stores are 4-byte and 1-byte),
+    so every output starts on a 4-byte boundary."""
+    f32, i32 = torch.float32, torch.int32
+    outs = [("voxel", i32, (n, 3)), ("next_t", f32, (n, 3))]
+    outs += [(k, f32, (n,)) for k in ("t_cur", "dl_target", "dl_since",
+                                      "maxd")]
+    if residual:
+        outs += [("ctrld", f32, (n,)), ("ctrl_since", f32, (n,))]
+    outs += [("landed", torch.bool, (n,)), ("escaped", torch.bool, (n,))]
+    layout, at = [], 0
+    for name, dtype, shape in outs:
+        layout.append((name, dtype, shape, at))
+        at += -(-dtype.itemsize * math.prod(shape) // 4) * 4
+    return layout, at
+
+
+@functools.lru_cache(maxsize=64)
+def _carve(n, residual):
+    """output_layout as alloc_outputs uses it: the buffer's size and each
+    output's size in float32 words, and the outputs' byte offsets in the C
+    record's order."""
+    layout, size = output_layout(n, residual)
+    ends = [off for *_, off in layout[1:]] + [size]
+    words = [(end - off) // 4 for (*_, off), end in zip(layout, ends)]
+    offsets = {name: off for name, *_, off in layout}
+    record = [offsets.get(k) for k in ("voxel", "next_t", "t_cur",
+                                       "dl_target", "dl_since", "maxd",
+                                       "landed", "escaped", "ctrld",
+                                       "ctrl_since")]
+    return size // 4, words, record
+
+
+def alloc_outputs(n, residual, device):
+    """The outputs of one march_block call, in the plain version's key
+    order, as contiguous views of one new float32 buffer (output_layout),
+    and their addresses in the C record's order (0 for an absent one)."""
+    size, words, record = _carve(n, residual)
+    buf = torch.empty(size, dtype=torch.float32, device=device)
+    part = buf.split_with_sizes(words)
+    landed, escaped = (p.view(torch.bool) for p in part[-2:])
+    if n % 4:                  # the flags' last word is partly padding
+        landed, escaped = landed[:n], escaped[:n]
+    out = {"voxel": part[0].view(torch.int32).view(n, 3),
+           "next_t": part[1].view(n, 3), "t_cur": part[2],
+           "dl_target": part[3], "dl_since": part[4], "maxd": part[5],
+           "landed": landed, "escaped": escaped}
+    if residual:
+        out["ctrld"], out["ctrl_since"] = part[6], part[7]
+    base = buf.data_ptr()
+    return out, [0 if off is None else base + off for off in record]
 
 
 def march_block(majorant, voxel, next_t, dt, step, t_exit, t_cur,
                 dl_target, dl_since, maxd_in, hunting, K, maj_res,
                 control=None, resid=None, ctrld_in=None, csince_in=None):
     """Fused march (see march_block_plain for the arguments).  CPU tensors
-    run the plain version; CUDA tensors launch csrc/march.cu."""
+    run the plain version; CUDA tensors launch csrc/march.cu once, or raise.
+    The outputs are views of one new buffer (alloc_outputs)."""
     global launches
     dev = t_cur.device
     if dev.type == "cpu":
@@ -170,54 +234,54 @@ def march_block(majorant, voxel, next_t, dt, step, t_exit, t_cur,
                                  t_cur, dl_target, dl_since, maxd_in, hunting,
                                  K, maj_res, control, resid, ctrld_in,
                                  csince_in)
-    if dev.type != "cuda":
-        raise ValueError(f"march_block: unsupported device {dev}")
-    rx, ry, rz = (int(r) for r in maj_res)
-    n = t_cur.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    V = rx * ry * rz
+    index, stream = kernels.launch_target("march_block", dev)
+    rx, ry, rz = maj_res
+    n, V = t_cur.shape[0], rx * ry * rz
     use_ctrl = control is not None
-    _check = functools.partial(kernels.check_arg, "march_block")
-    _check("majorant", majorant, f32, (V,), dev)
-    for name, t, dt_, shp in (
-            ("voxel", voxel, i32, (n, 3)), ("next_t", next_t, f32, (n, 3)),
-            ("dt", dt, f32, (n, 3)), ("step", step, i32, (n, 3)),
-            ("t_exit", t_exit, f32, (n,)), ("t_cur", t_cur, f32, (n,)),
-            ("dl_target", dl_target, f32, (n,)),
-            ("dl_since", dl_since, f32, (n,)), ("maxd_in", maxd_in, f32, (n,)),
-            ("hunting", hunting, torch.bool, (n,))):
-        _check(name, t, dt_, shp, dev)
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    lane3, lane = (n, 3), (n,)
+    args = ((majorant, f32, (V,)), (voxel, i32, lane3), (next_t, f32, lane3),
+            (dt, f32, lane3), (step, i32, lane3), (t_exit, f32, lane),
+            (t_cur, f32, lane), (dl_target, f32, lane), (dl_since, f32, lane),
+            (maxd_in, f32, lane), (hunting, b8, lane))
     if use_ctrl:
-        _check("control", control, f32, (V,), dev)
-        _check("resid", resid, torch.bool, (n,), dev)
-        _check("ctrld_in", ctrld_in, f32, (n,), dev)
-        _check("csince_in", csince_in, f32, (n,), dev)
-    o_voxel = torch.empty((n, 3), dtype=i32, device=dev)
-    o_next_t = torch.empty((n, 3), dtype=f32, device=dev)
-    o_f = [torch.empty((n,), dtype=f32, device=dev) for _ in range(4)]
-    o_flags = torch.empty((n,), dtype=i32, device=dev)
-    o_c = ([torch.empty((n,), dtype=f32, device=dev) for _ in range(2)]
-           if use_ctrl else [None, None])
-    ptr = lambda t: None if t is None else t.data_ptr()
-    fn = _entry()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(ptr(majorant), ptr(control), V, ptr(voxel), ptr(next_t),
-                 ptr(dt), ptr(step), ptr(t_exit), ptr(t_cur), ptr(dl_target),
-                 ptr(dl_since), ptr(maxd_in), ptr(hunting), ptr(resid),
-                 ptr(ctrld_in), ptr(csince_in), ptr(o_voxel), ptr(o_next_t),
-                 *[ptr(t) for t in o_f], ptr(o_flags), *[ptr(t) for t in o_c],
-                 n, int(K), rx, ry, rz, int(use_ctrl), stream)
+        args += ((control, f32, (V,)), (resid, b8, lane),
+                 (ctrld_in, f32, lane), (csince_in, f32, lane))
+    _check_args(args, index, dev)
+    out, o_ptrs = alloc_outputs(n, use_ctrl, dev)
+    if n == 0:
+        return out
+    ctrl_ptrs = ((control.data_ptr(), resid.data_ptr(), ctrld_in.data_ptr(),
+                  csince_in.data_ptr()) if use_ctrl else (0, 0, 0, 0))
+    record = _CALL.pack(
+        majorant.data_ptr(), ctrl_ptrs[0], voxel.data_ptr(),
+        next_t.data_ptr(), dt.data_ptr(), step.data_ptr(), t_exit.data_ptr(),
+        t_cur.data_ptr(), dl_target.data_ptr(), dl_since.data_ptr(),
+        maxd_in.data_ptr(), hunting.data_ptr(), *ctrl_ptrs[1:], *o_ptrs,
+        V, n, K, rx, ry, rz, index, stream)
+    err = _kernel()(record)
     if err != 0:
         raise RuntimeError(f"march_block: CUDA kernel launch failed "
                            f"(cudaError {err})")
     launches += 1
-    out = dict(voxel=o_voxel, next_t=o_next_t, t_cur=o_f[0],
-               dl_target=o_f[1], dl_since=o_f[2], maxd=o_f[3],
-               landed=(o_flags & 1) != 0, escaped=(o_flags & 2) != 0)
-    if use_ctrl:
-        out["ctrld"], out["ctrl_since"] = o_c
     return out
+
+
+_ARG_NAMES = ("majorant", "voxel", "next_t", "dt", "step", "t_exit", "t_cur",
+              "dl_target", "dl_since", "maxd_in", "hunting", "control",
+              "resid", "ctrld_in", "csince_in")
+
+
+def _check_args(args, index, dev):
+    """Raise unless every (tensor, dtype, shape) of march_block's `args`, in
+    _ARG_NAMES's order, lies on CUDA device `index` with that dtype and
+    shape and a contiguous layout; the message names the first that does
+    not."""
+    for t, dtype, shape in args:
+        if (t.dtype is not dtype or t.shape != shape or not t.is_contiguous()
+                or t.get_device() != index):
+            for name, (u, want, shp) in zip(_ARG_NAMES, args):
+                kernels.check_arg("march_block", name, u, want, shp, dev)
 
 
 _LANES = 128             # the TPU's lane width

@@ -9,10 +9,16 @@ Phases (any failure raises, and the script exits non-zero):
      with nvcc into build/kernels/ and prints the build time;
   3. kernel vs plain: the march kernel against its eager PyTorch version on
      random lanes (N 16384 and 1000, K 1/8/16, 16^3/32^3/64^3 tables,
-     residual mode off and on; and N 262144, K 8, 16^3, the lane count of
-     the wave path's chunks): integers and flags equal, floats to rtol
-     1e-6; times both at the render's shape (N 16384, K 8, 16^3), the
-     kernel also by its device time (torch.profiler);
+     residual mode off and on; N 262144, K 8, 16^3, the lane count of the
+     wave path's chunks; and N 1, 31, 127, 129, 16383, 16385): integers and
+     flags equal, floats to rtol 1e-6, every output of the plain version's
+     dtype and shape and contiguous.  At both main-path shapes (N 16384 and
+     262144, K 8, 16^3): the wrapper's ms per call, the kernel alone by
+     its name in torch.profiler warm (back to back) and cold (after a
+     256 MB flush), everything one call launches, and the bound; the plain
+     version at N 16384; the launch floor (a one-element zero_) and the
+     floor with one round trip to device memory (a one-element neg_ after
+     the flush);
   4. gather kernel vs plain: the table gather against its eager version,
      V 128 / 1000 / 4096 / 32768 / 64^3 and n 100 / 96*8 / 208*8 /
      1000*8 / 16384*8 random indices (a few out of range), and index views
@@ -85,9 +91,11 @@ Phases (any failure raises, and the script exits non-zero):
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
-of the kernel and of its library call; the dma kernel's cold times, and
-its launches, which are its runs on the card in phase 11, beside its
-wrapper calls) and the result JSON.
+of the kernel and of its library call; the march kernel's times at both
+main-path shapes (the N 262144 ones under `wave_`), beside everything one
+call launches and the launch floor; the dma kernel's cold times, and its
+launches, which are its runs on the card in phase 11, beside its wrapper
+calls) and the result JSON.
 """
 import json
 import subprocess
@@ -114,6 +122,7 @@ GRAD_SMALL_KW = dict(fixed_steps=96, spp=2, accum_spp=True, retire_groups=2,
 WAVE_LANES = (256, 200)          # fused and window route of the 32x24 cloud
 WAVE_GRAD_KW = dict(fixed_steps=96, spp=2)
 DMA_CHUNKS = (16, 100, 1000, 16384)
+MARCH_RAGGED = (1, 31, 127, 129, 16383, 16385)
 HBM_BYTES_PER_MS = 3.35e9        # H100 SXM device memory, 3.35 TB/s
 F32_OPS_PER_MS = 67e9            # H100 SXM float32 outside the tensor cores
 
@@ -206,7 +215,23 @@ def bound(n_bytes, n_ops):
     return (b, "bytes") if b >= o else (o, "operations")
 
 
+def check_march_layout(out, ref):
+    """The kernel's outputs have the plain version's keys, dtypes, shapes and
+    a contiguous layout."""
+    if list(out) != list(ref):
+        raise AssertionError(f"march outputs {list(out)}, plain {list(ref)}")
+    for k in ref:
+        a, b = out[k], ref[k]
+        if (a.dtype, a.shape) != (b.dtype, b.shape) or not a.is_contiguous():
+            raise AssertionError(f"march {k}: {a.dtype} {tuple(a.shape)} "
+                                 f"contiguous {a.is_contiguous()}, plain "
+                                 f"{b.dtype} {tuple(b.shape)}")
+
+
 def phase_kernel(dev):
+    """Phase 3.  Uses only what every tree's ops/march.py has (march_block,
+    march_block_plain, random_lanes), so that scripts/alternate_kernel_phases.py
+    can run it on an older tree too."""
     from acceleratedvolrenderer_tpu_torch.ops import march
 
     max_err = 0.0
@@ -216,33 +241,61 @@ def phase_kernel(dev):
             for residual in (False, True) for K in (1, 8, 16)]
     # the wave path's chunks: 262144 lanes, K 8 over the 16^3 majorant
     grid += [(262144, (16, 16, 16), residual, 8) for residual in (False, True)]
+    # lane counts around the block size: the kernel's masked last block
+    grid += [(n, (16, 16, 16), residual, 8) for n in MARCH_RAGGED
+             for residual in (False, True)]
     for n, res, residual, K in grid:
         lanes = to_dev(march.random_lanes(n, res, seed=n + res[0],
                                           residual=residual), dev)
         out = march.march_block(K=K, maj_res=res, **lanes)
         ref = march.march_block_plain(K=K, maj_res=res, **lanes)
         torch.cuda.synchronize()
+        check_march_layout(out, ref)
         max_err = max(max_err, compare_march(out, ref))
         cases += 1
-    lanes = to_dev(march.random_lanes(16384, (16, 16, 16), seed=7), dev)
-    kw = dict(K=8, maj_res=(16, 16, 16), **lanes)
-    ms = time_ms(lambda: march.march_block(**kw), 200)
-    dev_us = device_us(lambda: march.march_block(**kw), 200)
-    plain_ms = time_ms(lambda: march.march_block_plain(**kw), 20)
-    # bytes: the inputs (table and lane registers) and the outputs once;
-    # operations: about 30 float32 operations per voxel step of a hunting
-    # lane (DDA advance, majorant product, target test)
-    out = march.march_block(**kw)
-    b = bound(nbytes(*lanes.values()) + nbytes(*out.values()),
-              30 * 8 * int(lanes["hunting"].sum()))
-    print(f"kernel vs plain: {cases} cases equal (N 16384 / 1000 and "
-          f"262144), max |err| {max_err:.3e}; "
-          f"N 16384 K 8 16^3: kernel {ms:.4f} ms (device {dev_us:.2f} us), "
-          f"plain {plain_ms:.4f} ms, bound {b[0]:.6f} ms ({b[1]})",
+    name = "march_kernel"                  # the kernel alone, by its name
+    scratch = torch.empty(64 * 2 ** 20, device=dev)     # 256 MB > L2
+    flush = scratch.zero_
+    rec, lines = {}, []
+    for n, key in ((16384, ""), (262144, "wave_")):
+        lanes = to_dev(march.random_lanes(n, (16, 16, 16), seed=7), dev)
+        kw = dict(K=8, maj_res=(16, 16, 16), **lanes)
+        call = lambda: march.march_block(**kw)
+        ms = time_ms(call, 200)
+        warm_us = device_us(call, 200, name)
+        call_us = device_us(call, 200)        # everything one call launches
+        cold_us = device_us(lambda: (flush(), call()), 200, name)
+        # bytes: the inputs (table and lane registers) and the outputs once;
+        # operations: about 30 float32 operations per voxel step of a
+        # hunting lane (DDA advance, majorant product, target test)
+        b = bound(nbytes(*lanes.values()) + nbytes(*call().values()),
+                  30 * 8 * int(lanes["hunting"].sum()))
+        rec.update({f"{key}ms": ms, f"{key}device_us": warm_us,
+                    f"{key}call_device_us": call_us,
+                    f"{key}cold_device_us": cold_us, f"{key}bound_ms": b[0],
+                    f"{key}bound_by": b[1]})
+        lines.append(f"N {n}: wrapper {ms:.4f} ms, kernel alone {warm_us:.2f} "
+                     f"us warm / {cold_us:.2f} us cold, all kernels of a call "
+                     f"{call_us:.2f} us, bound {b[0]:.6f} ms ({b[1]}, "
+                     f"{100 * b[0] * 1e3 / cold_us:.1f}% of cold)")
+        if key == "":
+            plain_ms = time_ms(lambda: march.march_block_plain(**kw), 20)
+    # the launch floor: a one-element zero_, taken the same way; and a
+    # one-element neg_ after the flush: the floor plus one round trip to
+    # device memory
+    one = torch.zeros(1, device=dev)
+    floor_us = device_us(one.zero_, 200)
+    trip_us = device_us(lambda: (flush(), one.neg_()), 200, "neg_kernel")
+    print(f"kernel vs plain: {cases} cases equal (N 16384 / 1000, 262144 and "
+          f"{MARCH_RAGGED}), outputs of the plain version's dtypes, shapes "
+          f"and contiguous, max |err| {max_err:.3e}; K 8 16^3: "
+          + "; ".join(lines) + f"; plain {plain_ms:.4f} ms at N 16384; "
+          f"launch floor {floor_us:.2f} us (one-element zero_), with one "
+          f"round trip {trip_us:.2f} us (one-element neg_ after a flush)",
           flush=True)
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b[0], bound_by=b[1], library_ms=None,
-                device_us=dev_us, library_device_us=None)
+    return dict(max_abs_err=max_err, plain_ms=plain_ms, library_ms=None,
+                library_device_us=None, launch_floor_us=floor_us,
+                launch_trip_us=trip_us, **rec)
 
 
 def phase_gather(dev):

@@ -3,7 +3,8 @@
 
     python scripts/profile_port.py [--out profile.txt]
 
-1. March kernel: device time per launch (torch.profiler, CUPTI) and
+1. March kernel: device time per call (torch.profiler, CUPTI), of the
+   kernel alone (by its name) and of everything the call launches, and
    wrapper time per call (CUDA events over back-to-back calls) at the
    render's shape (N 16384, K 8, 16^3), beside the plain version's.
    Gather kernel: the same two times at n 16384*8 and 208*8 (V 4096)
@@ -49,9 +50,11 @@ def timed(fn):
     return out, time.time() - t0
 
 
-def device_us(prof):
-    """Total device time (us) of the kernels in a profile."""
-    return sum(e.self_device_time_total for e in prof.key_averages())
+def device_us(prof, name=None):
+    """Total device time (us) of the kernels in a profile, or of those
+    whose name holds `name`."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if name is None or name in e.key)
 
 
 def events_ms(fn, reps):
@@ -103,6 +106,9 @@ def main():
         line = (f"{name}: {call_ms:.4f} ms per call (CUDA events, back to "
                 f"back), device time {device_us(prof) / reps:.2f} us per "
                 "call (profiler)")
+        if name == "march kernel":
+            line += (f", of which the kernel alone "
+                     f"{device_us(prof, 'march_kernel') / reps:.2f} us")
         print(line, flush=True)
         report += [line, prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=8)]

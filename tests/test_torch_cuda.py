@@ -45,23 +45,83 @@ def _lanes(n, res, seed, residual, dev):
             march.random_lanes(n, res, seed=seed, residual=residual).items()}
 
 
-@pytest.mark.parametrize("res", [(16, 16, 16), (32, 32, 32), (64, 64, 64)])
-@pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("K", [1, 8, 16])
-def test_march_kernel_matches_plain(dev, res, residual, K):
-    lanes = _lanes(1000, res, K + res[0], residual, dev)
+def _march_case(lanes, K, res):
+    """One kernel launch against the plain version: the same keys, dtypes,
+    shapes, contiguous outputs, integers and flags equal, floats to rtol
+    1e-6."""
     before = march.launches
     out = march.march_block(K=K, maj_res=res, **lanes)
     assert march.launches == before + 1
     ref = march.march_block_plain(K=K, maj_res=res, **lanes)
     torch.cuda.synchronize()
-    assert set(out) == set(ref)
+    assert list(out) == list(ref)
     for k in ref:
+        assert (out[k].dtype, out[k].shape) == (ref[k].dtype, ref[k].shape), k
+        assert out[k].is_contiguous(), k
         x, y = out[k].cpu().numpy(), ref[k].cpu().numpy()
         if x.dtype.kind in "biu":
             assert np.array_equal(x, y), k
         else:
             np.testing.assert_allclose(x, y, rtol=1e-6, atol=0, err_msg=k)
+    return out
+
+
+@pytest.mark.parametrize("res", [(16, 16, 16), (32, 32, 32), (64, 64, 64)])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("K", [1, 8, 16])
+def test_march_kernel_matches_plain(dev, res, residual, K):
+    _march_case(_lanes(1000, res, K + res[0], residual, dev), K, res)
+
+
+@pytest.mark.parametrize("n", [1, 31, 127, 129, 16383, 16385, 262144])
+@pytest.mark.parametrize("residual", [False, True])
+def test_march_kernel_lane_counts(dev, n, residual):
+    """Lane counts around the 128-thread block (a masked last block) and
+    the wave chunk's 262,144."""
+    _march_case(_lanes(n, (16, 16, 16), n, residual, dev), 8, (16, 16, 16))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_march_kernel_32_table_twice(dev, residual):
+    """A 128 KB table twice in a row: the second launch must not depend on
+    anything the first set up other than once-per-kernel state."""
+    for seed in (1, 2):
+        _march_case(_lanes(16384, (32, 32, 32), seed, residual, dev), 8,
+                    (32, 32, 32))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_march_kernel_unaligned_views(dev, residual):
+    """Inputs that are contiguous views 4 bytes past a 16-byte boundary
+    (table and lane registers): the kernel takes its 4-byte paths."""
+    lanes = _lanes(1000, (16, 16, 16), 5, residual, dev)
+    shifted = {}
+    for k, v in lanes.items():
+        big = torch.empty(v.numel() + 1, dtype=v.dtype, device=dev)
+        view = big[1:].view(v.shape)
+        view.copy_(v)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        shifted[k] = view
+    _march_case(shifted, 8, (16, 16, 16))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("K", [1, 8])
+def test_march_call_is_one_kernel(dev, residual, K):
+    """One march_block call launches exactly one kernel, the march kernel:
+    the flags come out of it as bool planes, with no decoding kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lanes = _lanes(16384, (16, 16, 16), 3, residual, dev)
+    march.march_block(K=K, maj_res=(16, 16, 16), **lanes)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        march.march_block(K=K, maj_res=(16, 16, 16), **lanes)
+        torch.cuda.synchronize()
+    run = [(e.key, e.count) for e in prof.key_averages()
+           if e.self_device_time_total > 0]
+    assert len(run) == 1, run
+    assert "march_kernel" in run[0][0] and run[0][1] == 1, run
 
 
 def test_march_wrapper_rejects_bad_input(dev):
@@ -73,6 +133,20 @@ def test_march_wrapper_rejects_bad_input(dev):
     bad = dict(lanes, voxel=lanes["voxel"].t().contiguous().t())
     with pytest.raises(ValueError):
         march.march_block(K=4, maj_res=(16, 16, 16), **bad)
+    # a freshly computed mask that is a strided view; short or misplaced
+    # planes and tables
+    hunting = torch.stack([lanes["hunting"]] * 2, 1)[:, 0]
+    assert not hunting.is_contiguous()
+    for k, v in (("hunting", hunting), ("dl_since", lanes["dl_since"][:100]),
+                 ("majorant", lanes["majorant"][:100]),
+                 ("maxd_in", lanes["maxd_in"].cpu())):
+        with pytest.raises(ValueError):
+            march.march_block(K=4, maj_res=(16, 16, 16),
+                              **dict(lanes, **{k: v}))
+    # a grid whose sizes multiply to the table's but are not all positive:
+    # the C entry refuses it without launching
+    with pytest.raises(RuntimeError):
+        march.march_block(K=4, maj_res=(-16, -16, 16), **lanes)
     assert march.launches == before
 
 
