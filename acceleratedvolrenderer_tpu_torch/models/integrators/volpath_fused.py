@@ -5,9 +5,10 @@ Every lane carries one path through a small program counter (MARCH / NEE /
 DONE).  Each loop iteration advances every unfinished lane: a K-voxel march
 to the next tentative collision, the masked event block (density tap,
 absorb / scatter / null choice, HG bounce, ratio-tracked NEE shadow
-segment), and the retire stage, which banks a finished sample, runs the
-pixel's next sample in the same lane and splats the pixel once all its
-samples are banked (accum_spp).
+segment), and (regen mode) the retire stage, which splats each finished
+sample into the film and refills its lane with the next work item, or with
+accum_spp banks a finished sample, runs the pixel's next sample in the
+same lane and splats the pixel once all its samples are banked.
 
 The march takes one of two routes, chosen as the reference chooses them
 (ops/march.py::available, the rule of pallas_march.available): the fused
@@ -25,23 +26,33 @@ sampling-side density is `med.density_s` when given (frozen), else the
 density detached.  Detaching is an identity in the forward pass, so one
 code path serves both.
 
-Ported: volumetric scalar-grid media, in regen mode with accum_spp and in
-wave mode (`regen=None`: the lanes trace the given camera rays once, there
-is no retire stage, and the result is the per-lane radiance `L`).  Wave
-mode takes the reference's optional medium fields: the `Le_grid` emission
-scale, frozen sampling-side spectra `sigma_a_s` / `sigma_s_s` and a frozen
-sampling-side `g_s`.  The loop runs on the host: `n_steps` is a python int,
-so the retire group is a plain slice.  Without `fixed_steps`, termination
-is checked every `CHECK_EVERY` iterations (iterations after completion are
+Ported: homogeneous, scalar-grid and RGB-grid media (`rgb_mode`: per-voxel
+RGB coefficients through Smits' RGB -> spectrum at every collision, sigma_t
+of the lane spectrum 1), spectral emission (`Le`, the `Le_grid` scale) and
+RGB emission (`Le_rgb`), and residual ratio tracking on shadow segments
+(`residual_shadow` with `med.minorant`: shadow collisions sample the rate
+majorant - minorant and the control part exp(-sigma_t * minorant depth)
+applies in closed form).  Regen mode retires per sample, or per pixel with
+accum_spp; wave mode (`regen=None`) traces the given camera rays once, has
+no retire stage, and returns the per-lane radiance `L`.  Wave mode takes
+the reference's optional medium fields: the `Le_grid` emission scale,
+frozen sampling-side spectra `sigma_a_s` / `sigma_s_s` and a frozen
+sampling-side `g_s`.  Surfaces (`prims`) are not ported and raise.
+
+The loop runs on the host: `n_steps` is a python int, so the retire group,
+the event group and the retire tick (`retire_every`) are plain slices and
+`if`s.  Without `fixed_steps` (or with `record_alive`, which like the
+reference runs the open loop and ignores `fixed_steps`), termination is
+checked every `CHECK_EVERY` iterations (iterations after completion are
 exact no-ops: every lane is DONE, no work is left, and masked draws do not
-advance streams), and the film is updated in place (index_add_).  With
-`fixed_steps=n` the loop runs exactly n iterations with no readback, the
-film (or the loss-cotangent scalar) is updated out of place, and every
-iteration runs under torch.utils.checkpoint, so a backward pass through the
-loop keeps one carry per iteration; `remat_window=w` checkpoints windows of
-w iterations instead (ceil(n / w) * w iterations run), keeping one carry
-per window plus one window's saved tensors.  Either way the backward sweep
-runs each iteration's forward once more.
+advance streams).  With `fixed_steps=n` the loop runs exactly n iterations
+with no readback, the film (or the loss-cotangent scalar) is updated out
+of place, and every iteration runs under torch.utils.checkpoint, so a
+backward pass through the loop keeps one carry per iteration;
+`remat_window=w` checkpoints windows of w iterations instead (ceil(n / w)
+* w iterations run), keeping one carry per window plus one window's saved
+tensors.  Either way the backward sweep runs each iteration's forward once
+more.
 
 Lane tensors are rebuilt with torch.where each stage, as the reference
 does.
@@ -49,6 +60,7 @@ does.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -77,6 +89,8 @@ class LiResult(NamedTuple):
     iterations: int                         # loop iterations run
     alive_hist: Optional[torch.Tensor] = None   # (iterations,) alive lanes
     L: Optional[torch.Tensor] = None        # wave mode: (N, L) radiance
+    ev_counts: Optional[torch.Tensor] = None    # (2,) [main, shadow]
+    #   collisions, with count_events
 
 
 @dataclasses.dataclass
@@ -86,7 +100,7 @@ class _Regs:
     rng: torch.Tensor         # (N,) PCG state (uint32 in int64)
     lam: torch.Tensor         # (N, L) sampled wavelengths
     lam_pdf: torch.Tensor
-    s_t: torch.Tensor         # (N, L) sigma_t at unit density
+    s_t: torch.Tensor         # (N, L) sigma_t at unit density (1: RGB)
     s_a: torch.Tensor
     s_s: torch.Tensor
     s_le: torch.Tensor
@@ -104,6 +118,8 @@ class _Regs:
     reached: torch.Tensor
     seg_escaped: torch.Tensor
     maxd: torch.Tensor        # majorant of the current voxel
+    ctrld: torch.Tensor       # residual mode: minorant of the event voxel,
+    ctrl_since: torch.Tensor  # control depth since the last event ((1,) off)
     L: torch.Tensor           # (N, L) spectral state
     beta: torch.Tensor
     r_u: torch.Tensor
@@ -116,10 +132,11 @@ class _Regs:
     f_spec: torch.Tensor
     spdf_d: torch.Tensor
     is_delta: torch.Tensor
-    work: torch.Tensor        # (N,) current pixel work item, -1 = none
+    ev_counts: torch.Tensor   # (2,) [main, shadow] collisions (count_events)
+    work: torch.Tensor        # (N,) current work item, -1 = none
     cursor: torch.Tensor      # 0-d next unissued work item
-    samp: torch.Tensor        # (N,) current sample of the lane's pixel
-    rgb_acc: torch.Tensor     # (N, 3) banked rgb of the pixel's samples
+    samp: torch.Tensor        # accum_spp: (N,) current sample of the pixel
+    rgb_acc: torch.Tensor     # accum_spp: (N, 3) banked rgb of the pixel
 
 
 def _fields(c: _Regs) -> tuple:
@@ -148,9 +165,11 @@ def li(
     stochastic_filter: bool = False,
     retire_every: int = 1,
     retire_groups: int = 1,
+    sub_rounds: int = 1,
     accum_spp: bool = False,
     event_groups: int = 1,
     light_strategy: str = "uniform",
+    count_events: bool = False,
     residual_shadow: bool = False,
 ) -> LiResult:
     """Wave mode (`regen=None`): trace the rays o / d with wavelengths lam
@@ -161,27 +180,25 @@ def li(
     the lane count, wavelength count and device.  `regen["loss_cotangent"]`,
     a flat (3 * (H*W + 1),) cotangent, makes the retire stage accumulate
     sum(cot . film) into the (1,) `regen["film_rgb"]` instead of the film
-    (parallel/diff.py)."""
-    has_samp_sigma = med.sigma_a_s is not None
-    unsupported = [name for name, on in (
-        ("surfaces (prims)", len(prims) > 0), ("rgb_mode", rgb_mode),
-        ("homogeneous media", homogeneous),
-        ("residual_shadow", residual_shadow),
-        ("event_groups > 1", event_groups > 1),
-        ("retire_every > 1", retire_every > 1),
-        ("record_alive with fixed_steps",
-         record_alive and fixed_steps is not None),
-        ("regen without accum_spp", regen is not None and not accum_spp),
-        ("sampling-side sigma overrides in regen mode",
-         regen is not None and has_samp_sigma)) if on]
-    if unsupported:
+    (parallel/diff.py); `regen["max_component"]` clamps each retired rgb."""
+    if len(prims) > 0:
         raise NotImplementedError(
-            "volpath_fused.li: not ported yet: " + ", ".join(unsupported))
+            "volpath_fused.li: not ported yet: surfaces (prims)")
+    has_samp_sigma = med.sigma_a_s is not None
+    if has_samp_sigma and (rgb_mode or regen is not None
+                           or event_groups > 1):
+        raise ValueError(
+            "volpath_fused.li: sampling-side sigma overrides serve only the "
+            "plain spectral wave path; the reference refuses them too")
+    if regen is not None and accum_spp and retire_every != 1:
+        raise ValueError("volpath_fused.li: accum_spp requires retire_every "
+                         "== 1, as in the reference")
 
     N = o.shape[0]
     LANES = lam.shape[-1]
     dev = o.device
     f32 = torch.float32
+    i64 = torch.int64
     g = med.g
     g_samp = (g if med.g_s is None else med.g_s).detach()
     rz, ry, rx = med.majorant.shape
@@ -192,6 +209,11 @@ def li(
     dens_dims = tuple(int(x) for x in med.density.shape)
     route = (march.march_block if march.available(maj_flat.numel(), N)
              else march.march_window)
+    # residual ratio tracking on shadow segments: scalar grids only
+    residual_on = bool(residual_shadow and not homogeneous and not rgb_mode
+                       and med.minorant is not None)
+    ctrl_flat = (med.minorant.reshape(-1).contiguous().detach()
+                 if residual_on else None)
 
     le_grid_flat = (med.Le_grid.reshape(-1) if med.Le_grid is not None
                     else None)
@@ -206,8 +228,12 @@ def li(
         R_kind, R_seed = regen["sampler"], regen["seed"]
         R_stride = int(regen.get("work_stride", 1))
         R_cot = regen.get("loss_cotangent", None)
-        assert R_total % R_spp == 0, "accum_spp: total_work % spp != 0"
-        R_items = R_total // R_spp       # a work item is one PIXEL
+        R_maxc = float(regen.get("max_component", math.inf))
+        if accum_spp:
+            assert R_total % R_spp == 0, "accum_spp: total_work % spp != 0"
+            R_items = R_total // R_spp   # a work item is one PIXEL
+        else:
+            R_items = R_total            # a work item is one (pixel, sample)
 
         def work_pixel(gw):
             p_raw = gw % R_HW
@@ -216,11 +242,13 @@ def li(
             return (p_raw * R_stride) % R_HW
 
         def spawn(work, samp):
-            """Camera ray, wavelengths and PCG stream for (pixel, sample)."""
+            """Camera ray, wavelengths and PCG stream for (pixel, sample):
+            the sample is `samp` with accum_spp, else work // (H*W)."""
             p_idx = work_pixel(work)
+            s_idx = samp if accum_spp else work // R_HW
             pixxy = torch.stack([p_idx % R_W, p_idx // R_W],
                                 -1).to(torch.int32)
-            ua, ub, rng_s = samplers.film_sample(R_kind, p_idx, samp,
+            ua, ub, rng_s = samplers.film_sample(R_kind, p_idx, s_idx,
                                                  R_spp, seed=R_seed)
             off = R_filt.sample_offset(torch.stack([ua, ub], -1)) + 0.5
             rng_s, ul = pcg_uniform(rng_s)
@@ -232,7 +260,9 @@ def li(
             s_a = regen["sigma_a_fn"](lam_cur)
             s_s = regen["sigma_s_fn"](lam_cur)
             s_le = regen["Le_fn"](lam_cur)
-            return s_a + s_s, s_a, s_s, s_le
+            # an RGB medium's majorant holds sigma_t: its lane spectrum is 1
+            s_t = torch.ones_like(s_a) if rgb_mode else s_a + s_s
+            return s_t, s_a, s_s, s_le
 
     if has_samp_sigma:
         # frozen sampling-side spectra: sample paths stay independent of
@@ -259,6 +289,10 @@ def li(
                           / torch.clamp(st0, min=1e-30), torch.inf)
         sel = need
         sel3 = need[:, None]
+        ctrl = {}
+        if residual_on:
+            ctrl = dict(ctrld=torch.where(sel, 0.0, old.ctrld),
+                        ctrl_since=torch.where(sel, 0.0, old.ctrl_since))
         return dataclasses.replace(
             old,
             so=torch.where(sel3, so, old.so),
@@ -274,17 +308,16 @@ def li(
             reached=torch.where(sel, False, old.reached),
             # a segment that misses the medium is immediately "escaped"
             seg_escaped=torch.where(sel, ~dda.in_medium, old.seg_escaped),
-            rng=rng,
+            rng=rng, **ctrl,
         )
 
-    i64 = torch.int64
     zeros_i = torch.zeros((N,), dtype=i64, device=dev)
     zero_s = torch.zeros((N, LANES), dtype=f32, device=dev)
     one_s = torch.ones((N, LANES), dtype=f32, device=dev)
     zero_n = torch.zeros((N,), dtype=f32, device=dev)
     false_n = torch.zeros((N,), dtype=torch.bool, device=dev)
     if regen is not None:
-        # ---- initial work items: the first N pixels, sample 0 ----
+        # ---- initial work items: the first N work items ----
         work0 = torch.arange(N, dtype=i64, device=dev)
         need0 = work0 < R_items
         o, d, lam, lam_pdf0, rng = spawn(
@@ -292,8 +325,6 @@ def li(
         s_t0, s_a0, s_s0, s_le0 = spectra_for(lam)
         work_init = torch.where(need0, work0, -1)
         cursor_init = torch.tensor(min(N, R_items), dtype=i64, device=dev)
-        samp_init = zeros_i
-        rgb_acc_init = torch.zeros((N, 3), dtype=f32, device=dev)
         ch_off = torch.arange(3, dtype=i64, device=dev) * (R_HW + 1)
     else:
         # ---- wave mode: every lane starts its given camera ray ----
@@ -302,13 +333,14 @@ def li(
         shape = (N, LANES)
         s_a0 = torch.broadcast_to(med.sigma_a, shape)
         s_s0 = torch.broadcast_to(med.sigma_s, shape)
-        s_t0 = torch.broadcast_to(med.sigma_a + med.sigma_s, shape)
+        s_t0 = (one_s if rgb_mode
+                else torch.broadcast_to(med.sigma_a + med.sigma_s, shape))
         s_le0 = torch.broadcast_to(med.Le, shape)
-        # regen-only registers: (1,) placeholders
         work_init = torch.zeros((1,), dtype=i64, device=dev)
         cursor_init = torch.zeros((), dtype=i64, device=dev)
-        samp_init = work_init
-        rgb_acc_init = torch.zeros((1, 3), dtype=f32, device=dev)
+    accum = regen is not None and accum_spp
+    # registers a mode does not use are (1,) placeholders
+    n_res = N if residual_on else 1
     regs = _Regs(
         pc=torch.where(need0, PC_MARCH, PC_DONE),
         depth=zeros_i, rng=rng, lam=lam, lam_pdf=lam_pdf0,
@@ -320,12 +352,16 @@ def li(
         step=torch.zeros((N, 3), dtype=torch.int32, device=dev),
         t_exit=zero_n, t_cur=zero_n, dl_target=zero_n, dl_since=zero_n,
         reached=false_n, seg_escaped=false_n, maxd=zero_n,
+        ctrld=torch.zeros((n_res,), dtype=f32, device=dev),
+        ctrl_since=torch.zeros((n_res,), dtype=f32, device=dev),
         L=zero_s, beta=one_s, r_u=one_s, r_l=one_s,
         T_ray=one_s, r_l_s=one_s, r_u_s=one_s,
         ls_L=zero_s, ls_pdf=zero_n, f_spec=zero_s, spdf_d=zero_n,
         is_delta=false_n,
-        work=work_init, cursor=cursor_init, samp=samp_init,
-        rgb_acc=rgb_acc_init,
+        ev_counts=torch.zeros((2,), dtype=i64, device=dev),
+        work=work_init, cursor=cursor_init,
+        samp=zeros_i if accum else torch.zeros((1,), dtype=i64, device=dev),
+        rgb_acc=torch.zeros((N if accum else 1, 3), dtype=f32, device=dev),
     )
     inf_n = torch.full((N,), torch.inf, dtype=f32, device=dev)
     regs = init_segment(o, d, inf_n, rng, need0, regs)
@@ -334,37 +370,60 @@ def li(
         """K-voxel march of every hunting lane, by the route chosen above.
         Its outputs are sampling-side quantities: detached."""
         hunting = (c.pc != PC_DONE) & ~c.reached & ~c.seg_escaped
+        ctrl_kw = {}
+        if residual_on:
+            ctrl_kw = dict(control=ctrl_flat, resid=c.pc == PC_NEE,
+                           ctrld_in=c.ctrld, csince_in=c.ctrl_since)
         r = route(
             maj_flat, c.voxel, c.next_t, c.dt, c.step, c.t_exit, c.t_cur,
-            c.dl_target, c.dl_since, c.maxd, hunting, K, (rx, ry, rz))
+            c.dl_target, c.dl_since, c.maxd, hunting, K, (rx, ry, rz),
+            **ctrl_kw)
         r = {k: v.detach() for k, v in r.items()}
         return dataclasses.replace(
             c, voxel=r["voxel"], next_t=r["next_t"], t_cur=r["t_cur"],
             dl_target=r["dl_target"], dl_since=r["dl_since"], maxd=r["maxd"],
+            ctrld=r.get("ctrld", c.ctrld),
+            ctrl_since=r.get("ctrl_since", c.ctrl_since),
             reached=c.reached | r["landed"],
             seg_escaped=c.seg_escaped | r["escaped"])
 
     def handle_events(c: _Regs) -> _Regs:
-        """Collision classification and segment-end transitions."""
+        """Collision classification and segment-end transitions, over the
+        lanes of `c` (all N, or one event group's slice)."""
+        n = c.pc.shape[0]
         col_any = c.reached & (c.pc != PC_DONE)
         rng = c.rng
-        p_w = c.so + c.t_cur[:, None] * c.sd
-        p_m = world_to_medium(med.w2m, p_w)
-        if stochastic_filter:
+        u3f = None
+        if stochastic_filter and not homogeneous:
             # one corner draw per collision: E[1-tap] == trilerp
             rng, uf1 = pcg_uniform_masked(rng, col_any)
             rng, uf2 = pcg_uniform_masked(rng, col_any)
             rng, uf3 = pcg_uniform_masked(rng, col_any)
             u3f = torch.stack([uf1, uf2, uf3], -1)
+        if not homogeneous:
+            p_m = world_to_medium(med.w2m, c.so + c.t_cur[:, None] * c.sd)
+        if u3f is not None:
             tap = lambda grid, dims=dens_dims: (
                 gridops.trilerp_stochastic_flat(grid, dims, p_m, u3f))
+            tap_vec = lambda grid: gridops.trilerp_vec_stochastic(grid, p_m,
+                                                                  u3f)
         else:
             tap = lambda grid, dims=dens_dims: gridops.trilerp_flat(
                 grid, dims, p_m)
-        dens = tap(dens_flat)
+            tap_vec = lambda grid: gridops.trilerp_vec(grid, p_m)
         maxd = c.maxd
-        sa = c.s_a * dens[:, None]                 # evaluation side (diff)
-        ss = c.s_s * dens[:, None]
+        if rgb_mode:
+            # RGB medium: the collision's coefficients from the RGB grids
+            sa = spu.rgb_to_spectrum_smits_batched(tap_vec(med.sigma_a_rgb),
+                                                   c.lam)
+            ss = spu.rgb_to_spectrum_smits_batched(tap_vec(med.sigma_s_rgb),
+                                                   c.lam)
+        else:
+            # unit density throughout a homogeneous medium
+            dens = (torch.ones((n,), dtype=f32, device=dev) if homogeneous
+                    else tap(dens_flat))
+            sa = c.s_a * dens[:, None]             # evaluation side (diff)
+            ss = c.s_s * dens[:, None]
         sig_maj = c.s_t * maxd[:, None]
         T_maj = torch.exp(-c.s_t * c.dl_since[:, None])
         sig_n = torch.clamp(sig_maj - sa - ss, min=0.0)
@@ -376,15 +435,26 @@ def li(
             T_maj_d = torch.exp(-st_smp * c.dl_since[:, None])
         else:
             sig_maj_d, T_maj_d = sig_maj.detach(), T_maj.detach()
-        if dens_s_flat is None and not has_samp_sigma:
+        if rgb_mode or (dens_s_flat is None and not has_samp_sigma):
             sa_d, ss_d, sig_n_d = sa.detach(), ss.detach(), sig_n.detach()
         else:
-            dens_d = (tap(dens_s_flat) if dens_s_flat is not None
-                      else dens.detach())
+            dens_d = (dens.detach() if homogeneous or dens_s_flat is None
+                      else tap(dens_s_flat))
             sa_d = sa_smp * dens_d[:, None]
             ss_d = ss_smp * dens_d[:, None]
             sig_n_d = torch.clamp(sig_maj_d - sa_d - ss_d, min=0.0)
         sig_maj0 = sig_maj_d[:, 0]
+        if residual_on:
+            # shadow lanes: the collision rate (and its pdf) shrink to
+            # majorant - minorant while the null weight keeps the full
+            # majorant - density; the control part is exp(-sigma_t * ctrl
+            # depth).  ctrld / ctrl_since are 0 on main-path lanes.
+            sig_majr_d = (st_smp * (maxd - c.ctrld)[:, None]).detach()
+            sig_majr0 = sig_majr_d[:, 0]
+            ctrlT = torch.exp(-c.s_t * c.ctrl_since[:, None])
+            ctrlT_d = torch.exp(-st_smp * c.ctrl_since[:, None]).detach()
+        else:
+            sig_majr_d, sig_majr0 = sig_maj_d, sig_maj0
 
         # ---- main-path collisions (pc == MARCH) ----
         col_m = col_any & (c.pc == PC_MARCH)
@@ -404,9 +474,14 @@ def li(
         betap = c.beta * T_maj / pdf_e_c
         r_e = (c.r_u * sig_maj_d * T_maj_d).detach() / pdf_e_c
         r_e_avg = torch.mean(r_e, dim=-1).detach()
-        # per-voxel emission scale (GridMedium's LeScale grid analogue)
-        Le_here = (c.s_le if le_grid_flat is None
-                   else c.s_le * tap(le_grid_flat, le_grid_dims)[:, None])
+        if rgb_mode and med.Le_rgb is not None:
+            Le_here = spu.rgb_to_spectrum_smits_batched(tap_vec(med.Le_rgb),
+                                                        c.lam)
+        elif le_grid_flat is not None and not homogeneous:
+            # per-voxel emission scale (GridMedium's LeScale grid analogue)
+            Le_here = c.s_le * tap(le_grid_flat, le_grid_dims)[:, None]
+        else:
+            Le_here = c.s_le
         contrib_e = (betap * sa * Le_here
                      / torch.clamp(r_e_avg, min=1e-30)[:, None])
         emit_ok = col_m & (pdf_e > 0) & (r_e_avg > 0) & (c.depth < max_depth)
@@ -477,21 +552,33 @@ def li(
             strategy=light_strategy)
         f_hat = phase_ops.hg_phase(wo, ls.wi, g)
         f_hat_d = phase_ops.hg_phase(wo, ls.wi, g_samp).detach()  # pdf role
-        f_spec = f_hat[:, None] * one_s
+        f_spec = f_hat[:, None].expand(n, LANES)
         spdf_d = f_hat_d
         nee_valid = want_nee & ls.valid & (ls.pdf > 0) & (f_hat_d > 0)
         skip_nee = want_nee & ~nee_valid
 
         # ---- NEE collisions (pc == NEE): ratio tracking ----
         col_s = col_any & (c.pc == PC_NEE)
-        pdf_rt = (T_maj_d[:, 0] * sig_maj0).detach()
+        pdf_rt = (T_maj_d[:, 0] * sig_majr0).detach()
         inv_rt = (1.0 / torch.clamp(pdf_rt, min=1e-30))[:, None]
         rt3 = (col_s & (pdf_rt > 0))[:, None]
-        T_ray = torch.where(rt3, c.T_ray * T_maj * sig_n * inv_rt, c.T_ray)
-        r_l_s = torch.where(rt3, c.r_l_s * T_maj_d * sig_maj_d * inv_rt,
+        # T_ray keeps the full null magnitude sig_n; in residual mode the
+        # pdf takes the residual rate and the control factor applies
+        # deterministically.  r_l_s tracks the distance sampler's pdf (no
+        # control factor); r_u_s the sampling-side null products
+        if residual_on:
+            T_ray = torch.where(rt3, c.T_ray * T_maj * ctrlT * sig_n * inv_rt,
+                                c.T_ray)
+            r_u_s = torch.where(
+                rt3, c.r_u_s * T_maj_d * ctrlT_d * sig_n_d * inv_rt,
+                c.r_u_s).detach()
+        else:
+            T_ray = torch.where(rt3, c.T_ray * T_maj * sig_n * inv_rt,
+                                c.T_ray)
+            r_u_s = torch.where(rt3, c.r_u_s * T_maj_d * sig_n_d * inv_rt,
+                                c.r_u_s).detach()
+        r_l_s = torch.where(rt3, c.r_l_s * T_maj_d * sig_majr_d * inv_rt,
                             c.r_l_s).detach()
-        r_u_s = torch.where(rt3, c.r_u_s * T_maj_d * sig_n_d * inv_rt,
-                            c.r_u_s).detach()
         denom_rr = torch.mean(r_l_s + r_u_s, dim=-1)
         Tr = r_u_s / torch.clamp(denom_rr, min=1e-30)[:, None]
         rr = col_s & (torch.amax(Tr, dim=-1) < 0.05)
@@ -502,11 +589,18 @@ def li(
         shadow_dead = col_s & (killed | ~(r_u_s != 0.0).any(dim=-1))
 
         # ---- NEE segment complete (pc == NEE) ----
+        # the gap factor f_res, and in residual mode the control factor of
+        # the depth marched since the last event (shadow_dead lanes applied
+        # this iteration's at their collision)
         esc_s = (c.seg_escaped | shadow_dead) & (c.pc == PC_NEE)
         fin3 = (esc_s & ~shadow_dead)[:, None]
-        T_ray_f = torch.where(fin3, T_ray * f_res, T_ray)
+        if residual_on:
+            T_ray_f = torch.where(fin3, T_ray * f_res * ctrlT, T_ray)
+            r_u_sf = torch.where(fin3, r_u_s * f_res_d * ctrlT_d, r_u_s)
+        else:
+            T_ray_f = torch.where(fin3, T_ray * f_res, T_ray)
+            r_u_sf = torch.where(fin3, r_u_s * f_res_d, r_u_s)
         r_l_sf = torch.where(fin3, r_l_s * f_res_d, r_l_s)
-        r_u_sf = torch.where(fin3, r_u_s * f_res_d, r_u_s)
         r_l_nee = r_l_sf * c.r_u * c.ls_pdf[:, None]
         r_u_nee = r_u_sf * c.r_u * c.spdf_d[:, None]
         denom_nee = torch.where(c.is_delta, torch.mean(r_l_nee, dim=-1),
@@ -560,6 +654,12 @@ def li(
             torch.where(col_s & ~shadow_dead, dl_new2, c.dl_target))
         dl_since = torch.where(col_any, 0.0, c.dl_since)
 
+        extra = {}
+        if count_events:
+            extra["ev_counts"] = c.ev_counts + torch.stack(
+                [col_m.sum(), col_s.sum()])
+        if residual_on:
+            extra["ctrl_since"] = torch.where(col_any, 0.0, c.ctrl_since)
         nv3 = nee_valid[:, None]
         c2 = dataclasses.replace(
             c, pc=pc, depth=depth, rng=rng, d_main=d_new,
@@ -573,7 +673,7 @@ def li(
             spdf_d=torch.where(nee_valid, spdf_d, c.spdf_d),
             is_delta=torch.where(nee_valid, is_delta, c.is_delta),
             dl_target=dl_target, dl_since=dl_since,
-            reached=c.reached & ~col_any,
+            reached=c.reached & ~col_any, **extra,
         )
 
         # ---- segment (re)initialization: shadow ray or next main segment
@@ -583,49 +683,61 @@ def li(
         return init_segment(new_o, new_d, new_tmax, c2.rng, nee_valid | go,
                             c2)
 
-    def retire_respawn_accum(c: _Regs, film, n_step: int):
-        """Bank each finished sample's rgb in registers, run the pixel's next
-        sample in the same lane, and splat a pixel once all its samples are
-        banked; only the lanes of retire group n_step % retire_groups may
-        splat this iteration.  Returns (c, film): the film, or with a loss
-        cotangent the (1,) running sum(cot . film)."""
-        fresh = (c.pc == PC_DONE) & (c.work >= 0) & (c.samp < R_spp)
+    def sliced_events(c: _Regs, n_step: int) -> _Regs:
+        """The event block on event group n_step % event_groups, a
+        contiguous 1/E slice of the lanes.  A lane's streams advance only
+        at its own events, so every estimate equals event_groups=1's."""
+        assert N % event_groups == 0, "event_groups must divide the lanes"
+        lo = (n_step % event_groups) * (N // event_groups)
+        hi = lo + N // event_groups
+        # per-lane registers are sliced; the cursor, the counters and the
+        # (1,) placeholders pass through
+        lane = [f.name for f in dataclasses.fields(c)
+                if f.name != "ev_counts" and getattr(c, f.name).dim() > 0
+                and getattr(c, f.name).shape[0] == N]
+        sub = handle_events(dataclasses.replace(
+            c, **{k: getattr(c, k)[lo:hi] for k in lane}))
+        return dataclasses.replace(sub, **{
+            k: torch.cat([getattr(c, k)[:lo], getattr(sub, k),
+                          getattr(c, k)[hi:]]) for k in lane})
+
+    def retired_rgb(c: _Regs):
+        """Each lane's rgb, clamped to max_component (only when that is
+        finite: a clamp by inf would give autograd 0 * inf), finite."""
         swl = spu.SampledWavelengths(c.lam, c.lam_pdf)
         rgb = cspace.xyz_to_rgb(spu.to_xyz(c.L, swl))
-        rgb = torch.nan_to_num(rgb, nan=0.0, posinf=0.0, neginf=0.0)
-        rgb_acc = c.rgb_acc + torch.where(fresh[:, None], rgb, 0.0)
-        samp = c.samp + fresh.to(c.samp.dtype)
+        if math.isfinite(R_maxc):
+            m = torch.amax(rgb, dim=-1)
+            rgb = rgb * torch.where(m > R_maxc,
+                                    R_maxc / torch.clamp(m, min=1e-24),
+                                    1.0)[:, None]
+        return torch.nan_to_num(rgb, nan=0.0, posinf=0.0, neginf=0.0)
 
-        ready = (c.pc == PC_DONE) & (c.work >= 0) & (samp >= R_spp)
-        retire = ready
-        lo, hi = 0, N
-        if retire_groups > 1:
-            grp_sz = N // retire_groups
-            lo = (n_step % retire_groups) * grp_sz
-            hi = lo + grp_sz
-            active = torch.zeros((N,), dtype=torch.bool, device=dev)
-            active[lo:hi] = True
-            retire = ready & active
-        p_idx = work_pixel(c.work)
-        tgt = torch.where(retire & (c.work < R_items), p_idx, R_HW)
-        acc_m = torch.where(retire[:, None], rgb_acc, 0.0)
+    def group(n_step: int):
+        """Lanes [lo, hi) of this iteration's retire group, and its mask."""
+        if retire_groups == 1:
+            return 0, N, None
+        grp_sz = N // retire_groups
+        lo = (n_step % retire_groups) * grp_sz
+        active = torch.zeros((N,), dtype=torch.bool, device=dev)
+        active[lo:lo + grp_sz] = True
+        return lo, lo + grp_sz, active
+
+    def splat(film, tgt, vals, lo, hi):
+        """Add the (N, 3) rows vals[lo:hi] to the film pixels tgt[lo:hi]
+        (R_HW: the discard slot); with a loss cotangent, add sum(cot .
+        film) of those rows to the (1,) scalar instead."""
         tgt3 = (tgt[lo:hi, None] + ch_off).reshape(-1)
-        vals = acc_m[lo:hi].reshape(-1)
+        vals = vals[lo:hi].reshape(-1)
         if R_cot is not None:
-            film = film + torch.sum(R_cot[tgt3] * vals)[None]
-        elif fixed_steps is None:
-            film.index_add_(0, tgt3, vals)
-        else:               # out of place: autograd and checkpointing
-            film = film.index_add(0, tgt3, vals)
+            return film + torch.sum(R_cot[tgt3] * vals)[None]
+        if fixed_steps is None:
+            return film.index_add_(0, tgt3, vals)
+        return film.index_add(0, tgt3, vals)   # autograd, checkpointing
 
-        # respawn: the next sample of the same pixel, or a fresh pixel
-        nxt = fresh & (samp < R_spp)
-        rank = torch.cumsum(retire.to(i64), 0) - 1
-        new_work = c.cursor + rank
-        can_new = retire & (new_work < R_items)
-        can = nxt | can_new
-        sp_work = torch.where(nxt, c.work, torch.where(can_new, new_work, 0))
-        sp_samp = torch.where(nxt, samp, 0)
+    def respawn(c: _Regs, can, sp_work, sp_samp, **regs):
+        """Start the (pixel, sample) of work item sp_work in lanes `can`,
+        with fresh path state, and set `regs`."""
         o2, d2, lam2, pdf2, rng2 = spawn(sp_work, sp_samp)
         s_t2, s_a2, s_s2, s_le2 = spectra_for(lam2)
         sel = can[:, None]
@@ -648,30 +760,92 @@ def li(
             T_ray=torch.where(sel, one_s, c.T_ray),
             r_l_s=torch.where(sel, one_s, c.r_l_s),
             r_u_s=torch.where(sel, one_s, c.r_u_s),
+            **regs)
+        return init_segment(o2, d2, inf_n, c.rng, can, c)
+
+    def retire_respawn(c: _Regs, film, n_step: int):
+        """Splat each finished sample of this iteration's retire group and
+        refill its lane with the next unissued work item (rank-ordered).
+        Returns (c, film)."""
+        lo, hi, active = group(n_step)
+        done = (c.pc == PC_DONE) & (c.work >= 0)
+        if active is not None:
+            done = done & active
+        tgt = torch.where(done & (c.work < R_total), work_pixel(c.work),
+                          R_HW)
+        film = splat(film, tgt,
+                     torch.where(done[:, None], retired_rgb(c), 0.0), lo, hi)
+        rank = torch.cumsum(done.to(i64), 0) - 1
+        new_work = c.cursor + rank
+        can = done & (new_work < R_total)
+        sp_work = torch.where(can, new_work, 0)
+        c = respawn(
+            c, can, sp_work, None,
+            work=torch.where(can, new_work, torch.where(done, -1, c.work)),
+            cursor=torch.clamp(c.cursor + done.sum(), max=R_total))
+        return c, film
+
+    def retire_respawn_accum(c: _Regs, film, n_step: int):
+        """Bank each finished sample's rgb in registers, run the pixel's next
+        sample in the same lane, and splat a pixel once all its samples are
+        banked; only the lanes of this iteration's retire group may splat.
+        Returns (c, film): the film, or with a loss cotangent the (1,)
+        running sum(cot . film)."""
+        fresh = (c.pc == PC_DONE) & (c.work >= 0) & (c.samp < R_spp)
+        rgb_acc = c.rgb_acc + torch.where(fresh[:, None], retired_rgb(c), 0.0)
+        samp = c.samp + fresh.to(c.samp.dtype)
+
+        lo, hi, active = group(n_step)
+        retire = (c.pc == PC_DONE) & (c.work >= 0) & (samp >= R_spp)
+        if active is not None:
+            retire = retire & active
+        tgt = torch.where(retire & (c.work < R_items), work_pixel(c.work),
+                          R_HW)
+        film = splat(film, tgt, torch.where(retire[:, None], rgb_acc, 0.0),
+                     lo, hi)
+
+        # respawn: the next sample of the same pixel, or a fresh pixel
+        nxt = fresh & (samp < R_spp)
+        rank = torch.cumsum(retire.to(i64), 0) - 1
+        new_work = c.cursor + rank
+        can_new = retire & (new_work < R_items)
+        sp_work = torch.where(nxt, c.work, torch.where(can_new, new_work, 0))
+        c = respawn(
+            c, nxt | can_new, sp_work, torch.where(nxt, samp, 0),
             work=torch.where(can_new, new_work,
                              torch.where(retire, -1, c.work)),
             samp=torch.where(can_new, 0, samp),
             rgb_acc=torch.where(retire[:, None], 0.0, rgb_acc),
-            cursor=torch.clamp(c.cursor + retire.sum(), max=R_items),
-        )
-        return init_segment(o2, d2, inf_n, c.rng, can, c), film
+            cursor=torch.clamp(c.cursor + retire.sum(), max=R_items))
+        return c, film
 
     def busy(c: _Regs) -> bool:
         live = c.pc != PC_DONE
         return bool((live if regen is None else live | (c.work >= 0)).any())
 
     def step(c: _Regs, film, n_step: int):
-        c = block_substep(c, k_substeps)
-        c = handle_events(c)
+        for _ in range(sub_rounds):
+            c = block_substep(c, k_substeps)
+            c = (sliced_events(c, n_step) if event_groups > 1
+                 else handle_events(c))
         if regen is None:
             return c, film
-        return retire_respawn_accum(c, film, n_step)
+        if retire_every > 1:
+            # splat and refill every retire_every-th iteration only
+            if n_step % retire_every != retire_every - 1:
+                return c, film
+            return retire_respawn(c, film, n_step)
+        if accum_spp:
+            return retire_respawn_accum(c, film, n_step)
+        return retire_respawn(c, film, n_step)
 
     hist = []
     # wave mode carries a (1,) placeholder in the film's place
     c, film = regs, (regen["film_rgb"] if regen is not None
                      else torch.zeros((1,), dtype=f32, device=dev))
-    if fixed_steps is None:
+    if fixed_steps is None or record_alive:
+        # record_alive runs the open loop and ignores fixed_steps, as the
+        # reference does
         n_steps = 0
         while n_steps < max_march_steps:
             if n_steps % CHECK_EVERY == 0 and not busy(c):
@@ -702,4 +876,5 @@ def li(
         alive_hist=(torch.stack(hist) if hist else
                     torch.zeros((0,), dtype=i64, device=dev))
         if record_alive else None,
-        L=c.L if regen is None else None)
+        L=c.L if regen is None else None,
+        ev_counts=c.ev_counts if count_events else None)

@@ -1,5 +1,5 @@
 """Participating media (port of acceleratedvolrenderer_tpu/models/media.py:
-MediumSpec, world_to_unit and the procedural cloud bake)."""
+MediumSpec, world_to_unit, the procedural cloud bake and homogeneous_box)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -13,9 +13,12 @@ from ..ops import grid as gridops
 
 @dataclass(frozen=True)
 class MediumSpec:
-    """Scalar-grid medium.  `density` is a (nz, ny, nx) float32 tensor on
-    the device the scene was built for; `majorant`, when given, is the
-    prebuilt (rz, ry, rx) majorant (else built from the density)."""
+    """A homogeneous medium (no density, no RGB grids), a scalar grid
+    (`density`, a (nz, ny, nx) float32 tensor) or an RGB grid medium
+    (`sigma_a_rgb` / `sigma_s_rgb` and optionally `Le_rgb`, (nz, ny, nx, 3)
+    float32 tensors; `density` is then ignored), its tensors on the device
+    the scene was built for.  `majorant`, when given, is the prebuilt
+    (rz, ry, rx) majorant (else build_majorant makes it)."""
     sigma_a_spec: Callable             # lam -> absorption cross-section
     sigma_s_spec: Callable             # lam -> scattering cross-section
     g: float = 0.0
@@ -28,21 +31,41 @@ class MediumSpec:
     majorant_res: Tuple[int, int, int] = (16, 16, 16)
     m2w: Optional[np.ndarray] = None   # optional (4, 4) medium -> world
     majorant: Optional[torch.Tensor] = None
+    sigma_a_rgb: Optional[torch.Tensor] = None
+    sigma_s_rgb: Optional[torch.Tensor] = None
+    Le_rgb: Optional[torch.Tensor] = None
+
+    @property
+    def rgb(self) -> bool:
+        return self.sigma_a_rgb is not None
 
     @property
     def homogeneous(self) -> bool:
-        return self.density is None
+        return self.density is None and not self.rgb
 
     def maj_res(self):
         return (1, 1, 1) if self.homogeneous else tuple(self.majorant_res)
 
-    def build_majorant(self) -> torch.Tensor:
-        """(rz, ry, rx) per-cell max density, on the density's device."""
+    def build_majorant(self, device=None) -> torch.Tensor:
+        """(rz, ry, rx) per-cell majorant: a 1^3 table of ones for a
+        homogeneous medium; for an RGB medium the per-cell max over the
+        channels of (sigma_a + sigma_s) * scale (pbrt media.cpp:364-376);
+        else the per-cell max density.  On `device`, else on the grid's
+        device (the CPU for a homogeneous medium)."""
         if self.majorant is not None:
-            return self.majorant
-        maj = gridops.build_majorant_grid(self.density.cpu().numpy(),
-                                          self.maj_res())
-        return torch.as_tensor(maj, device=self.density.device)
+            return self.majorant.to(device)
+        if self.homogeneous:
+            return torch.ones((1, 1, 1), dtype=torch.float32, device=device)
+        grid = self.sigma_a_rgb if self.rgb else self.density
+        if self.rgb:
+            st = (self.sigma_a_rgb.cpu().numpy().astype(np.float32)
+                  + self.sigma_s_rgb.cpu().numpy().astype(np.float32)
+                  ).max(axis=-1)
+            maj = gridops.build_majorant_grid(st * self.scale, self.maj_res())
+        else:
+            maj = gridops.build_majorant_grid(self.density.cpu().numpy(),
+                                              self.maj_res())
+        return torch.as_tensor(maj, device=device or grid.device)
 
     def world_to_unit(self) -> np.ndarray:
         """(4, 4) float64 world -> [0,1]^3 medium matrix."""
@@ -107,3 +130,13 @@ def bake_cloud_density(res=(128, 128, 128), density=1.0, wispiness=1.0,
     base = np.clip(1.0 - r / extent, 0.0, 1.0)
     d = density * base * (0.5 + 0.5 * noise)
     return d.astype(np.float32)
+
+
+def homogeneous_box(sigma_a_spec, sigma_s_spec, lo, hi, g=0.0, scale=1.0,
+                    Le_spec=None, Le_scale=1.0) -> MediumSpec:
+    """A homogeneous medium filling the box [lo, hi]."""
+    return MediumSpec(
+        sigma_a_spec=sigma_a_spec, sigma_s_spec=sigma_s_spec, g=g, scale=scale,
+        density=None, bounds_lo=np.asarray(lo, np.float32),
+        bounds_hi=np.asarray(hi, np.float32), Le_spec=Le_spec,
+        Le_scale=Le_scale)

@@ -75,6 +75,10 @@ class MediumArrays(NamedTuple):
     Le_grid:  optional per-voxel emission scale grid
     sigma_a_s, sigma_s_s: optional frozen sampling-side spectra
     g_s:      optional frozen sampling-side HG asymmetry
+    minorant: optional (rz, ry, rx) per-cell min density, the control grid
+              of residual ratio tracking on shadow segments
+    sigma_a_rgb, sigma_s_rgb, Le_rgb: (nz, ny, nx, 3) per-voxel RGB
+              coefficient grids of an RGB medium (Le_rgb optional)
     """
     density: torch.Tensor
     majorant: torch.Tensor
@@ -88,6 +92,10 @@ class MediumArrays(NamedTuple):
     sigma_a_s: Optional[torch.Tensor] = None
     sigma_s_s: Optional[torch.Tensor] = None
     g_s: Optional[torch.Tensor] = None
+    minorant: Optional[torch.Tensor] = None
+    sigma_a_rgb: Optional[torch.Tensor] = None
+    sigma_s_rgb: Optional[torch.Tensor] = None
+    Le_rgb: Optional[torch.Tensor] = None
 
 
 def world_to_medium(w2m, p):

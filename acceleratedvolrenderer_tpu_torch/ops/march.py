@@ -12,7 +12,8 @@ tensors it launches the kernel once or raises: the kernel writes every
 output, the landed / escaped flags as bool planes, into views of one new
 buffer (`alloc_outputs`), and takes its arguments as one packed record.
 `launches` counts kernel launches, so a run can show that its main path
-went through the kernel.
+went through the kernel; `residual_launches` counts those of them in
+residual mode.
 
 The outputs are sampling-side quantities and carry no gradient.
 """
@@ -30,6 +31,7 @@ from .. import kernels
 from . import gather
 
 launches = 0
+residual_launches = 0
 
 _F_INF = 3.0e38
 
@@ -227,7 +229,7 @@ def march_block(majorant, voxel, next_t, dt, step, t_exit, t_cur,
     """Fused march (see march_block_plain for the arguments).  CPU tensors
     run the plain version; CUDA tensors launch csrc/march.cu once, or raise.
     The outputs are views of one new buffer (alloc_outputs)."""
-    global launches
+    global launches, residual_launches
     dev = t_cur.device
     if dev.type == "cpu":
         return march_block_plain(majorant, voxel, next_t, dt, step, t_exit,
@@ -264,6 +266,7 @@ def march_block(majorant, voxel, next_t, dt, step, t_exit, t_cur,
         raise RuntimeError(f"march_block: CUDA kernel launch failed "
                            f"(cudaError {err})")
     launches += 1
+    residual_launches += use_ctrl
     return out
 
 
@@ -324,10 +327,10 @@ def march_window(majorant, voxel, next_t, dt, step, t_exit, t_cur,
         in the fused kernel.  The reference window route counts only the
         live steps (n_live < K), so a lane whose K-th step leaves the
         segment escapes one iteration later there, with the same estimate.
-    Residual mode (the minorant table) is not ported yet."""
-    if control is not None:
-        raise NotImplementedError(
-            "march_window: residual mode is not ported yet")
+    Residual mode (`control`, the minorant table): a second gather over it;
+    resid lanes march at the rate (majorant - minorant) and sum their
+    control depth column by column, as the kernel does."""
+    use_ctrl = control is not None
     rx, ry, rz = (int(r) for r in maj_res)
     res = torch.tensor([rx, ry, rz], dtype=torch.int32, device=voxel.device)
     vox, nt, s_k, live = voxel, next_t, t_cur, hunting
@@ -353,36 +356,45 @@ def march_window(majorant, voxel, next_t, dt, step, t_exit, t_cur,
     v_stack = torch.stack(v_list, 1)                # (N, K, 3)
     nt_stack = torch.stack(nt_list, 1)
     s_stack = torch.stack(s_list + [s_k], 1)        # (N, K+1) segment starts
-    len_stack = torch.stack(len_list, 1)            # (N, K)
+    len_c = torch.clamp(torch.stack(len_list, 1), max=_F_INF)   # (N, K)
     live_stack = torch.stack(live_list, 1)
 
-    # ---- ONE majorant gather over the window ----
+    # ---- ONE majorant gather over the window (and one of the minorant) ----
     vc = torch.minimum(torch.clamp(v_stack, min=0), res - 1)
     flat = ((vc[..., 2] * ry + vc[..., 1]) * rx + vc[..., 0]).contiguous()
     maj = gather.table_gather(majorant, flat)       # (N, K)
+    if use_ctrl:
+        ctrl = gather.table_gather(control, flat) * resid.to(
+            torch.float32)[:, None]
+        rate = torch.clamp(maj - ctrl, min=0.0)
+    else:
+        rate = maj
 
     # ---- closed-form free-flight resolution ----
-    dl = torch.where(live_stack & (maj > 0),
-                     maj * torch.clamp(len_stack, max=_F_INF), 0.0)
-    cum_k = torch.zeros_like(t_cur)
-    cums = []
-    for k in range(int(K)):
-        cum_k = cum_k + dl[:, k]
-        cums.append(cum_k)
-    cum = torch.stack(cums, 1)
-    prev_cum = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
+    def running_sum(x):
+        """Inclusive and exclusive sums along the window, column by column."""
+        acc = torch.zeros_like(t_cur)
+        cums = []
+        for k in range(int(K)):
+            acc = acc + x[:, k]
+            cums.append(acc)
+        cum = torch.stack(cums, 1)
+        return cum, torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], 1)
+
+    dl = torch.where(live_stack & (rate > 0), rate * len_c, 0.0)
+    cum, prev_cum = running_sum(dl)
     ok = live_stack & (dl > 0) & (cum >= dl_target[:, None])
     landed = hunting & ok.any(dim=1)
     k_star = torch.argmax(ok.to(torch.int8), dim=1, keepdim=True)  # first
     take = lambda a: torch.gather(a, 1, k_star)[:, 0]
     take3 = lambda a: torch.gather(
         a, 1, k_star[:, :, None].expand(-1, 1, 3))[:, 0]
-    t_col = (take(s_stack[:, :-1])
-             + (dl_target - take(prev_cum)) / torch.clamp(take(maj),
-                                                          min=1e-30))
+    s_star = take(s_stack[:, :-1])
+    t_col = s_star + (dl_target - take(prev_cum)) / torch.clamp(take(rate),
+                                                                 min=1e-30)
     n_live = live_stack.sum(dim=1, keepdim=True)
+    last = torch.clamp(n_live - 1, min=0)
     t_end = torch.gather(s_stack, 1, n_live)[:, 0]
-    maxd_last = torch.gather(maj, 1, torch.clamp(n_live - 1, min=0))[:, 0]
     dl_tot = torch.where(hunting, cum[:, -1], 0.0)
 
     sel = landed
@@ -390,16 +402,27 @@ def march_window(majorant, voxel, next_t, dt, step, t_exit, t_cur,
     pick = lambda s, a, old: torch.where(sel, s, torch.where(adv, a, old))
     pick3 = lambda s, a, old: torch.where(
         sel[:, None], s, torch.where(adv[:, None], a, old))
-    return dict(
+    out = dict(
         voxel=pick3(take3(v_stack), vox, voxel),
         next_t=pick3(take3(nt_stack), nt, next_t),
         t_cur=pick(t_col, t_end, t_cur),
         dl_target=torch.where(adv, dl_target - dl_tot, dl_target),
         dl_since=dl_since + torch.where(sel, dl_target,
                                         torch.where(adv, dl_tot, 0.0)),
-        maxd=pick(take(maj), maxd_last, maxd_in),
+        maxd=pick(take(maj), torch.gather(maj, 1, last)[:, 0], maxd_in),
         landed=sel, escaped=adv & ~live,
     )
+    if use_ctrl:
+        # control depth: the whole segments before the collision plus the
+        # landing segment's part
+        cumc, prev_cumc = running_sum(torch.where(live_stack, ctrl * len_c,
+                                                  0.0))
+        c_land = take(prev_cumc) + take(ctrl) * (t_col - s_star)
+        out["ctrld"] = pick(take(ctrl), torch.gather(ctrl, 1, last)[:, 0],
+                            ctrld_in)
+        out["ctrl_since"] = csince_in + torch.where(
+            sel, c_land, torch.where(adv, cumc[:, -1], 0.0))
+    return out
 
 
 def random_lanes(n, maj_res, seed, residual=False):

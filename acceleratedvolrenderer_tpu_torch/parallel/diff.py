@@ -16,7 +16,8 @@ The wave path (`make_diff_renderer_multi`) differentiates every family of
 DIFF_PARAMS: the density grid, the sigma_a / sigma_s spectrum
 coefficients (their sampling side frozen at the base spectra) and the
 per-voxel emission scale grid Le_grid.  The regen path differentiates the
-density only, as in the reference.  The sharded `make_sharded_loss` and
+density only, as in the reference.  Both sample lights uniformly, as the
+reference's gradients do, whatever the scene's `light_sampler`.  The sharded `make_sharded_loss` and
 `make_sharded_regen_grad` are not ported yet.  Entry points run on the
 CUDA card unless given another `device`.
 """
@@ -94,7 +95,7 @@ def _make_render_L(scene, fixed_steps, majorant_inflation, device):
         res = volpath_fused.li(
             med, scene.lights, o, d, swl.lam, rng, maj_res=maj_res,
             homogeneous=False, max_depth=scene.max_depth,
-            fixed_steps=fixed_steps, light_strategy=scene.light_sampler)
+            fixed_steps=fixed_steps)
         return res.L, swl
 
     return render_L, density_s_const
@@ -236,8 +237,7 @@ def _regen_loss_builder(scene, *, device, fixed_steps=192, n_lanes=None,
             max_depth=scene.max_depth, fixed_steps=fixed_steps,
             remat_window=remat_window, k_substeps=k_substeps,
             stochastic_filter=stochastic_filter,
-            retire_groups=retire_groups, accum_spp=accum_spp, regen=regen,
-            light_strategy=scene.light_sampler)
+            retire_groups=retire_groups, accum_spp=accum_spp, regen=regen)
         if slim:
             return res.film_rgb[0]
         return torch.sum(res.film_rgb * cot_flat)

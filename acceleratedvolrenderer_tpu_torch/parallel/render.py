@@ -17,6 +17,7 @@ from ..models import samplers
 from ..models.film import Film
 from ..models.integrators import volpath_fused as volpath
 from ..ops import dda
+from ..ops import grid as gridops
 from ..utils import spectrum as sp
 from ..utils.device import resolve
 
@@ -54,6 +55,27 @@ def _wave_pixels(W, H, pixel_bounds):
     return pix[keep]
 
 
+def _medium_tables(med_spec, device):
+    """(density, majorant) tensors on `device`: the grid, or a 1^3 density
+    of ones for a homogeneous or RGB medium (an RGB one's coefficients are
+    in its RGB grids), and the medium's majorant."""
+    density = med_spec.density
+    if density is None:
+        density = torch.ones((1, 1, 1), dtype=torch.float32, device=device)
+    return density, med_spec.build_majorant(device)
+
+
+def _rgb_arrays(med_spec):
+    """MediumArrays' RGB grids of an RGB medium, scaled ({} otherwise)."""
+    if not med_spec.rgb:
+        return {}
+    return dict(
+        sigma_a_rgb=med_spec.sigma_a_rgb * med_spec.scale,
+        sigma_s_rgb=med_spec.sigma_s_rgb * med_spec.scale,
+        Le_rgb=(med_spec.Le_rgb * med_spec.Le_scale
+                if med_spec.Le_rgb is not None else None))
+
+
 def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
                        device=None):
     """Single-wave renderer: one camera sample for every pixel, traced in
@@ -64,9 +86,9 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
 
     Returns (render_wave, density, majorant), where render_wave(film,
     density, majorant, sample_idx) -> (film, [loop iterations of each
-    chunk]).  Only scenes with a grid medium are ported; surfaces, the
-    `path` integrators and environment-only scenes raise
-    NotImplementedError."""
+    chunk]).  Only scenes with a medium (homogeneous, grid or RGB grid) are
+    ported; surfaces, the `path` integrators and environment-only scenes
+    raise NotImplementedError."""
     device = resolve(device)
     scene = scene.to(device)
     cam = scene.camera
@@ -78,8 +100,8 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
         raise NotImplementedError(f"make_wave_renderer: not ported yet: "
                                   f"{what}")
     maj_res = med_spec.maj_res()
-    density = med_spec.density
-    majorant = med_spec.build_majorant()
+    density, majorant = _medium_tables(med_spec, device)
+    rgb_kw = _rgb_arrays(med_spec)
     w2m = torch.as_tensor(np.asarray(med_spec.world_to_unit(), np.float32),
                           device=device)
     g = torch.tensor(med_spec.g, dtype=torch.float32, device=device)
@@ -115,11 +137,12 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
         med = dda.MediumArrays(
             density=density, majorant=majorant, w2m=w2m, g=g,
             sigma_a=med_spec.sigma_a_spec(swl.lam) * med_spec.scale,
-            sigma_s=med_spec.sigma_s_spec(swl.lam) * med_spec.scale, Le=Le)
+            sigma_s=med_spec.sigma_s_spec(swl.lam) * med_spec.scale, Le=Le,
+            **rgb_kw)
         res = volpath.li(
             med, scene.lights, o, d, swl.lam, rng, maj_res=maj_res,
             homogeneous=med_spec.homogeneous, max_depth=scene.max_depth,
-            max_march_steps=scene.max_march_steps,
+            max_march_steps=scene.max_march_steps, rgb_mode=med_spec.rgb,
             prims=tuple(scene.primitives),
             light_strategy=scene.light_sampler)
         return film.add_samples(pix, res.L, swl), res.iterations
@@ -140,17 +163,24 @@ def make_regen_renderer(scene, *, device=None, n_lanes: int = 4096,
                         stochastic_filter: bool = False,
                         retire_every: int = 1,
                         retire_groups: int = 1,
+                        sub_rounds: int = 1,
                         accum_spp: bool = False,
                         event_groups: int = 1,
                         work_stride=1,
                         record_alive: bool = False,
+                        count_events: bool = False,
                         residual_shadow: bool = False):
     """Path-regeneration renderer on `device`: a retiring lane immediately
     pulls the next work item, so the whole frame x spp workload runs near
     full lane occupancy.  Returns (run, density, majorant), where
     run(density, majorant, film_rgb) -> volpath_fused.LiResult adds the
-    frame into the flat channel-major film (in place)."""
+    frame into the flat channel-major film (in place); the result holds
+    alive_hist with record_alive and ev_counts with count_events.
+    residual_shadow on a scalar grid builds the minorant grid of residual
+    ratio tracking.  A scene's `max_component` attribute, when it has one,
+    clamps each retired rgb."""
     device = resolve(device)
+    max_component = getattr(scene, "max_component", float("inf"))
     scene = scene.to(device)
     cam = scene.camera
     H, W = cam.height, cam.width
@@ -159,8 +189,13 @@ def make_regen_renderer(scene, *, device=None, n_lanes: int = 4096,
     assert med_spec is not None, "regen renderer requires a medium"
     maj_res = med_spec.maj_res()
     LANES = sp.N_SPECTRUM_SAMPLES
-    density = med_spec.density
-    majorant = med_spec.build_majorant()
+    density, majorant = _medium_tables(med_spec, device)
+    minorant = None
+    if (residual_shadow and not med_spec.homogeneous
+            and med_spec.density is not None and not med_spec.rgb):
+        minorant = torch.as_tensor(gridops.build_minorant_grid(
+            med_spec.density.cpu().numpy(), maj_res), device=device)
+    rgb_kw = _rgb_arrays(med_spec)
     total_work = H * W * spp
     N = int(min(n_lanes, total_work))
     refills = (total_work + N - 1) // N
@@ -181,12 +216,13 @@ def make_regen_renderer(scene, *, device=None, n_lanes: int = 4096,
 
     def run(density, majorant, film_rgb):
         med = dda.MediumArrays(density=density, majorant=majorant, w2m=w2m,
-                               g=g)
+                               g=g, minorant=minorant, **rgb_kw)
         regen = dict(
             camera=cam, filter=scene.filter, sampler=scene.sampler,
             spp=spp, H=H, W=W, total_work=total_work, seed=scene.seed,
             sigma_a_fn=sigma_a_fn, sigma_s_fn=sigma_s_fn, Le_fn=Le_fn,
             film_rgb=film_rgb,
+            max_component=max_component,
             work_stride=(work_stride_for(H * W) if work_stride == "auto"
                          else int(work_stride)),
         )
@@ -199,12 +235,14 @@ def make_regen_renderer(scene, *, device=None, n_lanes: int = 4096,
             torch.zeros((N,), dtype=torch.int64, device=device),
             maj_res=maj_res, homogeneous=med_spec.homogeneous,
             max_depth=scene.max_depth, max_march_steps=iter_cap,
+            rgb_mode=med_spec.rgb,
             k_substeps=k_substeps, stochastic_filter=stochastic_filter,
             retire_every=retire_every, retire_groups=retire_groups,
-            accum_spp=accum_spp,
-            event_groups=event_groups, regen=regen,
-            light_strategy=scene.light_sampler,
-            record_alive=record_alive, residual_shadow=residual_shadow)
+            sub_rounds=sub_rounds, accum_spp=accum_spp,
+            event_groups=event_groups, prims=tuple(scene.primitives),
+            regen=regen, light_strategy=scene.light_sampler,
+            record_alive=record_alive, count_events=count_events,
+            residual_shadow=residual_shadow)
 
     return run, density, majorant
 
@@ -226,9 +264,10 @@ def render_regen(scene, spp: Optional[int] = None, n_lanes: int = 4096,
                  device=None, **knobs):
     """Full render via path regeneration on `device`: ((H, W, 3) numpy
     image, stats).  Extra knobs (retire_groups, accum_spp, work_stride,
-    record_alive, ...) forward to make_regen_renderer.  The stats hold the
-    loop's iteration count and, with record_alive, the mean lane occupancy
-    over the iterations that had a live lane."""
+    record_alive, count_events, residual_shadow, ...) forward to
+    make_regen_renderer.  The stats hold the loop's iteration count, with
+    record_alive the mean lane occupancy over the iterations that had a
+    live lane, and with count_events the [main, shadow] collision counts."""
     dev = resolve(device)
     spp = spp if spp is not None else scene.spp
     H, W = scene.height, scene.width
@@ -249,6 +288,8 @@ def render_regen(scene, spp: Optional[int] = None, n_lanes: int = 4096,
         live = int((h > 0).sum())
         n = min(n_lanes, H * W * spp)
         stats["occupancy"] = float(h.sum()) / (live * n) if live else 0.0
+    if res.ev_counts is not None:
+        stats["ev_counts"] = res.ev_counts.tolist()
     return film_to_image(res.film_rgb, H, W, spp), stats
 
 

@@ -14,7 +14,7 @@ from ..models.cameras import PerspectiveCamera
 from ..models.film import BoxFilter, GaussianFilter, TriangleFilter
 from ..models.media import MediumSpec
 from ..utils.device import resolve
-from ..utils.spectrum import constant_spectrum
+from ..utils.spectrum import blackbody_normalized, constant_spectrum
 from ..utils.vecmath import Transform
 from .types import Scene
 
@@ -26,34 +26,51 @@ FILTERS = {"gaussian": GaussianFilter, "box": BoxFilter,
            "triangle": TriangleFilter}
 
 
+def spectrum_from(spec):
+    """A spectrum from its plain form: a number (a constant spectrum) or
+    ("blackbody", T), the blackbody at T kelvin normalized at its peak."""
+    if isinstance(spec, (tuple, list)):
+        name, *args = spec
+        if name != "blackbody":
+            raise ValueError(f"scene_from_arrays: unknown spectrum {name!r}")
+        return blackbody_normalized(float(args[0]))
+    return constant_spectrum(spec)
+
+
 def scene_from_arrays(arrays: dict, device=None) -> Scene:
-    """arrays: density (nz, ny, nx), majorant (rz, ry, rx), w2m (4, 4)
-    world -> unit-cube medium, c2w (4, 4) camera -> world, fov_deg, width,
-    height, sun_dir (3,) propagation direction, sun_L / sky_L constant
-    radiances (None: no such light), sigma_a / sigma_s / scale / g medium
+    """arrays: density (nz, ny, nx), or None for a homogeneous medium or an
+    RGB one; majorant (rz, ry, rx); w2m (4, 4) world -> unit-cube medium,
+    c2w (4, 4) camera -> world, fov_deg, width, height, sun_dir (3,)
+    propagation direction, sun_L / sky_L constant radiances (None: no such
+    light; both None: no light), sigma_a / sigma_s / scale / g medium
     constants, spp, max_depth, seed, max_march_steps and scene_radius.
-    Optional: Le / Le_scale constant medium emission, filter (name, *args)
-    with a name of FILTERS (default Gaussian), and the wave renderer's
-    disable_pixel_jitter, disable_wavelength_jitter and pixel_bounds.
-    Tensors go to `device` (the CUDA card by default)."""
+    Optional: sigma_a_rgb / sigma_s_rgb / Le_rgb (nz, ny, nx, 3) grids of an
+    RGB medium; Le medium emission (a number or ("blackbody", T), see
+    spectrum_from) and Le_scale; filter (name, *args) with a name of FILTERS
+    (default Gaussian); and the wave renderer's disable_pixel_jitter,
+    disable_wavelength_jitter and pixel_bounds.  Tensors go to `device`
+    (the CUDA card by default)."""
     missing = [k for k in KEYS if k not in arrays]
     if missing:
         raise KeyError(f"scene_from_arrays: missing {missing}")
     device = resolve(device)
     a = arrays
-    density = np.asarray(a["density"], np.float32)
+    grid = lambda k: (None if a.get(k) is None else torch.as_tensor(
+        np.asarray(a[k], np.float32), device=device))
     majorant = np.asarray(a["majorant"], np.float32)
     le = a.get("Le")
     med = MediumSpec(
         sigma_a_spec=constant_spectrum(a["sigma_a"]),
         sigma_s_spec=constant_spectrum(a["sigma_s"]),
         g=float(a["g"]), scale=float(a["scale"]),
-        density=torch.as_tensor(density, device=device),
-        Le_spec=None if le is None else constant_spectrum(le),
+        density=grid("density"),
+        Le_spec=None if le is None else spectrum_from(le),
         Le_scale=float(a.get("Le_scale", 1.0)),
         m2w=np.linalg.inv(np.asarray(a["w2m"], np.float64)),
         majorant_res=tuple(int(r) for r in majorant.shape[::-1]),
         majorant=torch.as_tensor(majorant, device=device),
+        sigma_a_rgb=grid("sigma_a_rgb"), sigma_s_rgb=grid("sigma_s_rgb"),
+        Le_rgb=grid("Le_rgb"),
     )
     c2w = np.asarray(a["c2w"], np.float64)
     cam = PerspectiveCamera(

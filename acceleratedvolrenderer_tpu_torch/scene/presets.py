@@ -1,5 +1,7 @@
-"""Preset scenes (port of acceleratedvolrenderer_tpu/scene/presets.py::cloud,
-the disney-cloud-720p analog)."""
+"""Preset scenes (port of acceleratedvolrenderer_tpu/scene/presets.py:
+fog_box, cloud, the disney-cloud-720p analog, emissive_volume and
+explosion).  Every tensor of a scene is created on `device` (the CUDA card
+by default)."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,11 +10,11 @@ import torch
 from ..models import lights as lm
 from ..models.cameras import PerspectiveCamera
 from ..models.film import GaussianFilter
-from ..models.media import MediumSpec, bake_cloud_density
+from ..models.media import MediumSpec, bake_cloud_density, homogeneous_box
 from ..ops import grid as gridops
 from ..utils import spectrum as sp
 from ..utils.device import resolve
-from ..utils.vecmath import Transform
+from ..utils.vecmath import Transform, look_at
 from .types import Scene
 
 
@@ -28,6 +30,31 @@ CLOUD_W2C = np.array([
     [0.0, 0.0, 0.0, 1.0],
 ])
 CLOUD_SUN_DIR = np.array([-0.5826, -0.7660, -0.2717])
+
+
+def _direction(v, device):
+    v = np.asarray(v, np.float64)
+    return torch.as_tensor(v / np.linalg.norm(v), dtype=torch.float32,
+                           device=device)
+
+
+def fog_box(res=256, spp=64, max_depth=5, *, device=None):
+    """Homogeneous fog box (BASELINE config 1): single and multiple
+    scattering under a distant light and a dim sky."""
+    device = resolve(device)
+    med = homogeneous_box(flat(0.5), flat(2.0), lo=(0, 0, 0), hi=(1, 1, 1),
+                          g=0.0)
+    cam = PerspectiveCamera(
+        c2w=look_at((0.5, 0.5, -2.6), (0.5, 0.5, 0.5), (0, 1, 0), device),
+        fov_deg=35.0, width=res, height=res)
+    return Scene(
+        camera=cam, medium=med,
+        lights=[
+            lm.DistantLight(direction=_direction([0.3, -1.0, 0.4], device),
+                            spectrum=flat(3.0), scene_radius=10.0),
+            lm.UniformInfiniteLight(spectrum=flat(0.1), scene_radius=10.0),
+        ],
+        max_depth=max_depth, spp=spp, scene_radius=10.0)
 
 
 def cloud(width=1280, height=720, spp=16, max_depth=40, grid_res=256,
@@ -65,3 +92,55 @@ def cloud(width=1280, height=720, spp=16, max_depth=40, grid_res=256,
         max_depth=max_depth, spp=spp, scene_radius=1500.0,
         filter=GaussianFilter(),
     )
+
+
+def emissive_volume(res=256, spp=64, *, device=None):
+    """Emissive volume (BASELINE config 3): a normalized 3000 K blackbody
+    emitted by an absorbing, scattering plume over a 96^3 baked density."""
+    device = resolve(device)
+    density = bake_cloud_density(res=(96, 96, 96), density=2.0, extent=0.45,
+                                 frequency=4.0, seed=3)
+    med = MediumSpec(
+        sigma_a_spec=flat(4.0), sigma_s_spec=flat(1.0), g=0.0, scale=1.0,
+        density=torch.as_tensor(density, device=device),
+        bounds_lo=np.zeros(3, np.float32), bounds_hi=np.ones(3, np.float32),
+        Le_spec=sp.blackbody_normalized(3000.0), Le_scale=2.0,
+        majorant_res=(16, 16, 16))
+    cam = PerspectiveCamera(
+        c2w=look_at((0.5, 0.6, -2.2), (0.5, 0.45, 0.5), (0, 1, 0), device),
+        fov_deg=32.0, width=res, height=res)
+    return Scene(
+        camera=cam, medium=med,
+        lights=[lm.UniformInfiniteLight(spectrum=flat(0.02),
+                                        scene_radius=10.0)],
+        max_depth=8, spp=spp, scene_radius=10.0)
+
+
+def explosion(res=256, spp=32, *, device=None):
+    """Explosion (BASELINE config 3, full form): an RGB grid medium with
+    per-voxel RGB sigma_a / sigma_s and RGB emission over an 80^3 grid, a
+    hot core inside an orange shell."""
+    device = resolve(device)
+    n = 80
+    dens = bake_cloud_density(res=(n, n, n), density=1.0, extent=0.42,
+                              frequency=4.5, seed=7)
+    zs, ys, xs = np.meshgrid(*([np.linspace(0, 1, n)] * 3), indexing="ij")
+    r = np.linalg.norm(np.stack([xs, ys, zs], -1) - 0.5, axis=-1) / 0.42
+    heat = np.clip(1.0 - r, 0.0, 1.0) ** 1.5 * dens
+    grid = lambda chans: torch.as_tensor(
+        np.stack(chans, -1).astype(np.float32), device=device)
+    med = MediumSpec(
+        sigma_a_spec=flat(1.0), sigma_s_spec=flat(1.0), g=0.0, scale=1.0,
+        bounds_lo=np.zeros(3, np.float32), bounds_hi=np.ones(3, np.float32),
+        sigma_a_rgb=grid([dens * 3.0, dens * 3.6, dens * 4.2]),
+        sigma_s_rgb=grid([dens * 0.8, dens * 0.7, dens * 0.6]),
+        Le_rgb=grid([heat * 8.0, heat * 3.0, heat * 0.8]),
+        majorant_res=(16, 16, 16))
+    cam = PerspectiveCamera(
+        c2w=look_at((0.5, 0.55, -2.3), (0.5, 0.48, 0.5), (0, 1, 0), device),
+        fov_deg=32.0, width=res, height=res)
+    return Scene(
+        camera=cam, medium=med,
+        lights=[lm.UniformInfiniteLight(spectrum=flat(0.01),
+                                        scene_radius=10.0)],
+        max_depth=6, spp=spp, scene_radius=10.0)

@@ -40,10 +40,9 @@ class Scene:
         """The same scene with every tensor on `device`."""
         med = self.medium
         if med is not None:
-            med = replace(
-                med,
-                density=None if med.density is None else med.density.to(device),
-                majorant=(None if med.majorant is None
-                          else med.majorant.to(device)))
+            move = lambda t: None if t is None else t.to(device)
+            med = replace(med, **{k: move(getattr(med, k)) for k in (
+                "density", "majorant", "sigma_a_rgb", "sigma_s_rgb",
+                "Le_rgb")})
         return replace(self, camera=self.camera.to(device), medium=med,
                        lights=[lt.to(device) for lt in self.lights])

@@ -10,10 +10,11 @@ Phases (any failure raises, and the script exits non-zero):
   3. kernel vs plain: the march kernel against its eager PyTorch version on
      random lanes (N 16384 and 1000, K 1/8/16, 16^3/32^3/64^3 tables,
      residual mode off and on; N 262144, K 8, 16^3, the lane count of the
-     wave path's chunks; and N 1, 31, 127, 129, 16383, 16385): integers and
+     wave path's chunks; N 65536, K 8, 16^3, render()'s one chunk of a
+     256x256 frame; and N 1, 31, 127, 129, 16383, 16385): integers and
      flags equal, floats to rtol 1e-6, every output of the plain version's
-     dtype and shape and contiguous.  At both main-path shapes (N 16384 and
-     262144, K 8, 16^3): the wrapper's ms per call, the kernel alone by
+     dtype and shape and contiguous.  At the main-path shapes (N 16384,
+     65536 and 262144, K 8, 16^3): the wrapper's ms per call, the kernel alone by
      its name in torch.profiler warm (back to back) and cold (after a
      256 MB flush), everything one call launches, and the bound; the plain
      version at N 16384; the launch floor (a one-element zero_) and the
@@ -87,15 +88,45 @@ Phases (any failure raises, and the script exits non-zero):
  14. wave frame, full width: phase 8's scene through render() at spp 1 in
      chunks of 262144 rays: finite, positive mean within 2% of phase 8's
      regen frame mean (both estimate one image), march launches equal to
-     the loop iterations summed over the chunks.
+     the loop iterations summed over the chunks;
+ 15. fog box (homogeneous medium, a 1^3 majorant: the window route): a
+     24x24 frame on the GPU and the CPU at phase 5's tolerances; then the
+     gather kernel at the route's shapes (V 1, n 16384*8 in regen and
+     65536*8 in render(), 1% of the ids out of range) against its plain
+     version, each timed with table[idx] and its bound; then 256x256 through
+     render() at spp 32 and render_regen at spp 8 with the bench knobs:
+     films finite with positive means within 2% of each other, one gather
+     launch per loop iteration and no march launch; seconds and Mrays/s;
+ 16. emissive volume (96^3 grid, blackbody emission): a 24x24 frame on the
+     GPU and the CPU at phase 5's tolerances; 256x256 through render() at
+     spp 32 and regen at spp 8, means within 2%, one march launch per
+     iteration (fused route);
+ 17. explosion (RGB grids), 256x256: render() at spp 16 and regen at spp 4,
+     means within 2%, one march launch per iteration; and a 12x12 frame on
+     the GPU and the CPU at phase 5's tolerances;
+ 18. residual shadow: the march kernel's residual instance at N 16384, K 8,
+     16^3 timed as phase 3 times the plain one, with its bound; phase 8's
+     scene by regen at spp 2 with the bench knobs and residual_shadow:
+     every march launch the residual instance, one per iteration, film
+     finite with a mean within 2% of phase 8's; seconds and Mrays/s beside
+     phase 8's; then the 32x24 cloud at 208 lanes (the window route, two
+     gather launches per iteration) on the GPU and the CPU, compared;
+ 19. knobs: the 32x24 cloud with event_groups 2, with retire_every 2
+     (per-sample retire, one retire group) and with per-sample retire
+     alone (accum_spp off), each on the GPU and the CPU, compared at
+     phase 5's tolerances.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
-of the kernel and of its library call; the march kernel's times at both
-main-path shapes (the N 262144 ones under `wave_`), beside everything one
-call launches and the launch floor; the dma kernel's cold times, and its
-launches, which are its runs on the card in phase 11, beside its wrapper
-calls) and the result JSON.
+of the kernel and of its library call; the march kernel's times at its
+main-path shapes (the N 262144 ones under `wave_`, the N 65536 ones under
+`chunk65536_` beside the render() launches of phases 16 and 17, the
+residual instance's under `residual_`, beside its launches in phase 18),
+beside everything one call launches and the launch floor; the gather's
+fog-box launches (regen, and render() under `fog_render_launches`) and its
+times at V 1 (under `v1_`, and `v1_n65536_` at n 65536*8); the dma
+kernel's cold times, and its launches, which are its runs on the card in
+phase 11, beside its wrapper calls) and the result JSON.
 """
 import json
 import subprocess
@@ -123,6 +154,18 @@ WAVE_LANES = (256, 200)          # fused and window route of the 32x24 cloud
 WAVE_GRAD_KW = dict(fixed_steps=96, spp=2)
 DMA_CHUNKS = (16, 100, 1000, 16384)
 MARCH_RAGGED = (1, 31, 127, 129, 16383, 16385)
+# phases 15-18: spp cut (spp is traffic, not width) to keep the script
+# within ~800 s on a slow host
+FOG_SPP, FOG_REGEN_SPP = 32, 8            # phase 15
+EMISSIVE_SPP, EMISSIVE_REGEN_SPP = 32, 8   # phase 16
+EXPLOSION_SPP, EXPLOSION_REGEN_SPP = 16, 4  # phase 17
+RESIDUAL_SPP = 2                           # phase 18
+# phase 19.  retire_every needs retire_groups coprime with it: a retire
+# group whose index the ticks n % retire_every == retire_every - 1 never
+# reach would never splat, in the reference as here
+KNOB_CASES = (dict(event_groups=2),
+              dict(accum_spp=False, retire_every=2, retire_groups=1),
+              dict(accum_spp=False))
 HBM_BYTES_PER_MS = 3.35e9        # H100 SXM device memory, 3.35 TB/s
 F32_OPS_PER_MS = 67e9            # H100 SXM float32 outside the tensor cores
 
@@ -239,8 +282,10 @@ def phase_kernel(dev):
     grid = [(n, res, residual, K) for n in (16384, 1000)
             for res in ((16, 16, 16), (32, 32, 32), (64, 64, 64))
             for residual in (False, True) for K in (1, 8, 16)]
-    # the wave path's chunks: 262144 lanes, K 8 over the 16^3 majorant
+    # the wave path's chunks: 262144 lanes, K 8 over the 16^3 majorant, and
+    # 65536, render()'s one chunk of a 256x256 frame (phases 16 and 17)
     grid += [(262144, (16, 16, 16), residual, 8) for residual in (False, True)]
+    grid.append((65536, (16, 16, 16), False, 8))
     # lane counts around the block size: the kernel's masked last block
     grid += [(n, (16, 16, 16), residual, 8) for n in MARCH_RAGGED
              for residual in (False, True)]
@@ -257,7 +302,7 @@ def phase_kernel(dev):
     scratch = torch.empty(64 * 2 ** 20, device=dev)     # 256 MB > L2
     flush = scratch.zero_
     rec, lines = {}, []
-    for n, key in ((16384, ""), (262144, "wave_")):
+    for n, key in ((16384, ""), (65536, "chunk65536_"), (262144, "wave_")):
         lanes = to_dev(march.random_lanes(n, (16, 16, 16), seed=7), dev)
         kw = dict(K=8, maj_res=(16, 16, 16), **lanes)
         call = lambda: march.march_block(**kw)
@@ -286,8 +331,8 @@ def phase_kernel(dev):
     one = torch.zeros(1, device=dev)
     floor_us = device_us(one.zero_, 200)
     trip_us = device_us(lambda: (flush(), one.neg_()), 200, "neg_kernel")
-    print(f"kernel vs plain: {cases} cases equal (N 16384 / 1000, 262144 and "
-          f"{MARCH_RAGGED}), outputs of the plain version's dtypes, shapes "
+    print(f"kernel vs plain: {cases} cases equal (N 16384 / 1000, 65536, "
+          f"262144 and {MARCH_RAGGED}), outputs of the plain version's dtypes, shapes "
           f"and contiguous, max |err| {max_err:.3e}; K 8 16^3: "
           + "; ".join(lines) + f"; plain {plain_ms:.4f} ms at N 16384; "
           f"launch floor {floor_us:.2f} us (one-element zero_), with one "
@@ -514,7 +559,7 @@ def phase_slice(dev, card):
           f"{st['iterations']} iterations, occupancy {st['occupancy']:.4f}, "
           f"{st['render_time']:.3f} s, {mrays:.4f} Mrays/s, film mean "
           f"{img.mean():.6f} on {card}", flush=True)
-    return launches, scene, float(img.mean())
+    return launches, scene, (float(img.mean()), st["render_time"], mrays)
 
 
 def phase_grad_full(dev, scene, card):
@@ -847,6 +892,218 @@ def phase_wave_full(dev, scene, regen_mean, card):
                              f"2% of the regen frame's {regen_mean}")
 
 
+def small_gpu_cpu(what, make_scene, dev, **knobs):
+    """One small frame by render_regen on the GPU and on the CPU, compared
+    at phase 5's tolerances; returns the GPU frame's (iterations, (march,
+    gather) launches)."""
+    from acceleratedvolrenderer_tpu_torch.ops import gather, march
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    imgs, runs = [], []
+    for d in (dev, torch.device("cpu")):
+        march.launches = gather.launches = 0
+        img, st = render.render_regen(make_scene(d), device=d, **knobs)
+        if not (np.isfinite(img).all() and img.mean() > 0):
+            raise AssertionError(f"{what} on {d}: non-finite pixels or "
+                                 "non-positive mean")
+        imgs.append(img)
+        runs.append((st["iterations"], (march.launches, gather.launches)))
+    if runs[1][1] != (0, 0):
+        raise AssertionError(f"{what}: the CPU run launched a kernel")
+    compare_frames(f"{what} gpu vs cpu", *imgs)
+    return runs[0]
+
+
+def full_frame_pair(what, scene, dev, card, spp, regen_spp, route):
+    """render() at spp and render_regen at regen_spp with the bench knobs on
+    a full-width scene: finite films, positive means within 2% of each
+    other, and on the given route one launch per loop iteration of its
+    kernel and none of the other.  Returns the (march, gather) launches of
+    the render() run and of the regen run."""
+    from acceleratedvolrenderer_tpu_torch.ops import gather, march
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    out = []
+    for entry in ("render", "regen"):
+        march.launches = gather.launches = 0
+        if entry == "render":
+            img, st = render.render(scene, spp=spp, device=dev)
+        else:
+            img, st = render.render_regen(scene, spp=regen_spp, device=dev,
+                                          **BENCH_KNOBS)
+        counts = (march.launches, gather.launches)
+        it = st["iterations"]
+        want = (it, 0) if route == "fused" else (0, it)
+        rays = scene.width * scene.height * st["spp"]
+        print(f"{what} {scene.width}x{scene.height} {entry} spp "
+              f"{st['spp']}: {it} iterations, (march, gather) launches "
+              f"{counts}, {st['render_time']:.3f} s, "
+              f"{rays / st['render_time'] / 1e6:.4f} Mrays/s, film mean "
+              f"{img.mean():.6f} on {card}", flush=True)
+        if img.shape != (scene.height, scene.width, 3) or not (
+                np.isfinite(img).all() and img.mean() > 0):
+            raise AssertionError(f"{what} {entry}: bad shape, non-finite "
+                                 "film or non-positive mean")
+        if counts != want:
+            raise AssertionError(f"{what} {entry}: (march, gather) "
+                                 f"launches {counts}, expected {want}")
+        out.append((float(img.mean()), counts))
+    rel = abs(out[0][0] - out[1][0]) / out[1][0]
+    print(f"{what}: render mean vs regen mean rel diff {rel:.4e}",
+          flush=True)
+    if rel > 0.02:
+        raise AssertionError(f"{what}: render and regen means differ by "
+                             f"more than 2%")
+    return out[0][1], out[1][1]
+
+
+def gather_v1(dev, n, key):
+    """The gather at the fog box's shape: a 1-entry table and n x 8
+    indices (n 16384 in regen, 65536 in render()'s one chunk of a 256x256
+    frame), 1% of them out of range, against its plain version; then
+    timed on in-range indices beside table[idx], with its bound."""
+    from acceleratedvolrenderer_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(n)
+    table = torch.as_tensor(np.float32([1.0]), device=dev)
+    idx = torch.zeros((n, 8), dtype=torch.int32, device=dev)
+    oob = rng.random((n, 8)) < 0.01                # out of range: read 0
+    idx[torch.as_tensor(oob, device=dev)] = torch.as_tensor(
+        rng.choice(np.int32([-1, 1, 7]), int(oob.sum())), device=dev)
+    before = gather.launches
+    out = gather.table_gather(table, idx)
+    ref = gather.table_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    if gather.launches != before + 1 or not torch.equal(out, ref):
+        raise AssertionError(f"gather V 1 n {n}*8: kernel and plain "
+                             "disagree or the kernel did not launch")
+    err = float((out - ref).abs().max())
+    idx.zero_()             # the library call's yardstick needs in-range
+    kernel = lambda: gather.table_gather(table, idx)
+    library = lambda: table[idx]
+    ms, lib_ms = time_ms(kernel, 200), time_ms(library, 200)
+    dev_us, lib_us = device_us(kernel, 200), device_us(library, 200)
+    plain_ms = time_ms(lambda: gather.table_gather_plain(table, idx), 200)
+    b = bound(nbytes(table, idx) + 4 * idx.numel(), 0)
+    print(f"gather V 1, n {n}*8: equal to plain (max |err| {err:.3e}); "
+          f"kernel {ms:.4f} ms, device {dev_us:.2f} us; table[idx] "
+          f"{lib_ms:.4f} ms, device {lib_us:.2f} us; plain {plain_ms:.4f} "
+          f"ms; bound {b[0]:.6f} ms ({b[1]})", flush=True)
+    return {f"{key}ms": ms, f"{key}device_us": dev_us,
+            f"{key}plain_ms": plain_ms, f"{key}library_ms": lib_ms,
+            f"{key}library_device_us": lib_us, f"{key}bound_ms": b[0],
+            f"{key}bound_by": b[1]}
+
+
+def phase_fog(dev, card):
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    small_gpu_cpu("fog box 24x24",
+                  lambda d: presets.fog_box(res=24, spp=4, device=d), dev,
+                  **SMALL_KNOBS)
+    rec = gather_v1(dev, 16384, "v1_")
+    rec.update(gather_v1(dev, 65536, "v1_n65536_"))
+    scene = presets.fog_box(res=256, device=dev)
+    render_counts, regen_counts = full_frame_pair(
+        "fog box", scene, dev, card, FOG_SPP, FOG_REGEN_SPP, "window")
+    return dict(rec, fog_launches=regen_counts[1],
+                fog_render_launches=render_counts[1])
+
+
+def phase_emissive(dev, card):
+    """Returns the march launches of render() (N 65536)."""
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    small_gpu_cpu("emissive 24x24",
+                  lambda d: presets.emissive_volume(res=24, spp=2, device=d),
+                  dev, **dict(SMALL_KNOBS, n_lanes=128))
+    scene = presets.emissive_volume(res=256, device=dev)
+    return full_frame_pair("emissive volume", scene, dev, card, EMISSIVE_SPP,
+                           EMISSIVE_REGEN_SPP, "fused")[0][0]
+
+
+def phase_explosion(dev, card):
+    """Returns the march launches of render() (N 65536)."""
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    small_gpu_cpu("explosion 12x12",
+                  lambda d: presets.explosion(res=12, spp=8, device=d), dev,
+                  **dict(SMALL_KNOBS, n_lanes=128))
+    scene = presets.explosion(res=256, device=dev)
+    return full_frame_pair("explosion", scene, dev, card, EXPLOSION_SPP,
+                           EXPLOSION_REGEN_SPP, "fused")[0][0]
+
+
+def phase_residual(dev, scene, slice_rec, card):
+    """Phase 18; slice_rec is phase 8's (film mean, seconds, Mrays/s)."""
+    from acceleratedvolrenderer_tpu_torch.ops import gather, march
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    lanes = to_dev(march.random_lanes(16384, (16, 16, 16), seed=7,
+                                      residual=True), dev)
+    kw = dict(K=8, maj_res=(16, 16, 16), **lanes)
+    call = lambda: march.march_block(**kw)
+    compare_march(call(), march.march_block_plain(**kw))
+    flush = torch.empty(64 * 2 ** 20, device=dev).zero_
+    ms = time_ms(call, 200)
+    warm_us = device_us(call, 200, "march_kernel")
+    cold_us = device_us(lambda: (flush(), call()), 200, "march_kernel")
+    b = bound(nbytes(*lanes.values()) + nbytes(*call().values()),
+              30 * 8 * int(lanes["hunting"].sum()))
+    print(f"march residual instance N 16384 K 8 16^3: equal to plain; "
+          f"wrapper {ms:.4f} ms, kernel alone {warm_us:.2f} us warm / "
+          f"{cold_us:.2f} us cold, bound {b[0]:.6f} ms ({b[1]})", flush=True)
+
+    march.launches = march.residual_launches = gather.launches = 0
+    img, st = render.render_regen(scene, spp=RESIDUAL_SPP, device=dev,
+                                  residual_shadow=True, **BENCH_KNOBS)
+    counts = (march.launches, march.residual_launches, gather.launches)
+    mean0, secs0, mrays0 = slice_rec
+    rel = abs(float(img.mean()) - mean0) / mean0
+    mrays = scene.width * scene.height * RESIDUAL_SPP / st["render_time"] / 1e6
+    print(f"residual shadow {scene.width}x{scene.height} spp {RESIDUAL_SPP}: "
+          f"{st['iterations']} iterations, (march, residual, gather) "
+          f"launches {counts}, {st['render_time']:.3f} s, {mrays:.4f} "
+          f"Mrays/s (phase 8, spp {SPP}: {secs0:.3f} s, {mrays0:.4f} "
+          f"Mrays/s), film mean {img.mean():.6f} vs phase 8's {mean0:.6f} "
+          f"(rel diff {rel:.4e}) on {card}", flush=True)
+    if not (np.isfinite(img).all() and img.mean() > 0):
+        raise AssertionError("residual shadow: non-finite film or "
+                             "non-positive mean")
+    if counts != (st["iterations"], st["iterations"], 0):
+        raise AssertionError(f"residual shadow: (march, residual, gather) "
+                             f"launches {counts} for {st['iterations']} "
+                             "iterations")
+    if rel > 0.02:
+        raise AssertionError("residual shadow: mean not within 2% of phase "
+                             "8's")
+    it, small = small_gpu_cpu(
+        f"residual shadow 32x24 at {WINDOW_LANES} lanes",
+        lambda d: presets.cloud(**SMALL, device=d), dev,
+        residual_shadow=True, **dict(SMALL_KNOBS, n_lanes=WINDOW_LANES))
+    if small != (0, 2 * it):
+        raise AssertionError(f"residual window route: (march, gather) "
+                             f"launches {small}, expected (0, {2 * it})")
+    return dict(residual_launches=counts[1], residual_ms=ms,
+                residual_device_us=warm_us,
+                residual_cold_device_us=cold_us, residual_bound_ms=b[0],
+                residual_bound_by=b[1])
+
+
+def phase_knobs(dev):
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    for knob in KNOB_CASES:
+        it, counts = small_gpu_cpu(
+            f"32x24 cloud {knob}",
+            lambda d: presets.cloud(**SMALL, device=d), dev,
+            **dict(SMALL_KNOBS, **knob))
+        if counts != (it, 0):
+            raise AssertionError(f"knobs {knob}: (march, gather) launches "
+                                 f"{counts} for {it} iterations")
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -881,9 +1138,16 @@ def main():
     timed("wave small", phase_wave_small, dev)
     timed("grad fd", phase_grad_fd, dev)
     timed("wave grad fd", phase_wave_grad_fd, dev)
-    launches, scene, regen_mean = timed("slice", phase_slice, dev, card)
-    timed("wave full", phase_wave_full, dev, scene, regen_mean, card)
+    launches, scene, slice_rec = timed("slice", phase_slice, dev, card)
+    timed("wave full", phase_wave_full, dev, scene, slice_rec[0], card)
     timed("grad full", phase_grad_full, dev, scene, card)
+    gather_rec.update(timed("fog box", phase_fog, dev, card))
+    march_rec["chunk65536_launches"] = (
+        timed("emissive", phase_emissive, dev, card)
+        + timed("explosion", phase_explosion, dev, card))
+    march_rec.update(timed("residual", phase_residual, dev, scene,
+                           slice_rec, card))
+    timed("knobs", phase_knobs, dev)
 
     src = "acceleratedvolrenderer_tpu_torch/csrc/"
     print(card)

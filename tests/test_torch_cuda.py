@@ -165,6 +165,38 @@ def test_march_window_matches_plain(dev, res, K, n):
                                       ref[k].cpu().numpy(), err_msg=k)
 
 
+@pytest.mark.parametrize("n", [208, 1000, 16384])
+def test_march_window_residual_matches_plain(dev, n):
+    """The window route in residual mode: two gather launches (majorant
+    and minorant), outputs equal to the plain march's."""
+    res = (16, 16, 16)
+    lanes = _lanes(n, res, n + 3, True, dev)
+    before = (march.launches, gather.launches)
+    out = march.march_window(K=8, maj_res=res, **lanes)
+    ref = march.march_block_plain(K=8, maj_res=res, **lanes)
+    torch.cuda.synchronize()
+    assert (march.launches, gather.launches) == (before[0], before[1] + 2)
+    assert list(out) == list(ref)
+    for k in ref:
+        np.testing.assert_array_equal(out[k].cpu().numpy(),
+                                      ref[k].cpu().numpy(), err_msg=k)
+
+
+def test_gather_kernel_one_entry_table(dev):
+    """A 1-entry table at the fog box's shape (16384 x 8 indices, the
+    window route over a 1^3 majorant), some indices out of range."""
+    table = torch.tensor([0.75], device=dev)
+    rng = np.random.default_rng(11)
+    idx = torch.as_tensor(np.where(rng.random((16384, 8)) < 0.02, 1, 0)
+                          .astype(np.int32), device=dev)
+    before = gather.launches
+    out = gather.table_gather(table, idx)
+    assert gather.launches == before + 1
+    ref = gather.table_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and (out == 0).any() and (out > 0).any()
+
+
 def _gather_inputs(v, n, seed, dev):
     rng = np.random.default_rng(seed)
     table = torch.as_tensor(rng.uniform(0.0, 2.0, v).astype(np.float32),

@@ -3,9 +3,10 @@
 - ops/gather.py's plain gather against the TPU row-select kernel itself
   (ops/pallas_gather.py::_pallas_table_gather) run in Pallas interpret
   mode: bitwise equal, out-of-range indices reading 0 on both sides.
-- march.march_window against march.march_block_plain, lane for lane:
-  bitwise equal, integers and floats (the window sums the optical depth in
-  the fused kernel's order, so no tolerance is needed).
+- march.march_window against march.march_block_plain, lane for lane, in
+  plain and residual mode: bitwise equal, integers and floats (the window
+  sums the optical and control depths in the fused kernel's order, so no
+  tolerance is needed).
 - march.available against pallas_march.available's rule, its backend test
   set to the TPU.
 - On CPU tensors neither wrapper launches a kernel.
@@ -58,12 +59,24 @@ def test_march_window_matches_plain(res, K):
                                       err_msg=k)
 
 
-def test_march_window_residual_raises():
+@pytest.mark.parametrize("n", [200, 1024])
+@pytest.mark.parametrize("K", [1, 8, 16])
+def test_march_window_residual_matches_plain(n, K):
+    """Residual mode (the minorant table): march_window's two gathers and
+    column-by-column control depth against march_block_plain, lane for
+    lane."""
+    res = (16, 16, 16)
     lanes = {k: torch.as_tensor(v) for k, v in
-             march.random_lanes(128, (16, 16, 16), seed=1,
-                                residual=True).items()}
-    with pytest.raises(NotImplementedError):
-        march.march_window(K=4, maj_res=(16, 16, 16), **lanes)
+             march.random_lanes(n, res, seed=n + K, residual=True).items()}
+    out = march.march_window(K=K, maj_res=res, **lanes)
+    ref = march.march_block_plain(K=K, maj_res=res, **lanes)
+    assert list(out) == list(ref)
+    assert ref["landed"].any() and ref["escaped"].any()
+    assert (ref["ctrl_since"] != lanes["csince_in"]).any()
+    for k in ref:
+        assert out[k].dtype == ref[k].dtype, k
+        np.testing.assert_array_equal(out[k].numpy(), ref[k].numpy(),
+                                      err_msg=k)
 
 
 def test_available_matches_pallas_rule(monkeypatch):

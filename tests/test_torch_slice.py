@@ -6,9 +6,11 @@ Tolerance: frame means to 1e-3 relative, and at least 99% of pixels to
 rtol 1e-3 / atol 1e-5.  XLA:CPU and torch differ by ulps in exp, log1p and
 erfinv, and one flipped `u < p` choice sends a single sample down another
 path, so a few pixels may differ by Monte Carlo noise."""
+import functools
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -67,15 +69,28 @@ def test_preset_cloud_matches_jax_scene(jax_scene):
         assert getattr(sc, f) == getattr(ref, f), f
 
 
-@pytest.mark.parametrize("knob", [dict(residual_shadow=True),
-                                  dict(event_groups=2),
-                                  dict(retire_every=2),
-                                  dict(accum_spp=False)])
-def test_unported_options_raise(knob):
+@pytest.mark.parametrize("case", ["surfaces", "regen sigma override"])
+def test_unported_options_raise(case):
+    """What li still refuses: surfaces, which are not ported (a regen render
+    of a medium scene with primitives must raise, not drop them), and
+    sampling-side sigma overrides in regen mode, which the reference
+    refuses too."""
     sc = tpresets.cloud(8, 6, spp=1, max_depth=2, grid_res=8, device="cpu")
-    kw = dict(KNOBS, n_lanes=16, retire_groups=1, **knob)
-    with pytest.raises(NotImplementedError):
-        trender.render_regen(sc, device="cpu", **kw)
+    kw = dict(KNOBS, n_lanes=16, retire_groups=1)
+    if case == "surfaces":
+        sc.primitives = [object()]
+        with pytest.raises(NotImplementedError, match="surfaces"):
+            trender.render_regen(sc, device="cpu", **kw)
+        return
+    run, density, majorant = trender.make_regen_renderer(sc, device="cpu",
+                                                         **kw)
+    override = torch.ones(4)
+    with mock.patch.object(
+            trender.dda, "MediumArrays",
+            functools.partial(trender.dda.MediumArrays, sigma_a_s=override,
+                              sigma_s_s=override)):
+        with pytest.raises(ValueError, match="reference refuses"):
+            run(density, majorant, torch.zeros(3 * (8 * 6 + 1)))
 
 
 def test_import_leaves_jax_out(tmp_path):
