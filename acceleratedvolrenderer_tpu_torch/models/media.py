@@ -1,5 +1,6 @@
 """Participating media (port of acceleratedvolrenderer_tpu/models/media.py:
-MediumSpec, world_to_unit, the procedural cloud bake and homogeneous_box)."""
+MediumSpec with build_arrays, world_to_unit, the procedural cloud bake and
+homogeneous_box)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -9,6 +10,7 @@ import numpy as np
 import torch
 
 from ..ops import grid as gridops
+from ..ops.dda import MediumArrays
 
 
 @dataclass(frozen=True)
@@ -77,6 +79,31 @@ class MediumSpec:
         if self.m2w is not None:
             return s @ np.linalg.inv(np.asarray(self.m2w, np.float64))
         return s
+
+    def build_arrays(self, lam) -> MediumArrays:
+        """MediumArrays at the sampled wavelengths lam ((N, LANES) or
+        (1, LANES)), every tensor on lam's device."""
+        dev = lam.device
+        f32 = torch.float32
+        if self.homogeneous or self.rgb:
+            dens = torch.ones((1, 1, 1), dtype=f32, device=dev)
+        else:
+            dens = torch.as_tensor(self.density, dtype=f32, device=dev)
+        Le = (self.Le_spec(lam) * self.Le_scale if self.Le_spec is not None
+              else torch.zeros_like(lam))
+        kw = {}
+        if self.rgb:
+            grid = lambda t, s: torch.as_tensor(t, dtype=f32, device=dev) * s
+            kw = dict(sigma_a_rgb=grid(self.sigma_a_rgb, self.scale),
+                      sigma_s_rgb=grid(self.sigma_s_rgb, self.scale),
+                      Le_rgb=(grid(self.Le_rgb, self.Le_scale)
+                              if self.Le_rgb is not None else None))
+        return MediumArrays(
+            density=dens, majorant=self.build_majorant(dev),
+            w2m=torch.as_tensor(self.world_to_unit(), dtype=f32, device=dev),
+            g=torch.tensor(self.g, dtype=f32, device=dev),
+            sigma_a=self.sigma_a_spec(lam) * self.scale,
+            sigma_s=self.sigma_s_spec(lam) * self.scale, Le=Le, **kw)
 
 
 def bake_cloud_density(res=(128, 128, 128), density=1.0, wispiness=1.0,

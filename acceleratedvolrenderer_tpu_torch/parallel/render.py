@@ -1,6 +1,7 @@
 """Render entry points
 (port of acceleratedvolrenderer_tpu/parallel/render.py: work_stride_for,
-make_wave_renderer, make_regen_renderer, render_regen and render).
+make_wave_renderer, make_regen_renderer, render_regen, render,
+make_graph_wave_renderer and render_graph).
 
 Every entry point runs on the CUDA card unless given another `device`
 (utils/device.py::resolve)."""
@@ -321,3 +322,85 @@ def render(scene, spp: Optional[int] = None, progress: bool = False, *,
                  "rays_per_sec": H * W * spp / dt,
                  "iterations": sum(chunk_iterations),
                  "chunk_iterations": chunk_iterations}
+
+
+def make_graph_wave_renderer(scene, graph, *, device=None):
+    """Wave renderer of the graph-cache integrator: every pixel's camera
+    ray delta-tracks to its first real scatter and reads the cache there
+    (models/integrators/graph.py), a uniform graph by voxel lookup, a free
+    one by the radius-escalated weighted search.  The light spectrum is the
+    scene's first delta light's.  A homogeneous or scalar-grid medium.
+
+    Returns (render_wave, density, majorant), where render_wave(film,
+    density, majorant, sample_idx) -> film adds one sample of every pixel;
+    streams are keyed by (flat pixel index, sample index)."""
+    from ..models.integrators import graph as graph_integrator
+
+    device = resolve(device)
+    scene = scene.to(device)
+    cam = scene.camera
+    H, W = cam.height, cam.width
+    med_spec = scene.medium
+    if med_spec is None or med_spec.rgb:
+        raise ValueError("render_graph needs a homogeneous or scalar-grid "
+                         "medium")
+    maj_res = med_spec.maj_res()
+    uniform = getattr(graph, "kind", "free") == "uniform"
+    index = (graph_integrator.build_uniform_index(graph, device) if uniform
+             else graph_integrator.build_connect_index(graph, device=device))
+    li_fn = graph_integrator.li_uniform if uniform else graph_integrator.li
+    light = next(lt for lt in scene.lights if lt.is_delta)
+    density, majorant = _medium_tables(med_spec, device)
+    w2m = torch.as_tensor(np.asarray(med_spec.world_to_unit(), np.float32),
+                          device=device)
+    g = torch.tensor(med_spec.g, dtype=torch.float32, device=device)
+    pix = torch.as_tensor(_wave_pixels(W, H, None), device=device)
+    pixidx = torch.arange(H * W, dtype=torch.int64, device=device)
+
+    def render_wave(film, density, majorant, sample_idx):
+        sidx = torch.full((H * W,), int(sample_idx), dtype=torch.int64,
+                          device=device)
+        rng = dda.seed_stream(pixidx, sidx, salt=scene.seed)
+        rng, ua = dda.pcg_uniform(rng)
+        rng, ub = dda.pcg_uniform(rng)
+        off = scene.filter.sample_offset(torch.stack([ua, ub], -1)) + 0.5
+        rng, ul = dda.pcg_uniform(rng)
+        swl = sp.sample_wavelengths_visible(ul)
+        o, d = cam.generate_rays(pix, off)
+        med = dda.MediumArrays(
+            density=density, majorant=majorant, w2m=w2m, g=g,
+            sigma_a=med_spec.sigma_a_spec(swl.lam) * med_spec.scale,
+            sigma_s=med_spec.sigma_s_spec(swl.lam) * med_spec.scale,
+            Le=torch.zeros_like(swl.lam))
+        L = li_fn(med, index, light.spectrum(swl.lam) * light.scale, o, d,
+                  swl.lam, rng, maj_res=maj_res,
+                  homogeneous=med_spec.homogeneous,
+                  max_march_steps=scene.max_march_steps)
+        return film.add_samples(pix, L, swl)
+
+    return render_wave, density, majorant
+
+
+def render_graph(scene, graph, spp: Optional[int] = None, *, device=None):
+    """Render `scene` with the radiance cache `graph` (light scalars set):
+    ((H, W, 3) numpy image, stats).  The stats hold the render seconds
+    (after a device synchronize), spp, rays per second and the
+    delta-tracking loop iterations of each wave."""
+    dev = resolve(device)
+    spp = spp if spp is not None else scene.spp
+    H, W = scene.height, scene.width
+    render_wave, density, majorant = make_graph_wave_renderer(
+        scene, graph, device=dev)
+    film = Film.create(H, W, dev)
+    iterations = []
+    _sync(dev)
+    t0 = time.time()
+    for s in range(spp):
+        before = dda.delta_track_iterations
+        film = render_wave(film, density, majorant, s)
+        iterations.append(dda.delta_track_iterations - before)
+    img = film.to_image().cpu().numpy()
+    _sync(dev)
+    dt = time.time() - t0
+    return img, {"render_time": dt, "spp": spp,
+                 "rays_per_sec": H * W * spp / dt, "iterations": iterations}

@@ -1,6 +1,6 @@
 """Preset scenes (port of acceleratedvolrenderer_tpu/scene/presets.py:
-fog_box, cloud, the disney-cloud-720p analog, emissive_volume and
-explosion).  Every tensor of a scene is created on `device` (the CUDA card
+fog_box, cloud, the disney-cloud-720p analog, emissive_volume, sphere_medium
+and explosion).  Every tensor of a scene is created on `device` (the CUDA card
 by default)."""
 from __future__ import annotations
 
@@ -114,6 +114,31 @@ def emissive_volume(res=256, spp=64, *, device=None):
         lights=[lm.UniformInfiniteLight(spectrum=flat(0.02),
                                         scene_radius=10.0)],
         max_depth=8, spp=spp, scene_radius=10.0)
+
+
+def sphere_medium(res=640, height=480, spp=16, max_depth=8, *, device=None):
+    """The graph precompute's evaluation scene: a hard sphere of density 1
+    over a 96^3 grid with a 16^3 majorant, lit by a distant light from
+    above."""
+    device = resolve(device)
+    n = 96
+    zs, ys, xs = np.meshgrid(*([np.linspace(0, 1, n)] * 3), indexing="ij")
+    r = np.linalg.norm(np.stack([xs, ys, zs], -1) - 0.5, axis=-1)
+    density = np.clip(1.0 - r / 0.48, 0.0, 1.0).astype(np.float32)
+    density = (density > 0).astype(np.float32)
+    med = MediumSpec(
+        sigma_a_spec=flat(0.05), sigma_s_spec=flat(0.95), g=0.0, scale=3.0,
+        density=torch.as_tensor(density, device=device),
+        bounds_lo=np.zeros(3, np.float32), bounds_hi=np.ones(3, np.float32),
+        majorant_res=(16, 16, 16))
+    cam = PerspectiveCamera(
+        c2w=look_at((0.5, 0.5, -2.5), (0.5, 0.5, 0.5), (0, 1, 0), device),
+        fov_deg=30.0, width=res, height=height)
+    return Scene(
+        camera=cam, medium=med,
+        lights=[lm.DistantLight(direction=_direction([0.0, -1.0, 0.0], device),
+                                spectrum=flat(3.0), scene_radius=10.0)],
+        max_depth=max_depth, spp=spp, scene_radius=10.0)
 
 
 def explosion(res=256, spp=32, *, device=None):

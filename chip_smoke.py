@@ -114,7 +114,30 @@ Phases (any failure raises, and the script exits non-zero):
  19. knobs: the 32x24 cloud with event_groups 2, with retire_every 2
      (per-sample retire, one retire group) and with per-sample retire
      alone (accum_spp off), each on the GPU and the CPU, compared at
-     phase 5's tolerances.
+     phase 5's tolerances;
+ 20. tracking: delta_track (without and with emission) and ratio_track on
+     4096 rays over the 32^3 test sphere of tests/test_graph.py, on the
+     GPU and the CPU: delta_track's events equal for >= 99% of rays and,
+     where equal, t_event / beta / r_u / r_l / L_emit to rtol 1e-5 / atol
+     1e-6; ratio_track's T_ray the same on >= 99% of rays, r_l / r_u where
+     T_ray != 0; then tests/test_twin.py's fog box and density grid: the
+     staged li against the fused li on the card at rtol 2e-4 / atol 2e-5;
+ 21. graph, small: a graph built on the CPU with test_graph.py's sphere
+     and configuration; its light vector on the GPU against the CPU (>= 99%
+     of vertices to rtol 1e-4 / atol 1e-7, means to 1e-4), the final light's
+     index_add_ path on the GPU and the CPU against the host path (rtol
+     1e-5), render_graph at 16x16 (free and uniform graph) and debug_image
+     on the GPU against the CPU (phase 5's tolerances; the debug image to
+     rtol 1e-6); no kernel of phases 3-4 and 10 launches;
+ 22. graph, full width: graph_maker preset:sphere with the default
+     GraphConfig on the card into a temporary directory (vertices, edges,
+     build and lighting seconds, delta_track iterations, peak device
+     memory), then render_graph of presets.sphere_medium() at 640x480, spp
+     GRAPH_SPP (307,200 rays per wave) and render() of the same scene at
+     the same spp: finite images, graph / path mean ratio in (0.5, 2), the
+     relative MSE, seconds, rays per second, delta_track iterations per
+     wave, peak device memory; the graph path launches none of the three
+     kernels (`graph_launches` in the kernels' record).
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -166,6 +189,9 @@ RESIDUAL_SPP = 2                           # phase 18
 KNOB_CASES = (dict(event_groups=2),
               dict(accum_spp=False, retire_every=2, retire_groups=1),
               dict(accum_spp=False))
+# phases 20-22
+TRACK_RAYS = 4096
+GRAPH_SPP = 16
 HBM_BYTES_PER_MS = 3.35e9        # H100 SXM device memory, 3.35 TB/s
 F32_OPS_PER_MS = 67e9            # H100 SXM float32 outside the tensor cores
 
@@ -1104,6 +1130,347 @@ def phase_knobs(dev):
                                  f"{counts} for {it} iterations")
 
 
+def kernel_counts():
+    """(march, gather, dma) launch counters."""
+    from acceleratedvolrenderer_tpu_torch.ops import dma_gather, gather, march
+
+    return march.launches, gather.launches, dma_gather.launches
+
+
+def zero_kernel_counts():
+    from acceleratedvolrenderer_tpu_torch.ops import dma_gather, gather, march
+
+    march.launches = gather.launches = dma_gather.launches = 0
+
+
+def graph_util():
+    """tests/torch_graph_util.py: the 32^3 test sphere's tracking inputs
+    and scene, shared with the card tests."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_graph_util
+
+    return torch_graph_util
+
+
+def phase_tracking(dev):
+    """delta_track and ratio_track on the card against the CPU on the same
+    rays; the staged integrator against the fused one on the card."""
+    from acceleratedvolrenderer_tpu_torch.models import lights
+    from acceleratedvolrenderer_tpu_torch.models.cameras import (
+        PerspectiveCamera)
+    from acceleratedvolrenderer_tpu_torch.models.integrators import (
+        volpath as staged, volpath_fused as fused)
+    from acceleratedvolrenderer_tpu_torch.models.media import (
+        MediumSpec, homogeneous_box)
+    from acceleratedvolrenderer_tpu_torch.ops import dda, transmittance
+    from acceleratedvolrenderer_tpu_torch.utils import spectrum as sp
+    from acceleratedvolrenderer_tpu_torch.utils.vecmath import look_at
+
+    inputs = graph_util().sphere_tracking_inputs
+    n = TRACK_RAYS
+    for emission in (False, True):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            med, o, dirs, active, rng = inputs(n, emission, d)
+            one = torch.ones((n, 4), device=d)
+            t0 = time.time()
+            before = dda.delta_track_iterations
+            out.append(dda.delta_track(
+                med, o, dirs, torch.full((n,), torch.inf, device=d), one,
+                one, one, rng, active, (8, 8, 8),
+                collect_emission=emission))
+            its = dda.delta_track_iterations - before
+            _sync(d)
+            print(f"delta_track N {n} emission {emission} on {d}: {its} "
+                  f"iterations, {time.time() - t0:.3f} s", flush=True)
+        gpu, cpu = out
+        ev = (gpu.event.cpu() == cpu.event).numpy()
+        err = 0.0
+        for k in ("t_event", "beta", "r_u", "r_l", "L_emit"):
+            a = getattr(gpu, k).cpu().numpy()[ev]
+            b = getattr(cpu, k).numpy()[ev]
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"delta_track {k}")
+            err = max(err, float(np.abs(a - b).max()))
+        print(f"delta_track gpu vs cpu: events equal {ev.mean():.5f}, "
+              f"events {np.bincount(cpu.event.numpy(), minlength=4)}, "
+              f"max |diff| where equal {err:.3e}", flush=True)
+        if ev.mean() < 0.99:
+            raise AssertionError("delta_track: events differ on > 1% of rays")
+
+    out = []
+    for d in (dev, torch.device("cpu")):
+        med, o, dirs, active, rng = inputs(n, False, d, 3)
+        out.append(transmittance.ratio_track(
+            med, o, dirs, torch.full((n,), 2.5, device=d), rng, active,
+            (8, 8, 8)))
+    gpu, cpu = out
+    tg, tc = gpu.T_ray.cpu().numpy(), cpu.T_ray.numpy()
+    close = np.isclose(tg, tc, rtol=1e-5, atol=1e-6).all(-1).mean()
+    live = (tg != 0).any(-1) | (tc != 0).any(-1)
+    close_r = min(np.isclose(getattr(gpu, k).cpu().numpy()[live],
+                             getattr(cpu, k).numpy()[live], rtol=1e-5,
+                             atol=1e-6).all(-1).mean() for k in ("r_l", "r_u"))
+    print(f"ratio_track gpu vs cpu: T_ray close {close:.5f}, r_l / r_u close "
+          f"where T_ray != 0 {close_r:.5f} ({live.mean():.3f} of rays)",
+          flush=True)
+    if close < 0.99 or close_r < 0.99:
+        raise AssertionError("ratio_track: gpu and cpu disagree")
+
+    # tests/test_twin.py's two gates: staged li against fused li
+    flat = sp.constant_spectrum
+    dens = np.random.RandomState(7).rand(12, 12, 12).astype(np.float32) * 2
+    twins = {
+        "fog box": lambda: (homogeneous_box(
+            flat(0.3), flat(0.8), lo=(0, 0, 0), hi=(1, 1, 1), g=0.4,
+            Le_spec=flat(0.2)), [lights.UniformInfiniteLight(
+                spectrum=flat(1.0))]),
+        "density grid": lambda: (MediumSpec(
+            sigma_a_spec=flat(0.4), sigma_s_spec=flat(1.2),
+            density=torch.as_tensor(dens, device=dev), g=-0.2),
+            [lights.DistantLight(direction=torch.tensor(
+                [0.3, -1.0, 0.2], device=dev), spectrum=flat(3.0))])}
+    cam = PerspectiveCamera(c2w=look_at((0.5, 0.5, -2.0), (0.5, 0.5, 0.5),
+                                        (0, 1, 0), dev),
+                            fov_deg=30.0, width=8, height=8)
+    ys, xs = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    pix = torch.as_tensor(np.stack([xs.reshape(-1), ys.reshape(-1)], -1),
+                          device=dev)
+    o, dirs = cam.generate_rays(pix, torch.full((64, 2), 0.5, device=dev))
+    rng = (torch.arange(64, device=dev) * 2654435761 + 12345) & 0xFFFFFFFF
+    rng, ul = dda.pcg_uniform(rng)
+    lam = sp.sample_wavelengths_visible(ul).lam
+    for name, make in twins.items():
+        spec, lts = make()
+        kw = dict(maj_res=spec.maj_res(), homogeneous=spec.homogeneous,
+                  max_depth=6)
+        med = spec.build_arrays(lam)
+        a = staged.li(med, lts, o, dirs, lam, rng, **kw).L.cpu().numpy()
+        b = fused.li(med, lts, o, dirs, lam, rng, **kw).L.cpu().numpy()
+        print(f"twin {name} on the card: staged mean {a.mean():.7f}, fused "
+              f"mean {b.mean():.7f}, max |diff| {np.abs(a - b).max():.3e}",
+              flush=True)
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5,
+                                   err_msg=f"twin {name}")
+        if not (np.isfinite(a).all() and a.mean() > 0):
+            raise AssertionError(f"twin {name}: bad radiance")
+
+
+def phase_graph_small(dev):
+    """A graph built on the CPU (test_graph.py's configuration); its light
+    vector, final light and renders on the card against the CPU."""
+    from acceleratedvolrenderer_tpu_torch.graph import lighting
+    from acceleratedvolrenderer_tpu_torch.graph.builder import FreeGraphBuilder
+    from acceleratedvolrenderer_tpu_torch.graph.config import (
+        GraphBuilderConfig)
+    from acceleratedvolrenderer_tpu_torch.models.integrators import graph as gi
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    test_scene = graph_util().graph_test_scene
+    cpu = torch.device("cpu")
+    scene = test_scene(16, cpu)
+    light = np.array([0.0, -1.0, 0.0])
+    t0 = time.time()
+    graph = FreeGraphBuilder(scene.medium, light, GraphBuilderConfig(
+        dimension_steps=24, iterations_per_step=2, radius_modifier=20.0,
+        max_depth=4), seed=1, device=cpu).build()
+    print(f"graph small: built on the CPU in {time.time() - t0:.2f} s: "
+          f"{graph.n_vertices} vertices, {graph.n_edges} edges", flush=True)
+    zero_kernel_counts()
+    L0 = []
+    for d in (dev, cpu):
+        t0 = time.time()
+        L0.append(lighting.light_vector(graph, scene.medium, light, 8,
+                                        seed=1, device=d))
+        _sync(d)
+        print(f"light_vector on {d}: {time.time() - t0:.3f} s", flush=True)
+    a, b = L0
+    close = np.isclose(a, b, rtol=1e-4, atol=1e-7).mean()
+    rel = abs(a.mean() - b.mean()) / b.mean()
+    print(f"light_vector gpu vs cpu: vertices close {close:.5f}, mean rel "
+          f"diff {rel:.3e}", flush=True)
+    if close < 0.99 or rel > 1e-4:
+        raise AssertionError("light_vector: gpu and cpu disagree")
+    host = lighting.compute_final_light(graph, b, 3, on_device=False)
+    for d in (dev, cpu):
+        got = lighting.compute_final_light(graph, b, 3, on_device=True,
+                                           device=d)
+        np.testing.assert_allclose(got, host, rtol=1e-5, atol=1e-9,
+                                   err_msg=f"final light on {d}")
+    print(f"compute_final_light: device path on the card and the CPU equal "
+          f"the host path to rtol 1e-5 (mean {host.mean():.7f})", flush=True)
+    graph.light_scalar = host
+
+    imgs = [render.render_graph(test_scene(16, d), graph, device=d)[0]
+            for d in (dev, cpu)]
+    compare_frames("render_graph 16x16 gpu vs cpu", *imgs)
+    ug = graph.to_uniform(0.05)
+    imgs = [render.render_graph(test_scene(16, d), ug, device=d)[0]
+            for d in (dev, cpu)]
+    compare_frames("render_graph uniform 16x16 gpu vs cpu", *imgs)
+    dbg = []
+    for d in (dev, cpu):
+        uindex = gi.build_uniform_index(ug, d)
+        dbg.append(gi.debug_image(uindex, test_scene(16, d).camera, 16, 16))
+    np.testing.assert_allclose(dbg[0], dbg[1], rtol=1e-6)
+    if not (dbg[0].max() > 0 and np.isfinite(dbg[0]).all()):
+        raise AssertionError("debug_image: empty or non-finite")
+    print(f"debug_image 16x16 on the card equals the CPU's (max "
+          f"{dbg[0].max():.6f}); uniform graph {ug.n_vertices} voxels",
+          flush=True)
+    counts = kernel_counts()
+    if counts != (0, 0, 0):
+        raise AssertionError(f"graph small: (march, gather, dma) launches "
+                             f"{counts}, the graph path launches none")
+
+
+def graph_wave_split(scene, graph, dev):
+    """One wave of the graph render (sample 1) split by stage, each stage
+    timed by the host clock between synchronizes: the delta-tracking march,
+    the cache lookup and the rest (sampling, the film); then a wave alone
+    and one under torch.profiler: device busy time against the wall time of
+    each (the profiler lengthens the wall)."""
+    from acceleratedvolrenderer_tpu_torch.models.film import Film
+    from acceleratedvolrenderer_tpu_torch.models.integrators import graph as gi
+    from acceleratedvolrenderer_tpu_torch.ops import dda
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    render_wave, density, majorant = render.make_graph_wave_renderer(
+        scene, graph, device=dev)
+    spent = {"delta_track": 0.0, "connect_to_graph": 0.0}
+
+    def timed_stage(name, fn):
+        def wrapper(*args, **kwargs):
+            _sync(dev)
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            _sync(dev)
+            spent[name] += time.time() - t0
+            return out
+        return wrapper
+
+    film = Film.create(scene.height, scene.width, dev)
+    render_wave(film, density, majorant, 0)
+    with mock.patch.object(dda, "delta_track", timed_stage(
+            "delta_track", dda.delta_track)), mock.patch.object(
+                gi, "connect_to_graph", timed_stage(
+                    "connect_to_graph", gi.connect_to_graph)):
+        _sync(dev)
+        t0 = time.time()
+        before = dda.delta_track_iterations
+        render_wave(film, density, majorant, 1)
+        _sync(dev)
+        wall = time.time() - t0
+    its = dda.delta_track_iterations - before
+    rest = wall - sum(spent.values())
+    print(f"graph wave split (sample 1, host clock): delta_track "
+          f"{spent['delta_track'] * 1e3:.3f} ms ({its} iterations, "
+          f"{spent['delta_track'] * 1e3 / max(its, 1):.3f} ms each), "
+          f"connect_to_graph {spent['connect_to_graph'] * 1e3:.3f} ms, rest "
+          f"{rest * 1e3:.3f} ms, wave {wall * 1e3:.3f} ms", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(dev)
+    t0 = time.time()
+    render_wave(film, density, majorant, 2)
+    _sync(dev)
+    plain_wall = (time.time() - t0) * 1e3
+    # device activity only, as scripts/profile_port.py takes it: with CPU
+    # activity too, each kernel's time would also count on its aten op
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _sync(dev)
+        t0 = time.time()
+        render_wave(film, density, majorant, 3)
+        _sync(dev)
+        wall = (time.time() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    kernels = sum(e.count for e in prof.key_averages())
+    print(f"graph wave (sample 3) under torch.profiler: device busy "
+          f"{busy:.3f} ms, {kernels} device kernels; wall {wall:.3f} ms "
+          f"profiled (idle share {1 - busy / wall:.4f}), {plain_wall:.3f} "
+          f"ms unprofiled (sample 2; idle share {1 - busy / plain_wall:.4f})",
+          flush=True)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_graph_full(dev, card):
+    """graph_maker preset:sphere with the default configuration on the
+    card, then render_graph of presets.sphere_medium() at 640x480, spp
+    GRAPH_SPP, against render() of the same scene."""
+    import tempfile
+
+    from acceleratedvolrenderer_tpu_torch.cli import graph_maker
+    from acceleratedvolrenderer_tpu_torch.graph.model import Graph
+    from acceleratedvolrenderer_tpu_torch.ops import dda
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    zero_kernel_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        dda.delta_track_iterations = 0
+        if graph_maker.main(["preset:sphere", "--quiet", "--out",
+                             f"{tmp}/sphere"]) != 0:
+            raise AssertionError("graph_maker failed")
+        t_make = time.time() - t0
+        build_its = dda.delta_track_iterations
+        stats = json.loads(Path(f"{tmp}/sphere_stats.json").read_text())
+        graph = Graph.read_npz(f"{tmp}/sphere_d4.npz")
+        text = Graph.read_text(f"{tmp}/sphere_d4.txt")
+    np.testing.assert_array_equal(text.edges, graph.edges)
+    make_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"graph_maker preset:sphere (default GraphConfig) on {card}: "
+          f"{stats['vertices']} vertices, {stats['edges']} edges, build "
+          f"{stats['build_seconds']:.3f} s, lighting "
+          f"{stats['lighting_seconds']:.3f} s, {t_make:.3f} s in all, "
+          f"delta_track iterations {build_its}, mean light "
+          f"{stats['mean_light']:.6g}, peak device memory {make_peak:.3f} "
+          "GiB", flush=True)
+    if not (graph.n_vertices > 0 and graph.n_edges > 0
+            and np.isfinite(graph.light_scalar).all()
+            and graph.light_scalar.max() > 0):
+        raise AssertionError("graph_maker: empty graph or bad light")
+
+    scene = presets.sphere_medium(spp=GRAPH_SPP, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    img, st = render.render_graph(scene, graph, device=dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    counts = kernel_counts()
+    rays = scene.width * scene.height * GRAPH_SPP
+    print(f"render_graph {scene.width}x{scene.height} spp {GRAPH_SPP} "
+          f"({rays} camera rays, {scene.width * scene.height} per wave): "
+          f"{st['render_time']:.3f} s, {st['rays_per_sec'] / 1e6:.4f} "
+          f"Mrays/s, delta_track iterations per wave {st['iterations']}, "
+          f"peak device memory {peak:.3f} GiB, (march, gather, dma) "
+          f"launches {counts}, film mean {img.mean():.6f} on {card}",
+          flush=True)
+    if counts != (0, 0, 0):
+        raise AssertionError("graph full: the graph path launched a kernel")
+    graph_wave_split(scene, graph, dev)
+    ref, rst = render.render(scene, spp=GRAPH_SPP, device=dev)
+    print(f"render() {scene.width}x{scene.height} spp {GRAPH_SPP}: "
+          f"{rst['render_time']:.3f} s, {rst['rays_per_sec'] / 1e6:.4f} "
+          f"Mrays/s, {rst['iterations']} iterations, film mean "
+          f"{ref.mean():.6f}", flush=True)
+    if not (np.isfinite(img).all() and np.isfinite(ref).all()):
+        raise AssertionError("graph full: non-finite image")
+    ratio = float(img.mean() / max(ref.mean(), 1e-9))
+    diff = (img - ref).astype(np.float64)
+    rel_mse = float((diff * diff).mean()
+                    / max((ref.astype(np.float64) ** 2).mean(), 1e-12))
+    print(f"graph vs path: mean ratio {ratio:.5f}, relative MSE "
+          f"{rel_mse:.5f}; graph render {rst['render_time'] / st['render_time']:.2f}x "
+          "the speed of render()", flush=True)
+    if not 0.5 < ratio < 2.0:
+        raise AssertionError(f"graph full: graph/path mean ratio {ratio}")
+    return counts
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -1148,19 +1515,25 @@ def main():
     march_rec.update(timed("residual", phase_residual, dev, scene,
                            slice_rec, card))
     timed("knobs", phase_knobs, dev)
+    timed("tracking", phase_tracking, dev)
+    timed("graph small", phase_graph_small, dev)
+    graph_launches = timed("graph full", phase_graph_full, dev, card)
 
     src = "acceleratedvolrenderer_tpu_torch/csrc/"
     print(card)
     print(json.dumps({"kernels": [
         dict(name="march_block", route="cuda", source=src + "march.cu",
              replaces="acceleratedvolrenderer_tpu/ops/pallas_march.py:105",
-             launches=launches, **march_rec),
+             launches=launches, graph_launches=graph_launches[0],
+             **march_rec),
         dict(name="table_gather", route="cuda", source=src + "gather.cu",
              replaces="acceleratedvolrenderer_tpu/ops/pallas_gather.py:33",
-             launches=g_launches, **gather_rec),
+             launches=g_launches, graph_launches=graph_launches[1],
+             **gather_rec),
         dict(name="dma_gather", route="cuda", source=src + "dma_gather.cu",
              replaces="scripts/measure_gather_designs.py:44",
-             launches=dma_runs, wrapper_calls=dma_calls, **dma_rec)]}))
+             launches=dma_runs, wrapper_calls=dma_calls,
+             graph_launches=graph_launches[2], **dma_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
