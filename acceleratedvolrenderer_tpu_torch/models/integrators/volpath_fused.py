@@ -37,7 +37,20 @@ accum_spp; wave mode (`regen=None`) traces the given camera rays once, has
 no retire stage, and returns the per-lane radiance `L`.  Wave mode takes
 the reference's optional medium fields: the `Le_grid` emission scale,
 frozen sampling-side spectra `sigma_a_s` / `sigma_s_s` and a frozen
-sampling-side `g_s`.  Surfaces (`prims`) are not ported and raise.
+sampling-side `g_s`.
+
+Surfaces (`prims`, the primitives of models/shapes.py with a material) bound
+each main segment: init_segment intersects them and cuts the segment's t_max
+at the closest hit, so the march kernel walks only up to the surface.  A
+segment that ends there without a medium event shades the surface as the
+reference does: one-sided emission (path-sampled, weight 1 / mean(r_u)),
+NEE (occluded by the opaque primitives) with the Lambertian,
+diffuse-transmission or rough microfacet lobe, and a cosine, VNDF or
+diffuse-transmission bounce; smooth conductors, dielectrics and thin
+dielectrics bounce at once on their delta lobes; Russian roulette past
+depth 1.  Other material kinds take the Lambertian albedo lobe, with a
+warning, as in the reference.  Scenes without opaque primitives run exactly
+the medium-only program: the surface registers are (1,) placeholders.
 
 The loop runs on the host: `n_steps` is a python int, so the retire group,
 the event group and the retire tick (`retire_every`) are plain slices and
@@ -63,25 +76,31 @@ import dataclasses
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...ops import grid as gridops
 from ...ops import march
 from ...ops import phase as phase_ops
+from ...ops import warps
 from ...ops.dda import (MediumArrays, dda_init, pcg_uniform,
                         pcg_uniform_masked, world_to_medium)
 from ...utils import colorspace as cspace
 from ...utils import spectrum as spu
+from ...utils import vecmath as vmu
 from ...utils.math import ONE_MINUS_EPSILON
 from .. import lights as lights_mod
 from .. import samplers
+from .. import shapes as shapes_mod
 
 PC_MARCH = 0
 PC_NEE = 1
 PC_DONE = 2
 
 CHECK_EVERY = 16
+
+_SURF_EPS = 1e-4
 
 
 class LiResult(NamedTuple):
@@ -107,6 +126,12 @@ class _Regs:
     so: torch.Tensor          # (N, 3) segment origin (main path or shadow)
     sd: torch.Tensor          # (N, 3) segment direction
     d_main: torch.Tensor      # (N, 3) path direction
+    # surface registers ((1,) placeholders in a scene without surfaces)
+    t_surf: torch.Tensor      # (N,) surface hit bounding the main segment
+    n_surf: torch.Tensor      # (N, 3) its normal
+    mat_id: torch.Tensor      # (N,) its index in the opaque list (-1: none)
+    at_surface: torch.Tensor  # (N,) the NEE / resume vertex is a surface
+    spec_last: torch.Tensor   # (N,) the last bounce was a delta lobe
     voxel: torch.Tensor       # DDA registers of the active segment
     next_t: torch.Tensor
     dt: torch.Tensor
@@ -137,6 +162,107 @@ class _Regs:
     cursor: torch.Tensor      # 0-d next unissued work item
     samp: torch.Tensor        # accum_spp: (N,) current sample of the pixel
     rgb_acc: torch.Tensor     # accum_spp: (N, 3) banked rgb of the pixel
+
+
+def _take(table, mid):
+    """table[mid[i], i] for an (M, N, ...) per-primitive table."""
+    return table[mid, torch.arange(mid.shape[0], device=mid.device)]
+
+
+class _SurfaceTables:
+    """The opaque primitives' material tables of the surface branch
+    (reference li l. 220-345): per-primitive masks and constants, and the
+    spectral tables (M, N, L), evaluated once in wave mode (`const`) or
+    at every call on the lanes' current wavelengths in regen mode."""
+
+    def __init__(self, prims, lam, lanes, const: bool):
+        from .. import materials as mm
+
+        self.opaque = tuple(p for p in prims if p.material is not None)
+        self.has_surf = len(self.opaque) > 0
+        self.has_spec = self.has_rough = self.has_dt = False
+        self.lanes = lanes
+        if not self.has_surf:
+            return
+        mats = [p.material for p in self.opaque]
+        dev = lam.device
+
+        def rough_of(m):
+            # a texture roughness counts as 0.3, as in the reference
+            r = getattr(m, "roughness", 0.0)
+            return float(r) if isinstance(r, (int, float)) else 0.3
+
+        k_cond, k_diel, k_thin = (mm.KIND_CONDUCTOR, mm.KIND_DIELECTRIC,
+                                  mm.KIND_THIN_DIELECTRIC)
+        spec = [m.kind in (k_cond, k_diel, k_thin) and rough_of(m) == 0.0
+                for m in mats]
+        rough = [m.kind in (k_cond, k_diel) and rough_of(m) > 0.0
+                 for m in mats]
+        self.cond = [m.kind == k_cond and (s or r)
+                     for s, r, m in zip(spec, rough, mats)]
+        self.dt = [m.kind == mm.KIND_DIFFUSE_TRANSMISSION for m in mats]
+        self.has_spec, self.has_rough = any(spec), any(rough)
+        self.has_dt = any(self.dt)
+        mask = lambda v: torch.tensor(v, dtype=torch.bool, device=dev)
+        self.emissive_mask = mask([m.emissive for m in mats])
+        self.spec_mask, self.rough_mask = mask(spec), mask(rough)
+        self.cond_mask = mask(self.cond)
+        self.thin_mask = mask([s and m.kind == k_thin
+                               for s, m in zip(spec, mats)])
+        self.dt_mask = mask(self.dt)
+        self.alpha = torch.tensor([rough_of(m) for m in mats],
+                                  dtype=torch.float32, device=dev)
+        self.diel_eta = torch.tensor(
+            [float(getattr(m, "eta", 1.5)) if m.kind in (k_diel, k_thin)
+             and isinstance(getattr(m, "eta", 1.5), (int, float)) else 1.5
+             for m in mats], dtype=torch.float32, device=dev)
+        # kinds outside the lobe set take a Lambertian albedo lobe here, as
+        # in the reference: warn rather than render them wrong quietly
+        supported = (mm.KIND_DIFFUSE, k_cond, k_diel, k_thin,
+                     mm.KIND_DIFFUSE_TRANSMISSION)
+        unsupported = sorted({type(m).__name__ for m in mats
+                              if m.kind not in supported})
+        if unsupported:
+            import warnings
+
+            warnings.warn(
+                "fused volpath: material kind(s) "
+                f"{', '.join(unsupported)} approximate to a Lambert albedo "
+                "lobe in medium-bearing scenes", stacklevel=3)
+        self._const = None
+        if const:
+            self._const = self.spectra(lam)
+
+    def spectra(self, lam):
+        """(albedos, emissions, conductor eta, conductor k, DT
+        transmittance) as (M, N, L) tables at wavelengths lam (wave mode:
+        the tables made once at the given lam); the last three are None
+        where no primitive needs them."""
+        if self._const is not None:
+            return self._const
+        from .. import materials as mm
+
+        nw = lam.shape[0]
+        shape = (nw, self.lanes)
+        zeros = torch.zeros(shape, dtype=torch.float32, device=lam.device)
+        ones = torch.ones(shape, dtype=torch.float32, device=lam.device)
+        mats = [p.material for p in self.opaque]
+        albedos = torch.stack([mm._eval_spectral(
+            getattr(m, "reflectance", 0.5), lam) for m in mats])
+        emissions = torch.stack([
+            (m.emission(lam) * m.emission_scale if m.emissive else zeros)
+            * ones for m in mats])
+        eta_c = k_c = trans = None
+        if self.has_spec or self.has_rough:
+            eta_c = torch.stack([m.eta_spectrum(lam) * ones if c else ones
+                                 for c, m in zip(self.cond, mats)])
+            k_c = torch.stack([m.k_spectrum(lam) * ones if c else zeros
+                               for c, m in zip(self.cond, mats)])
+        if self.has_dt:
+            trans = torch.stack([
+                mm._eval_spectral(getattr(m, "transmittance", None), lam)
+                * ones if d else zeros for d, m in zip(self.dt, mats)])
+        return albedos, emissions, eta_c, k_c, trans
 
 
 def _fields(c: _Regs) -> tuple:
@@ -181,9 +307,6 @@ def li(
     a flat (3 * (H*W + 1),) cotangent, makes the retire stage accumulate
     sum(cot . film) into the (1,) `regen["film_rgb"]` instead of the film
     (parallel/diff.py); `regen["max_component"]` clamps each retired rgb."""
-    if len(prims) > 0:
-        raise NotImplementedError(
-            "volpath_fused.li: not ported yet: surfaces (prims)")
     has_samp_sigma = med.sigma_a_s is not None
     if has_samp_sigma and (rgb_mode or regen is not None
                            or event_groups > 1):
@@ -199,6 +322,10 @@ def li(
     dev = o.device
     f32 = torch.float32
     i64 = torch.int64
+    surf = _SurfaceTables(prims, lam, LANES, regen is None)
+    has_surf = surf.has_surf
+    has_spec, has_rough, has_dt = surf.has_spec, surf.has_rough, surf.has_dt
+    opaque = surf.opaque
     g = med.g
     g_samp = (g if med.g_s is None else med.g_s).detach()
     rz, ry, rx = med.majorant.shape
@@ -278,9 +405,20 @@ def li(
             """Sampling-side spectra: the live ones, detached."""
             return c.s_a.detach(), c.s_s.detach(), c.s_t.detach()
 
-    def init_segment(so, sd, t_max, rng, need, old):
+    def init_segment(so, sd, t_max, rng, need, old, need_main=None):
         """(Re)initialize the DDA registers of lanes in `need` and draw
-        their first optical-depth target."""
+        their first optical-depth target.  Lanes in `need_main` also
+        intersect the opaque primitives, which bound the segment (t_surf)."""
+        surf_regs = {}
+        if has_surf and need_main is not None:
+            hit = shapes_mod.intersect_all(opaque, so, sd, torch.inf)
+            surf_regs = dict(
+                t_surf=torch.where(need_main, hit.t, old.t_surf),
+                n_surf=torch.where(need_main[:, None], hit.n, old.n_surf),
+                mat_id=torch.where(need_main, hit.prim_id, old.mat_id))
+            t_max = torch.where(need_main,
+                                torch.minimum(t_max, surf_regs["t_surf"]),
+                                t_max)
         dda, t0 = dda_init(so, sd, t_max, med.w2m, maj_res)
         rng, u0 = pcg_uniform_masked(rng, need & dda.in_medium)
         u0 = torch.clamp(u0, max=ONE_MINUS_EPSILON)
@@ -308,7 +446,7 @@ def li(
             reached=torch.where(sel, False, old.reached),
             # a segment that misses the medium is immediately "escaped"
             seg_escaped=torch.where(sel, ~dda.in_medium, old.seg_escaped),
-            rng=rng, **ctrl,
+            rng=rng, **ctrl, **surf_regs,
         )
 
     zeros_i = torch.zeros((N,), dtype=i64, device=dev)
@@ -341,11 +479,17 @@ def li(
     accum = regen is not None and accum_spp
     # registers a mode does not use are (1,) placeholders
     n_res = N if residual_on else 1
+    n_srf = N if has_surf else 1
     regs = _Regs(
         pc=torch.where(need0, PC_MARCH, PC_DONE),
         depth=zeros_i, rng=rng, lam=lam, lam_pdf=lam_pdf0,
         s_t=s_t0, s_a=s_a0, s_s=s_s0, s_le=s_le0,
         so=o, sd=d, d_main=d,
+        t_surf=torch.full((n_srf,), torch.inf, dtype=f32, device=dev),
+        n_surf=torch.zeros((n_srf, 3), dtype=f32, device=dev),
+        mat_id=torch.full((n_srf,), -1, dtype=i64, device=dev),
+        at_surface=torch.zeros((n_srf,), dtype=torch.bool, device=dev),
+        spec_last=torch.zeros((n_srf,), dtype=torch.bool, device=dev),
         voxel=torch.zeros((N, 3), dtype=torch.int32, device=dev),
         next_t=torch.zeros((N, 3), dtype=f32, device=dev),
         dt=torch.zeros((N, 3), dtype=f32, device=dev),
@@ -364,7 +508,7 @@ def li(
         rgb_acc=torch.zeros((N if accum else 1, 3), dtype=f32, device=dev),
     )
     inf_n = torch.full((N,), torch.inf, dtype=f32, device=dev)
-    regs = init_segment(o, d, inf_n, rng, need0, regs)
+    regs = init_segment(o, d, inf_n, rng, need0, regs, need_main=need0)
 
     def block_substep(c: _Regs, K: int) -> _Regs:
         """K-voxel march of every hunting lane, by the route chosen above.
@@ -516,7 +660,7 @@ def li(
         do_scatter = is_scatter & ~over
         depth = c.depth + do_scatter.to(c.depth.dtype)
 
-        # ---- main-path segment end (pc == MARCH): escape to the sky ----
+        # ---- main-path segment end (pc == MARCH): the sky or a surface ----
         esc_m = c.seg_escaped & (c.pc == PC_MARCH)
         # residual T_maj / T_maj[0]: evaluation numerator over the
         # sampling-side pdf; the trackers take the all-sampling-side form
@@ -529,10 +673,16 @@ def li(
         beta = torch.where(esc3, beta * f_res, beta)
         r_u = torch.where(esc3, r_u * f_res_d, r_u).detach()
         r_l = torch.where(esc3, r_l * f_res_d, r_l).detach()
-        to_sky = esc_m
+        if has_surf:
+            hit_surf = esc_m & torch.isfinite(c.t_surf)
+            to_sky = esc_m & ~torch.isfinite(c.t_surf)
+        else:
+            to_sky = esc_m
 
+        # the sky: infinite lights with MIS; after a delta bounce (or at
+        # depth 0) no light-sampling pdf competes, full weight
         Le_inf, pdf_inf = lights_mod.escaped_radiance(lights, c.d_main, c.lam)
-        first = c.depth == 0
+        first = (c.depth == 0) | c.spec_last if has_surf else c.depth == 0
         denom_first = torch.mean(r_u, dim=-1)
         denom_mis = torch.mean(r_u + r_l * pdf_inf[:, None], dim=-1)
         denom = torch.where(first, denom_first, denom_mis).detach()
@@ -540,21 +690,131 @@ def li(
         L_acc = L_acc + torch.where((to_sky & (denom > 0))[:, None],
                                     contrib_inf, 0.0)
 
-        # ---- NEE set-up at a volume scatter ----
+        false = torch.zeros((n,), dtype=torch.bool, device=dev)
+        hit_emit = over_s = do_surf = do_spec = do_rough = false
+        if has_surf:
+            # ---- surface shading set-up ----
+            albedos, emissions, eta_cs, k_cs, trans_s = surf.spectra(c.lam)
+            p_hit = c.so + c.t_surf[:, None] * c.sd
+            wo_s = -c.d_main
+            mid = torch.clamp(c.mat_id, 0, len(opaque) - 1)
+            albedo = _take(albedos, mid)
+            Le_mat = _take(emissions, mid)
+            if has_dt:
+                trans_hit = _take(trans_s, mid)
+                dt_l = surf.dt_mask[mid]
+            is_emissive = surf.emissive_mask[mid]
+            n_f = vmu.face_forward(c.n_surf, wo_s)
+            front = vmu.dot(c.n_surf, wo_s) > 0
+            # emitters are found by path sampling only: weight
+            # 1 / mean(r_u); one-sided emission
+            hit_emit = hit_surf & is_emissive & front
+            contrib_le = (beta * Le_mat
+                          / torch.clamp(denom_first, min=1e-30)[:, None])
+            L_acc = L_acc + torch.where(hit_emit[:, None], contrib_le, 0.0)
+            # diffuse-like: NEE + cosine bounce; rough microfacet: NEE (MIS
+            # with the VNDF lobe) + VNDF bounce; smooth specular: an
+            # immediate mirror / refraction bounce, no NEE
+            hit_diff = hit_surf & ~is_emissive
+            hit_spec = hit_rough = false
+            if has_spec or has_rough:
+                spec_hit = surf.spec_mask[mid]
+                rough_hit = surf.rough_mask[mid]
+                hit_spec = hit_diff & spec_hit
+                hit_rough = hit_diff & rough_hit
+                hit_diff = hit_diff & ~spec_hit & ~rough_hit
+            over_s = (hit_diff | hit_spec | hit_rough) & (c.depth >= max_depth)
+            do_surf = hit_diff & ~over_s
+            do_spec = hit_spec & ~over_s
+            do_rough = hit_rough & ~over_s
+            depth = depth + (do_surf | do_spec | do_rough).to(depth.dtype)
+            # the local frame on the true geometric normal: the non-diffuse
+            # lobes are two-sided, and a dielectric's eta side is a property
+            # of the surface, not of the side the ray came from
+            if has_spec or has_rough or has_dt:
+                from .. import bxdfs as bxdfs_mod
+
+                sbx, sby, sbz = vmu.frame_from_z(c.n_surf)
+                wo_sl = vmu.to_local(sbx, sby, sbz, wo_s)
+            if has_spec or has_rough:
+                eta_c_hit = _take(eta_cs, mid)
+                k_c_hit = _take(k_cs, mid)
+                alpha_hit = surf.alpha[mid]
+                eta_m = surf.diel_eta[mid]
+                is_cond_l = surf.cond_mask[mid]
+
+        # ---- NEE set-up: a volume scatter or a surface vertex ----
         p_scat = c.so + c.t_cur[:, None] * c.sd
         wo = -c.d_main
-        want_nee = do_scatter
+        want_nee = do_scatter | do_surf | do_rough
         rng, u1 = pcg_uniform_masked(rng, want_nee)
         rng, u2a = pcg_uniform_masked(rng, want_nee)
         rng, u2b = pcg_uniform_masked(rng, want_nee)
+        at_surf = do_surf | do_rough
+        p_vertex = (torch.where(at_surf[:, None], p_hit + n_f * _SURF_EPS,
+                                p_scat) if has_surf else p_scat)
         ls, is_delta = lights_mod.sample_one_light(
-            lights, p_scat, u1, torch.stack([u2a, u2b], -1), c.lam,
+            lights, p_vertex, u1, torch.stack([u2a, u2b], -1), c.lam,
             strategy=light_strategy)
         f_hat = phase_ops.hg_phase(wo, ls.wi, g)
         f_hat_d = phase_ops.hg_phase(wo, ls.wi, g_samp).detach()  # pdf role
-        f_spec = f_hat[:, None].expand(n, LANES)
-        spdf_d = f_hat_d
-        nee_valid = want_nee & ls.valid & (ls.pdf > 0) & (f_hat_d > 0)
+        if has_surf:
+            cos_l = vmu.dot(ls.wi, n_f)
+            cos_p = torch.clamp(cos_l, min=0.0)
+            f_spec = torch.where(do_surf[:, None],
+                                 albedo / np.pi * cos_p[:, None],
+                                 f_hat[:, None])
+            spdf_d = torch.where(do_surf, (cos_p / np.pi).detach(), f_hat_d)
+            diff_nee_ok = cos_l > 0
+            if has_dt:
+                # DT lanes are two-sided: the light on wo's side takes the
+                # reflectance lobe, behind the surface the transmittance one
+                wi_dl = vmu.to_local(sbx, sby, sbz, ls.wi)
+                f_dt = (bxdfs_mod.diffuse_transmission_f(
+                    wo_sl, wi_dl, albedo, trans_hit)
+                    * torch.abs(cos_l)[:, None])
+                spdf_dt = bxdfs_mod.diffuse_transmission_pdf(
+                    wo_sl, wi_dl, torch.amax(albedo, -1),
+                    torch.amax(trans_hit, -1)).detach()
+                dt_nee = do_surf & dt_l
+                f_spec = torch.where(dt_nee[:, None], f_dt, f_spec)
+                spdf_d = torch.where(dt_nee, spdf_dt, spdf_d)
+                diff_nee_ok = torch.where(dt_l, (f_dt > 0).any(-1),
+                                          diff_nee_ok)
+            rough_nee_ok = false
+            if has_rough:
+                # the microfacet f |cos| and pdf toward the light, the MIS
+                # companion of the VNDF bounce
+                wi_nl = vmu.to_local(sbx, sby, sbz, ls.wi)
+                f_c_nee = bxdfs_mod.conductor_f(wo_sl, wi_nl, eta_c_hit,
+                                                k_c_hit, alpha_hit)
+                p_c_nee = bxdfs_mod.conductor_pdf(wo_sl, wi_nl, alpha_hit)
+                f_d_nee = bxdfs_mod.dielectric_f(wo_sl, wi_nl, eta_m,
+                                                 alpha_hit)
+                p_d_nee = bxdfs_mod.dielectric_pdf(wo_sl, wi_nl, eta_m,
+                                                   alpha_hit)
+                f_r_nee = (torch.where(is_cond_l[:, None], f_c_nee, f_d_nee)
+                           * torch.abs(wi_nl[..., 2])[:, None])
+                p_r_nee = torch.where(is_cond_l, p_c_nee, p_d_nee).detach()
+                f_spec = torch.where(do_rough[:, None], f_r_nee, f_spec)
+                spdf_d = torch.where(do_rough, p_r_nee, spdf_d)
+                rough_nee_ok = (p_r_nee > 0) & (f_r_nee > 0).any(-1)
+            # the shadow ray leaves a surface on the light's side (pbrt
+            # SpawnRayTo), so a transmitted direction does not start
+            # inside the surface
+            side = torch.where(vmu.dot(c.n_surf, ls.wi) > 0, _SURF_EPS,
+                               -_SURF_EPS)
+            p_occl = torch.where(at_surf[:, None],
+                                 p_hit + c.n_surf * side[:, None], p_vertex)
+            occl = shapes_mod.occluded(opaque, p_occl, ls.wi, ls.dist)
+            extra_ok = torch.where(
+                do_surf, diff_nee_ok,
+                torch.where(do_rough, rough_nee_ok, f_hat_d > 0)) & ~occl
+        else:
+            f_spec = f_hat[:, None].expand(n, LANES)
+            spdf_d = f_hat_d
+            extra_ok = f_hat_d > 0
+        nee_valid = want_nee & ls.valid & (ls.pdf > 0) & extra_ok
         skip_nee = want_nee & ~nee_valid
 
         # ---- NEE collisions (pc == NEE): ratio tracking ----
@@ -611,33 +871,165 @@ def li(
         L_acc = L_acc + torch.where((esc_s & (denom_nee > 0))[:, None],
                                     contrib_nee, 0.0)
 
-        # ---- resume: NEE done, or a scatter that skipped NEE ----
-        resume = esc_s | skip_nee
+        # ---- resume: NEE done, a vertex that skipped NEE, or a specular
+        # surface hit bouncing at once ----
+        resume = esc_s | skip_nee | do_spec
+        if has_surf:
+            # skip_nee surface lanes have not set at_surface yet
+            res_surf = (esc_s & c.at_surface) | (skip_nee & at_surf)
         rng, u3a = pcg_uniform_masked(rng, resume)
         rng, u3b = pcg_uniform_masked(rng, resume)
+        u3 = torch.stack([u3a, u3b], -1)
         wo2 = -c.d_main
-        wi, ps_pdf = phase_ops.sample_hg(wo2, torch.stack([u3a, u3b], -1),
-                                         g_samp)
+        wi, ps_pdf = phase_ops.sample_hg(wo2, u3, g_samp)
         ps_pdf = ps_pdf.detach()
         # beta *= p(theta) / pdf: 1 in the forward pass
         p_theta = phase_ops.hg_phase(wo2, wi, g)
         f_over = (p_theta[:, None]
                   / torch.clamp(ps_pdf, min=1e-30)[:, None])
+        if has_surf:
+            # surfaces: a cosine-sampled bounce about the stored normal
+            # (mid, n_f, wo_sl and the microfacet parameters all derive from
+            # c.mat_id and c.n_surf, so they hold for NEE-returning lanes)
+            n_rf = vmu.face_forward(c.n_surf, wo2)
+            local = warps.sample_cosine_hemisphere(u3)
+            bx, by, bz = vmu.frame_from_z(n_rf)
+            wi_surf = vmu.from_local(bx, by, bz, local)
+            pdf_surf = (torch.clamp(vmu.dot(wi_surf, n_rf), min=0.0)
+                        / np.pi).detach()
+            res_rough = false
+            res_diff = res_surf
+            if has_rough:
+                lane_rough = surf.rough_mask[mid]
+                res_rough = res_surf & lane_rough
+                res_diff = res_surf & ~lane_rough
+            wi = torch.where(res_diff[:, None], wi_surf, wi)
+            ps_pdf = torch.where(res_diff, pdf_surf, ps_pdf)
+            # f cos / pdf = albedo for a cosine-sampled Lambertian
+            f_over = torch.where(res_diff[:, None], albedo,
+                                 p_theta[:, None] / torch.clamp(
+                                     ps_pdf, min=1e-30)[:, None])
+            if has_dt:
+                # the transmission lobe with probability pt / (pr + pt), the
+                # cosine sample in the far hemisphere; its pdf carries the
+                # side choice, consistent with the NEE pdf above
+                dt_res = res_diff & surf.dt_mask[mid]
+                rng, u_dt = pcg_uniform_masked(rng, dt_res)
+                bs_dt = bxdfs_mod.diffuse_transmission_sample(
+                    wo_sl, u_dt, u3, albedo, trans_hit)
+                cos_dt = torch.abs(bs_dt.wi[..., 2])
+                wi = torch.where(dt_res[:, None],
+                                 vmu.from_local(sbx, sby, sbz, bs_dt.wi), wi)
+                ps_pdf = torch.where(dt_res, bs_dt.pdf.detach(), ps_pdf)
+                f_over = torch.where(
+                    dt_res[:, None],
+                    bs_dt.f * (cos_dt / torch.clamp(bs_dt.pdf,
+                                                    min=1e-30))[:, None],
+                    f_over)
+                go_dt_t = dt_res & bs_dt.transmitted
+            if has_rough:
+                # the rough microfacet bounce: a Trowbridge-Reitz VNDF sample
+                # of the conductor or dielectric lobe
+                rng, u_lb = pcg_uniform_masked(rng, res_rough & ~is_cond_l)
+                bs_c = bxdfs_mod.conductor_sample(wo_sl, u3, eta_c_hit,
+                                                  k_c_hit, alpha_hit)
+                bs_dl = bxdfs_mod.dielectric_sample(wo_sl, u_lb, u3, eta_m,
+                                                    alpha_hit)
+                cond3 = is_cond_l[:, None]
+                wi_rl = torch.where(cond3, bs_c.wi, bs_dl.wi)
+                f_rs = torch.where(cond3, bs_c.f, bs_dl.f)
+                pdf_rs = torch.where(is_cond_l, bs_c.pdf, bs_dl.pdf).detach()
+                ok_rs = torch.where(is_cond_l, bs_c.pdf > 0, bs_dl.pdf > 0)
+                cos_rs = torch.abs(wi_rl[..., 2])
+                wi = torch.where(res_rough[:, None],
+                                 vmu.from_local(sbx, sby, sbz, wi_rl), wi)
+                ps_pdf = torch.where(res_rough,
+                                     torch.where(ok_rs, pdf_rs, 0.0), ps_pdf)
+                f_over = torch.where(
+                    res_rough[:, None],
+                    f_rs * (cos_rs / torch.clamp(pdf_rs,
+                                                 min=1e-30))[:, None],
+                    f_over)
+                # a transmitted sample crosses to the other hemisphere
+                trans_rough = res_rough & (wi_rl[..., 2] * wo_sl[..., 2] < 0)
+
+        if has_spec:
+            # ---- smooth specular lobes (the delta cases of the
+            # conductor, dielectric and thin dielectric) ----
+            is_thin_l = surf.thin_mask[mid]
+            cos_o = torch.clamp(vmu.dot(wo_s, n_f), min=1e-6)
+            wi_mirror = bxdfs_mod.reflect(wo_s, n_f)
+            sgn_cos = vmu.dot(wo_s, c.n_surf)    # signed vs the outward normal
+            F_d = bxdfs_mod.fresnel_dielectric(sgn_cos, eta_m)
+            # thin slab: the total reflectance with internal bounces
+            F_thin = torch.where(F_d < 1.0, 2.0 * F_d / (1.0 + F_d), 1.0)
+            F_prob = torch.where(is_thin_l, F_thin, F_d)
+            rng, u_lobe = pcg_uniform_masked(rng, do_spec & ~is_cond_l)
+            ok_refr, wt, eta_p = bxdfs_mod.refract(wo_s, c.n_surf, eta_m)
+            refl = is_cond_l | (u_lobe < F_prob) | (~is_thin_l & ~ok_refr)
+            wt_dir = torch.where(is_thin_l[:, None], -wo_s, wt)
+            wi_sp = torch.where(refl[:, None], wi_mirror, wt_dir)
+            F_c = bxdfs_mod.fresnel_conductor(
+                cos_o[:, None] * torch.ones((n, LANES), device=dev),
+                eta_c_hit, k_c_hit)
+            # the lobe is chosen with probability F (or 1 - F): the weights
+            # cancel to 1 but for the conductor's Fresnel and the 1 / eta^2
+            # radiance scale of a refraction
+            f_sp = torch.where(
+                is_cond_l[:, None], F_c,
+                torch.where((refl | is_thin_l)[:, None], 1.0,
+                            (1.0 / torch.clamp(eta_p * eta_p,
+                                               min=1e-12))[:, None]))
+            p_spec_o = p_hit + c.n_surf * torch.where(
+                refl == (sgn_cos > 0), _SURF_EPS, -_SURF_EPS)[:, None]
+            wi = torch.where(do_spec[:, None], wi_sp, wi)
+            ps_pdf = torch.where(do_spec, 1.0, ps_pdf)
+            f_over = torch.where(do_spec[:, None], f_sp, f_over)
         ps_ok = ps_pdf > 0
         go = resume & ps_ok
         beta = beta * torch.where(go[:, None], f_over, 1.0)
         r_l_new = torch.where(go[:, None],
                               r_u / torch.clamp(ps_pdf, min=1e-30)[:, None],
                               r_l).detach()
-        p_resume = torch.where(esc_s[:, None], c.so, p_scat)
+        rr_kill = false
+        if has_surf:
+            # Russian roulette after surface bounces past depth 1
+            rr_beta = torch.amax(beta.detach() / torch.clamp(
+                torch.mean(r_u, dim=-1), min=1e-30)[:, None], dim=-1)
+            rr_cand = res_surf & ps_ok & (c.depth > 1) & (rr_beta < 1.0)
+            q = torch.clamp(1.0 - rr_beta, 0.0, 0.95)
+            rng, u_rr2 = pcg_uniform_masked(rng, rr_cand)
+            rr_kill = rr_cand & (u_rr2 < q)
+            beta = torch.where((rr_cand & ~rr_kill)[:, None],
+                               beta / torch.clamp(1.0 - q, min=1e-6)[:, None],
+                               beta)
+
+        # the resume origin: NEE-returning lanes from the stored shadow
+        # origin (the vertex), skip_nee lanes from the fresh vertex,
+        # specular lanes from the side-offset hit point
+        p_fresh = p_scat
+        if has_surf:
+            p_fresh = torch.where(at_surf[:, None], p_vertex, p_scat)
+            if has_spec:
+                p_fresh = torch.where(do_spec[:, None], p_spec_o, p_fresh)
+        p_resume = torch.where(esc_s[:, None], c.so, p_fresh)
+        # transmitted microfacet and diffuse-transmission lanes continue on
+        # the far side: the vertex sits _SURF_EPS on wo's side
+        for crossed in ((trans_rough,) if has_rough else ()) + (
+                (go_dt_t,) if has_dt else ()):
+            p_resume = torch.where(crossed[:, None],
+                                   p_resume - n_rf * (2.0 * _SURF_EPS),
+                                   p_resume)
         d_new = torch.where(go[:, None], wi, c.d_main)
 
         # ---- program counter ----
+        march_on = go & ~rr_kill
         pc = c.pc
-        pc = torch.where(is_absorb | dead_null | over | to_sky, PC_DONE, pc)
+        pc = torch.where(is_absorb | dead_null | over | to_sky | hit_emit
+                         | over_s, PC_DONE, pc)
         pc = torch.where(nee_valid, PC_NEE, pc)
-        pc = torch.where(go, PC_MARCH, pc)
-        pc = torch.where(resume & ~ps_ok, PC_DONE, pc)
+        pc = torch.where(march_on, PC_MARCH, pc)
+        pc = torch.where(resume & (~ps_ok | rr_kill), PC_DONE, pc)
 
         # ---- null continuation: a fresh optical-depth target in place ----
         st0 = st_smp[:, 0]
@@ -660,6 +1052,14 @@ def li(
                 [col_m.sum(), col_s.sum()])
         if residual_on:
             extra["ctrl_since"] = torch.where(col_any, 0.0, c.ctrl_since)
+        if has_surf:
+            extra["at_surface"] = torch.where(
+                nee_valid, at_surf,
+                torch.where(resume, False, c.at_surface))
+            extra["spec_last"] = torch.where(
+                do_spec, True,
+                torch.where(do_scatter | (resume & ~do_spec), False,
+                            c.spec_last))
         nv3 = nee_valid[:, None]
         c2 = dataclasses.replace(
             c, pc=pc, depth=depth, rng=rng, d_main=d_new,
@@ -676,12 +1076,13 @@ def li(
             reached=c.reached & ~col_any, **extra,
         )
 
-        # ---- segment (re)initialization: shadow ray or next main segment
-        new_o = torch.where(nv3, p_scat, p_resume)
+        # ---- segment (re)initialization: a shadow ray from the vertex, or
+        # the next main segment (which intersects the surfaces again) ----
+        new_o = torch.where(nv3, p_vertex, p_resume)
         new_d = torch.where(nv3, ls.wi, wi)
         new_tmax = torch.where(nee_valid, ls.dist, torch.inf)
-        return init_segment(new_o, new_d, new_tmax, c2.rng, nee_valid | go,
-                            c2)
+        return init_segment(new_o, new_d, new_tmax, c2.rng,
+                            nee_valid | march_on, c2, need_main=march_on)
 
     def sliced_events(c: _Regs, n_step: int) -> _Regs:
         """The event block on event group n_step % event_groups, a
@@ -761,7 +1162,11 @@ def li(
             r_l_s=torch.where(sel, one_s, c.r_l_s),
             r_u_s=torch.where(sel, one_s, c.r_u_s),
             **regs)
-        return init_segment(o2, d2, inf_n, c.rng, can, c)
+        if has_surf:
+            c = dataclasses.replace(
+                c, at_surface=torch.where(can, False, c.at_surface),
+                spec_last=torch.where(can, False, c.spec_last))
+        return init_segment(o2, d2, inf_n, c.rng, can, c, need_main=can)
 
     def retire_respawn(c: _Regs, film, n_step: int):
         """Splat each finished sample of this iteration's retire group and

@@ -14,8 +14,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models import lights as lights_mod
 from ..models import samplers
 from ..models.film import Film
+from ..models.integrators import path as path_mod
 from ..models.integrators import volpath_fused as volpath
 from ..ops import dda
 from ..ops import grid as gridops
@@ -87,25 +89,34 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
 
     Returns (render_wave, density, majorant), where render_wave(film,
     density, majorant, sample_idx) -> (film, [loop iterations of each
-    chunk]).  Only scenes with a medium (homogeneous, grid or RGB grid) are
-    ported; surfaces, the `path` integrators and environment-only scenes
-    raise NotImplementedError."""
+    chunk]).  A scene with a medium (homogeneous, grid or RGB grid, with or
+    without surfaces) runs the fused volpath; without a medium, surfaces run
+    scene.integrator (path, simplepath, randomwalk, ao, or volpath over an
+    empty medium, whose loop iterations are counted; the path integrators
+    count 0), and a scene with no surface returns the infinite lights'
+    radiance.  Only the independent sampler is ported."""
     device = resolve(device)
     scene = scene.to(device)
     cam = scene.camera
     H, W = cam.height, cam.width
     med_spec = scene.medium
-    if med_spec is None:
-        what = ("surfaces without a medium" if scene.primitives
-                else "environment-only scenes")
-        raise NotImplementedError(f"make_wave_renderer: not ported yet: "
-                                  f"{what}")
-    maj_res = med_spec.maj_res()
-    density, majorant = _medium_tables(med_spec, device)
-    rgb_kw = _rgb_arrays(med_spec)
-    w2m = torch.as_tensor(np.asarray(med_spec.world_to_unit(), np.float32),
-                          device=device)
-    g = torch.tensor(med_spec.g, dtype=torch.float32, device=device)
+    prims = tuple(scene.primitives)
+    integ = scene.integrator
+    if med_spec is not None:
+        maj_res = med_spec.maj_res()
+        density, majorant = _medium_tables(med_spec, device)
+        rgb_kw = _rgb_arrays(med_spec)
+        w2m = torch.as_tensor(np.asarray(med_spec.world_to_unit(),
+                                         np.float32), device=device)
+        g = torch.tensor(med_spec.g, dtype=torch.float32, device=device)
+    else:
+        density = torch.ones((1, 1, 1), dtype=torch.float32, device=device)
+        majorant = torch.ones((1, 1, 1), dtype=torch.float32, device=device)
+        # volpath over an empty medium: a zero majorant, unit density
+        empty = dda.MediumArrays(
+            density=density, majorant=torch.zeros_like(majorant),
+            w2m=torch.eye(4, device=device),
+            g=torch.zeros((), dtype=torch.float32, device=device))
 
     pix_all = _wave_pixels(W, H, scene.pixel_bounds)
     total = len(pix_all)
@@ -133,20 +144,55 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
             ul = torch.full_like(ul, 0.5)
         swl = sp.sample_wavelengths_visible(ul)
         o, d = cam.generate_rays(pix, off)
-        Le = (med_spec.Le_spec(swl.lam) * med_spec.Le_scale
-              if med_spec.Le_spec is not None else torch.zeros_like(swl.lam))
-        med = dda.MediumArrays(
-            density=density, majorant=majorant, w2m=w2m, g=g,
-            sigma_a=med_spec.sigma_a_spec(swl.lam) * med_spec.scale,
-            sigma_s=med_spec.sigma_s_spec(swl.lam) * med_spec.scale, Le=Le,
-            **rgb_kw)
-        res = volpath.li(
-            med, scene.lights, o, d, swl.lam, rng, maj_res=maj_res,
-            homogeneous=med_spec.homogeneous, max_depth=scene.max_depth,
-            max_march_steps=scene.max_march_steps, rgb_mode=med_spec.rgb,
-            prims=tuple(scene.primitives),
-            light_strategy=scene.light_sampler)
-        return film.add_samples(pix, res.L, swl), res.iterations
+        L, iterations = trace(o, d, swl.lam, rng)
+        return film.add_samples(pix, L, swl), iterations
+
+    def trace(o, d, lam, rng):
+        """(L, loop iterations) of the chunk's camera rays, by the
+        reference's branches (its render.py l. 133-218)."""
+        if med_spec is not None:
+            Le = (med_spec.Le_spec(lam) * med_spec.Le_scale
+                  if med_spec.Le_spec is not None else torch.zeros_like(lam))
+            med = dda.MediumArrays(
+                density=density, majorant=majorant, w2m=w2m, g=g,
+                sigma_a=med_spec.sigma_a_spec(lam) * med_spec.scale,
+                sigma_s=med_spec.sigma_s_spec(lam) * med_spec.scale, Le=Le,
+                **rgb_kw)
+            res = volpath.li(
+                med, scene.lights, o, d, lam, rng, maj_res=maj_res,
+                homogeneous=med_spec.homogeneous, max_depth=scene.max_depth,
+                max_march_steps=scene.max_march_steps, rgb_mode=med_spec.rgb,
+                prims=prims, light_strategy=scene.light_sampler)
+            return res.L, res.iterations
+        if not prims:
+            return lights_mod.escaped_radiance(scene.lights, d, lam)[0], 0
+        if integ == "path":
+            L, _ = path_mod.li_path(
+                prims, scene.lights, o, d, lam, rng,
+                max_depth=scene.max_depth,
+                light_strategy=scene.light_sampler,
+                regularize=scene.regularize)
+        elif integ == "simplepath":
+            # SimplePathIntegrator's defaults: light sampling without MIS
+            L, _ = path_mod.li_path(prims, scene.lights, o, d, lam, rng,
+                                    max_depth=scene.max_depth, nee=True,
+                                    mis=False)
+        elif integ == "randomwalk":
+            L, _ = path_mod.li_random_walk(prims, scene.lights, o, d, lam,
+                                           rng, max_depth=scene.max_depth)
+        elif integ == "ao":
+            L, _ = path_mod.li_ao(prims, scene.lights, o, d, lam, rng)
+        else:
+            # volpath over an empty medium; the reference passes no light
+            # strategy on this branch (uniform)
+            zero = torch.zeros_like(lam)
+            res = volpath.li(
+                empty._replace(sigma_a=zero, sigma_s=zero, Le=zero),
+                scene.lights, o, d, lam, rng, maj_res=(1, 1, 1),
+                homogeneous=True, max_depth=scene.max_depth,
+                max_march_steps=scene.max_march_steps, prims=prims)
+            return res.L, res.iterations
+        return L, 0
 
     def render_wave(film, density, majorant, sample_idx):
         iterations = []

@@ -20,8 +20,12 @@ class Scene:
     seed: int = 0
     sampler: str = "independent"
     max_march_steps: int = 100000
-    light_sampler: str = "uniform"
-    primitives: List = field(default_factory=list)   # no shape is ported
+    light_sampler: str = "uniform"   # uniform | power | bvh
+    primitives: List = field(default_factory=list)   # models/shapes.py
+    # volpath (default; the fused integrator) | path | simplepath |
+    # randomwalk | ao (models/integrators/path.py, scenes without a medium)
+    integrator: str = "volpath"
+    regularize: bool = False         # widen near-specular lobes (path)
     # wave renderer knobs (--disable-pixel-jitter, --disable-wavelength-
     # jitter, --pixelbounds (x0, x1, y0, y1))
     disable_pixel_jitter: bool = False

@@ -14,3 +14,17 @@ def resolve(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run on the CPU")
     return torch.device("cuda")
+
+
+def per_device(obj, device, make):
+    """make(device), computed once per (obj, device) and kept on obj: the
+    constant tensors of a scene object (a shape, a light) are copied to the
+    card once, not in every iteration of a render loop."""
+    cache = obj.__dict__.get("_device_cache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(obj, "_device_cache", cache)
+    key = str(device)
+    if key not in cache:
+        cache[key] = make(device)
+    return cache[key]

@@ -11,3 +11,8 @@ ONE_MINUS_EPSILON = 1.0 - 2.0 ** -24
 
 def safe_sqrt(x):
     return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def smoothstep(x, a, b):
+    t = torch.clamp((x - a) / (b - a), 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)

@@ -19,12 +19,27 @@ def dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def cross(a, b):
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def length_squared(v):
+    return dot(v, v)
+
+
 def length(v):
     return torch.sqrt(dot(v, v))
 
 
 def normalize(v):
     return v / torch.clamp(length(v)[..., None], min=1e-24)
+
+
+def face_forward(n, v):
+    """Flip n so it lies in the same hemisphere as v."""
+    return torch.where((dot(n, v) < 0.0)[..., None], -n, n)
 
 
 def coordinate_system(v):
@@ -50,6 +65,10 @@ def spherical_direction(sin_theta, cos_theta, phi):
 def frame_from_z(z):
     x, y = coordinate_system(z)
     return x, y, z
+
+
+def to_local(x, y, z, v):
+    return torch.stack([dot(v, x), dot(v, y), dot(v, z)], dim=-1)
 
 
 def from_local(x, y, z, v):

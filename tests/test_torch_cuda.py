@@ -550,3 +550,79 @@ def test_render_graph_matches_cpu(dev):
     assert abs(gpu.mean() - cpu.mean()) / cpu.mean() < 1e-3
     assert np.isclose(gpu, cpu, rtol=1e-3, atol=1e-5).all(-1).mean() >= 0.99
     assert min(stats["iterations"]) > 0
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _assert_frames_close(gpu, cpu, mean_tol=1e-3):
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    assert abs(gpu.mean() - cpu.mean()) / cpu.mean() < mean_tol
+    assert np.isclose(gpu, cpu, rtol=1e-3, atol=1e-5).all(-1).mean() >= 0.99
+
+
+def test_cloud_surfaces_frame_matches_cpu(dev):
+    """The 32x24 cloud with chip_smoke.py's surfaces (a ground quad, a rough
+    conductor and a glass sphere) by render_regen on the card and the CPU,
+    one march launch per loop iteration on the card; means to
+    chip_smoke.SURF_MEAN_TOL (see its comment), pixels as above."""
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    cs = _chip_smoke()
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        march.launches = gather.launches = 0
+        sc = cs.cloud_with_surfaces(presets.cloud(**cs.SMALL, device=d))
+        img, st = render.render_regen(sc, device=d, **cs.SMALL_KNOBS)
+        imgs.append(img)
+        if d.type == "cuda":
+            assert (march.launches, gather.launches) == (st["iterations"], 0)
+    _assert_frames_close(*imgs, mean_tol=cs.SURF_MEAN_TOL)
+
+
+@pytest.mark.parametrize("integrator", ["path", "volpath"])
+def test_room_frame_matches_cpu(dev, integrator):
+    """chip_smoke.py's room (no medium; a 912-triangle mesh on the trigrid
+    route) at 32x24 through render() on the card and the CPU."""
+    import dataclasses
+
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    cs = _chip_smoke()
+    imgs = [render.render(dataclasses.replace(
+        cs.cornell_room(32, 24, 2, d), integrator=integrator), device=d)[0]
+        for d in (dev, torch.device("cpu"))]
+    _assert_frames_close(*imgs)
+
+
+def test_march_on_surface_cut_segments_matches_plain(dev):
+    """march_block's inputs captured in a regen frame of the cloud with
+    surfaces (segments cut at the surface hits) through the kernel and its
+    plain version, as _march_case compares them."""
+    from unittest import mock
+
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    cs = _chip_smoke()
+    calls = []
+    kernel = march.march_block
+
+    def capture(*args, **kw):
+        if len(calls) < 40:
+            calls.append(([a.clone() if torch.is_tensor(a) else a
+                           for a in args], dict(kw)))
+        return kernel(*args, **kw)
+
+    sc = cs.cloud_with_surfaces(presets.cloud(32, 24, spp=2, max_depth=8,
+                                              grid_res=32, device=dev))
+    with mock.patch.object(march, "march_block", capture):
+        render.render_regen(sc, device=dev, **cs.SMALL_KNOBS)
+    assert len(calls) == 40
+    for args, kw in calls[::8]:
+        names = ("majorant", "voxel", "next_t", "dt", "step", "t_exit",
+                 "t_cur", "dl_target", "dl_since", "maxd_in", "hunting")
+        _march_case(dict(zip(names, args[:11]), **kw), args[11], args[12])

@@ -71,17 +71,38 @@ def test_preset_cloud_matches_jax_scene(jax_scene):
 
 @pytest.mark.parametrize("case", ["surfaces", "regen sigma override"])
 def test_unported_options_raise(case):
-    """What li still refuses: surfaces, which are not ported (a regen render
-    of a medium scene with primitives must raise, not drop them), and
-    sampling-side sigma overrides in regen mode, which the reference
-    refuses too."""
-    sc = tpresets.cloud(8, 6, spp=1, max_depth=2, grid_res=8, device="cpu")
+    """Surfaces, which li refused before they were ported: a regen render
+    of a medium scene with primitives (a glass sphere half in the cloud, a
+    diffuse ground) matches the JAX regen frame, at the tolerances above;
+    and sampling-side sigma overrides in regen mode, which li still refuses,
+    as the reference does."""
     kw = dict(KNOBS, n_lanes=16, retire_groups=1)
     if case == "surfaces":
-        sc.primitives = [object()]
-        with pytest.raises(NotImplementedError, match="surfaces"):
-            trender.render_regen(sc, device="cpu", **kw)
+        from acceleratedvolrenderer_tpu.models import materials as jm
+        from acceleratedvolrenderer_tpu.models import shapes as js
+        from acceleratedvolrenderer_tpu.utils import spectrum as jsp
+
+        from torch_surface_util import surface_arrays_from_jax_scene
+
+        jsc = jpresets.cloud(16, 12, spp=2, max_depth=4, grid_res=8)
+        jsc.primitives = [
+            js.Sphere(center=np.array([100.0, 0.0, -40.0]), radius=50.0,
+                      material=jm.DielectricMaterial(eta=1.5)),
+            js.Quad(origin=np.array([-800.0, -100.0, -800.0]),
+                    e1=np.array([0.0, 0.0, 1600.0]),
+                    e2=np.array([1600.0, 60.0, 0.0]),
+                    material=jm.DiffuseMaterial(
+                        reflectance=jsp.constant_spectrum(0.4)))]
+        ref, _ = jrender.render_regen(jsc, **kw)
+        sc = convert.scene_from_arrays(surface_arrays_from_jax_scene(jsc),
+                                       "cpu")
+        img, _ = trender.render_regen(sc, device="cpu", **kw)
+        assert np.isfinite(img).all() and img.mean() > 0
+        assert abs(img.mean() - ref.mean()) / ref.mean() < 1e-3
+        close = np.isclose(img, ref, rtol=1e-3, atol=1e-5).all(-1)
+        assert close.mean() >= 0.99, close.mean()
         return
+    sc = tpresets.cloud(8, 6, spp=1, max_depth=2, grid_res=8, device="cpu")
     run, density, majorant = trender.make_regen_renderer(sc, device="cpu",
                                                          **kw)
     override = torch.ones(4)

@@ -36,6 +36,7 @@ from acceleratedvolrenderer_tpu_torch.utils import spectrum as tsp
 
 from test_diff import small_scene
 from torch_port_util import arrays_from_jax_scene
+from torch_surface_util import surface_arrays_from_jax_scene
 from torch_wave_util import wave_frame
 
 torch.set_num_threads(2)
@@ -125,12 +126,34 @@ def test_pixel_bounds_clip_and_reject(port_scene):
 
 
 @pytest.mark.parametrize("what", ["environment only", "surfaces"])
-def test_no_medium_raises(port_scene, what):
-    scene = dataclasses.replace(
-        port_scene, medium=None,
-        primitives=[] if what == "environment only" else [object()])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trender.render(scene, device="cpu")
+def test_no_medium_raises(jax_scene, what):
+    """A scene without a medium renders (it raised before surfaces were
+    ported) and matches the JAX frame: the sky alone (the reference's
+    escaped_radiance branch), or a diffuse sphere and a rough metal quad
+    under the cloud's sun and sky (volpath over an empty medium) at spp 1.
+    The JAX frame of the surfaces runs under jax.disable_jit: under
+    render()'s jit XLA fuses the li set-up and flips a few lanes' branches
+    on ulps (tests/test_torch_fused_surfaces.py)."""
+    import jax
+
+    from acceleratedvolrenderer_tpu.models import materials as jm
+    from acceleratedvolrenderer_tpu.models import shapes as js
+
+    prims = [] if what == "environment only" else [
+        js.Sphere(center=np.array([0.0, 0.0, 0.0]), radius=60.0,
+                  material=jm.DiffuseMaterial(
+                      reflectance=jsp.constant_spectrum(0.6))),
+        js.Quad(origin=np.array([-150.0, -80.0, -150.0]),
+                e1=np.array([0.0, 0.0, 300.0]), e2=np.array([300.0, 0.0, 0.0]),
+                material=jm.ConductorMaterial(eta=0.2, k=3.0, roughness=0.3))]
+    js_ = dataclasses.replace(jax_scene, medium=None, primitives=prims,
+                              max_depth=4, spp=1)
+    with jax.disable_jit():
+        ref, _ = jrender.render(js_)
+    scene = convert.scene_from_arrays(surface_arrays_from_jax_scene(js_),
+                                      "cpu")
+    img, _ = trender.render(scene, device="cpu")
+    assert_frames_close(img, ref)
 
 
 def _wave_inputs(n=256):
