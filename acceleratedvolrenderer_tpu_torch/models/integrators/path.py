@@ -4,9 +4,10 @@
 Every ray bounces in lockstep through a python loop over max_depth;
 material polymorphism is masked evaluation over the static BxDF families
 (models/bxdfs.py), gathered from per-primitive parameter stacks.  Draws
-come through a `PCGSource` over the per-ray PCG streams, in the reference's
-order.  The measured material and the subsurface walk (their modules) and
-the MLT primary-sample source are not ported: a scene with a subsurface
+come through a uniform source, in the reference's order: a `PCGSource` over
+the per-ray PCG streams, or for `li_path` a samplers.PathSampler.  The
+measured material and the subsurface walk (their modules) and the MLT
+primary-sample source are not ported: a scene with a subsurface
 or measured primitive cannot be built (materials.py raises).
 """
 from __future__ import annotations
@@ -223,15 +224,18 @@ def _side(n, w):
 
 def li_path(prims: tuple, lights: list, o, d, lam, rng, *, max_depth: int = 5,
             light_strategy: str = "uniform", regularize: bool = False,
-            nee: bool = True, mis: bool = True):
+            uniform_source=None, nee: bool = True, mis: bool = True):
     """PathIntegrator Li (cpu/integrators.cpp PathIntegrator::Li /
-    SampleLd): returns (L, rng).  nee=False is SimplePath's BSDF-sampling
-    mode, mis=False with nee its light-sampling mode."""
+    SampleLd): returns (L, rng), rng the draws' source's advanced stream.
+    uniform_source: where the draws come from, a PCGSource over rng by
+    default, or a samplers.PathSampler (the low-discrepancy path
+    dimensions).  nee=False is SimplePath's BSDF-sampling mode, mis=False
+    with nee its light-sampling mode."""
     N = o.shape[0]
     dev = o.device
     opaque = tuple(p for p in prims if p.material is not None)
     assert opaque, "li_path requires opaque primitives"
-    src = PCGSource(rng)
+    src = uniform_source if uniform_source is not None else PCGSource(rng)
     lights_all = scene_lights_with_area(lights, opaque)
     emitters = tuple(pp for pp in opaque if pp.material.emissive)
     non_emitters = tuple(pp for pp in opaque if not pp.material.emissive)

@@ -376,7 +376,8 @@ def li(
             pixxy = torch.stack([p_idx % R_W, p_idx // R_W],
                                 -1).to(torch.int32)
             ua, ub, rng_s = samplers.film_sample(R_kind, p_idx, s_idx,
-                                                 R_spp, seed=R_seed)
+                                                 R_spp, seed=R_seed,
+                                                 pix=pixxy)
             off = R_filt.sample_offset(torch.stack([ua, ub], -1)) + 0.5
             rng_s, ul = pcg_uniform(rng_s)
             swl = spu.sample_wavelengths_visible(ul)

@@ -1,12 +1,13 @@
 """Lights and light sampling (port of acceleratedvolrenderer_tpu/models/lights.py:
 DistantLight, PointLight, SpotLight, UniformInfiniteLight, DiffuseAreaLight,
-the uniform, power and bvh light samplers, pdf_one_light and
-escaped_radiance).
+ImageInfiniteLight, PortalImageInfiniteLight, ProjectionLight,
+GoniometricLight, the uniform, power and bvh light samplers, pdf_one_light
+and escaped_radiance).
 
 Every light is a set of batched functions of the shading points; the light
 sampler evaluates the K candidate samples unbranched and selects by the
-sampled index.  Spectra are callables lam -> value.  The image, portal,
-projection and goniometric lights are not ported and raise.
+sampled index.  Spectra are callables lam -> value.  A light keeps numpy
+arrays and makes its tensors once per device (utils/device.py::per_device).
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from ..ops import warps
+from ..utils import sky
+from ..utils import spectrum as sp
 from ..utils import vecmath as vm
 from ..utils.device import per_device
 from ..utils.math import smoothstep
@@ -196,30 +199,422 @@ class DiffuseAreaLight:
         return float(self.scale * self.shape.area() * np.pi * sides)
 
 
-class _NextSlice:
-    """A light of the reference that waits for the next slice of the port."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}: not ported yet: the image, portal, "
-            "projection and goniometric lights come with the sampler slice "
-            "(ROADMAP Queue 1 item 3)")
-
-
-class ImageInfiniteLight(_NextSlice):
-    pass
-
-
-class PortalImageInfiniteLight(_NextSlice):
-    pass
-
-
-class ProjectionLight(_NextSlice):
-    pass
+def _search_rows(cdf_flat, width: int, row, u):
+    """Per lane, jnp.searchsorted(cdf[row], u) (side left: the count of
+    entries < u) in the row-major (rows, width) CDF held flat: a binary
+    search of ceil(log2(width + 1)) steps, one gather each, instead of
+    gathering a whole (N, width) row per lane."""
+    lo = torch.zeros_like(row)
+    hi = torch.full_like(row, width)
+    base = row * width
+    for _ in range(int(np.ceil(np.log2(width + 1)))):
+        mid = (lo + hi) >> 1
+        less = cdf_flat[base + torch.clamp(mid, max=width - 1)] < u
+        open_ = lo < hi
+        lo = torch.where(open_ & less, mid + 1, lo)
+        hi = torch.where(open_ & ~less, mid, hi)
+    return lo
 
 
-class GoniometricLight(_NextSlice):
-    pass
+_TWO_PI = 2.0 * np.pi
+# 2 pi^2: the Jacobian of the equirect (u, v) -> direction map over sin theta
+_TWO_PI_SQ = 2.0 * np.pi * np.pi
+
+
+def _mod_2pi(phi):
+    """phi in (-pi, pi] to [0, 2 pi), as jnp's `%` by 2 pi (float32)."""
+    return torch.where(phi < 0, phi + _TWO_PI, phi)
+
+
+def _pixel(u, size):
+    """clip(int(u * size), 0, size - 1)."""
+    return torch.clamp((u * size).to(torch.int64), 0, size - 1)
+
+
+def _le_spectral(image, uv, lam, scale):
+    """The spectrum of an RGB image's texel at uv (nearest), by Smits."""
+    H, W = image.shape[:2]
+    rgb = image[_pixel(uv[..., 1], H), _pixel(uv[..., 0], W)]
+    return sp.rgb_to_spectrum_smits_batched(rgb, lam) * scale
+
+
+class ImageInfiniteLight:
+    """Environment map (lights.h:552 ImageInfiniteLight): an equirect
+    (H, W, 3) image, sampled by the 2D inverse CDF of its luminance times
+    sin(theta).  The arrays are numpy; their tensors are made once per
+    device."""
+    is_delta = False
+    is_infinite = True
+
+    def __init__(self, image: np.ndarray, scale: float = 1.0,
+                 scene_radius: float = 1e4, rotation=None):
+        img = np.array(image, np.float32)       # a writable host copy
+        assert img.ndim == 3 and img.shape[-1] == 3
+        self.image = img
+        self.scale = float(scale)
+        self.scene_radius = float(scene_radius)
+        H, W, _ = img.shape
+        lum = 0.2126 * img[..., 0] + 0.7152 * img[..., 1] + 0.0722 * img[..., 2]
+        # the sin(theta) weight of the equirect solid-angle measure
+        theta = (np.arange(H) + 0.5) / H * np.pi
+        w = lum * np.sin(theta)[:, None] + 1e-12
+        self._pdf_img = np.asarray(w / w.sum() * (H * W), np.float32)
+        marg = w.sum(1)
+        self._cdf_rows = np.asarray(np.cumsum(marg) / marg.sum(), np.float32)
+        cond = np.cumsum(w, axis=1)
+        self._cdf_cols = np.asarray(cond / cond[:, -1:], np.float32)
+        self._H, self._W = H, W
+
+    def to(self, device):
+        return self
+
+    def _tensors(self, device):
+        return per_device(self, device, lambda dev: {
+            k: torch.as_tensor(v, device=dev) for k, v in (
+                ("image", self.image), ("pdf", self._pdf_img),
+                ("cdf_rows", self._cdf_rows),
+                ("cdf_cols", self._cdf_cols.reshape(-1)))})
+
+    @staticmethod
+    def _dir_to_uv(d):
+        theta = torch.arccos(torch.clamp(d[..., 2], -1.0, 1.0))
+        phi = _mod_2pi(torch.atan2(d[..., 1], d[..., 0]))
+        return torch.stack([phi / _TWO_PI, theta / np.pi], -1)
+
+    @staticmethod
+    def _uv_to_dir(uv):
+        phi = uv[..., 0] * 2 * np.pi
+        theta = uv[..., 1] * np.pi
+        st = torch.sin(theta)
+        return torch.stack([st * torch.cos(phi), st * torch.sin(phi),
+                            torch.cos(theta)], -1)
+
+    def _pdf_omega(self, t, uv):
+        """The solid-angle pdf of the texel at uv: p(u, v) / (2 pi^2
+        sin(theta))."""
+        pdf_uv = t["pdf"][_pixel(uv[..., 1], self._H),
+                          _pixel(uv[..., 0], self._W)]
+        return pdf_uv / torch.clamp(
+            _TWO_PI_SQ * torch.sin(uv[..., 1] * np.pi), min=1e-9)
+
+    def sample_li(self, p, u2, lam):
+        n = p.shape[0]
+        t = self._tensors(p.device)
+        H, W = self._H, self._W
+        row = torch.clamp(torch.searchsorted(t["cdf_rows"],
+                                             u2[..., 0].contiguous()),
+                          0, H - 1)
+        col = torch.clamp(_search_rows(t["cdf_cols"], W, row, u2[..., 1]),
+                          0, W - 1)
+        uv = torch.stack([(col + 0.5) / W, (row + 0.5) / H], -1)
+        pdf = self._pdf_omega(t, uv)
+        L = _le_spectral(t["image"], uv, lam, self.scale)
+        dist = torch.full((n,), 2.0 * self.scene_radius, device=p.device)
+        return LightLiSample(L, self._uv_to_dir(uv), dist, pdf, pdf > 0)
+
+    def pdf_li(self, p, wi):
+        return self._pdf_omega(self._tensors(wi.device), self._dir_to_uv(wi))
+
+    def le_escaped(self, d, lam):
+        return _le_spectral(self._tensors(d.device)["image"],
+                            self._dir_to_uv(d), lam, self.scale)
+
+    def power_estimate(self) -> float:
+        img = self.image
+        lum = 0.2126 * img[..., 0] + 0.7152 * img[..., 1] + 0.0722 * img[..., 2]
+        return float(4 * np.pi * np.pi * self.scale * lum.mean())
+
+
+class PortalImageInfiniteLight:
+    """Environment light seen through a portal (lights.h:639,
+    lights.cpp:1109-1337).  The environment map is rectified once, on the
+    host, into the portal's (alpha, beta) = (atan(x/z), atan(y/z))
+    parameterization; a shading point samples it within the image window
+    the portal subtends, by inverting a bilinearly read summed-area table
+    with a fixed 24-step bisection per axis (exact on a piecewise-constant
+    density), in place of WindowedPiecewiseConstant2D's binary search."""
+    is_delta = False
+    is_infinite = True
+
+    def __init__(self, image: np.ndarray, portal, scale: float = 1.0,
+                 scene_center=(0.0, 0.0, 0.0), scene_radius: float = 1e4,
+                 mapping: str = "equalarea"):
+        img = np.array(image, np.float32)       # a writable host copy
+        assert img.ndim == 3 and img.shape[-1] == 3
+        p = np.asarray(portal, np.float64)
+        assert p.shape == (4, 3), "portal needs 4 vertices"
+        self.portal = p.astype(np.float32)
+        self.scale = float(scale)
+        self.scene_radius = float(scene_radius)
+        self.scene_center = np.asarray(scene_center, np.float32)
+
+        # the portal frame (Frame::FromXY(p03, p01), lights.cpp:1152)
+        def _nrm(v):
+            return v / np.linalg.norm(v)
+
+        fx = _nrm(p[3] - p[0])
+        fy = _nrm(p[1] - p[0])
+        fz = _nrm(np.cross(fx, fy))
+        self._frame = np.stack([fx, fy, fz]).astype(np.float32)
+
+        # rectify the map into the portal parameterization
+        # (lights.cpp:1156-1173), keeping a square resolution
+        R = min(img.shape[0], img.shape[1])
+        self._R = R
+        ix = (np.arange(R) + 0.5) / R
+        uu, vv = np.meshgrid(ix, ix)
+        tx, ty = np.tan(-np.pi / 2 + uu * np.pi), np.tan(-np.pi / 2 + vv * np.pi)
+        wl = np.stack([tx, ty, np.ones_like(tx)], -1)
+        wl /= np.linalg.norm(wl, axis=-1, keepdims=True)
+        wworld = wl[..., 0:1] * fx + wl[..., 1:2] * fy + wl[..., 2:3] * fz
+        if mapping == "equalarea":
+            src_uv = sky.equal_area_sphere_to_square(wworld)
+            sx = np.clip((src_uv[..., 0] * img.shape[1]).astype(np.int64),
+                         0, img.shape[1] - 1)
+            sy = np.clip((src_uv[..., 1] * img.shape[0]).astype(np.int64),
+                         0, img.shape[0] - 1)
+        else:  # an equirect source
+            th = np.arccos(np.clip(wworld[..., 2], -1, 1))
+            ph = np.arctan2(wworld[..., 1], wworld[..., 0]) % (2 * np.pi)
+            sx = np.clip((ph / (2 * np.pi) * img.shape[1]).astype(np.int64),
+                         0, img.shape[1] - 1)
+            sy = np.clip((th / np.pi * img.shape[0]).astype(np.int64),
+                         0, img.shape[0] - 1)
+        rect = img[sy, sx]
+        self.image = rect
+
+        # sampling weights mean(rgb) * dw/duv, so that pdf_omega ~ L
+        # (Image::GetSamplingDistribution with duv_dw, lights.cpp:1175-1181)
+        dw_duv = (np.pi ** 2 * (1 - wl[..., 0] ** 2) * (1 - wl[..., 1] ** 2)
+                  / np.maximum(wl[..., 2], 1e-9))
+        d = np.maximum(rect.mean(-1), 0.0).astype(np.float64) * dw_duv
+        self._d = d.astype(np.float32)
+        # sat[j, i]: the sum of d over pixels [0..i) x [0..j), scaled so the
+        # whole window integrates to mean(d) (uv measure)
+        sat = np.zeros((R + 1, R + 1), np.float64)
+        np.cumsum(np.cumsum(d, 0), 1, out=sat[1:, 1:])
+        self._sat = (sat / (R * R)).astype(np.float32)
+        # Phi (lights.cpp:1183): fluence times area
+        self._area = float(np.linalg.norm(p[1] - p[0])
+                           * np.linalg.norm(p[3] - p[0]))
+        lum = rect.mean(-1).astype(np.float64)
+        self._phi = float(scale * self._area
+                          * (lum / np.maximum(dw_duv, 1e-9)).mean())
+
+    def to(self, device):
+        return self
+
+    def _tensors(self, device):
+        return per_device(self, device, lambda dev: {
+            k: torch.as_tensor(v, device=dev) for k, v in (
+                ("frame", self._frame), ("portal", self.portal),
+                ("center", self.scene_center), ("image", self.image),
+                ("d", self._d), ("sat", self._sat))})
+
+    # ---- the portal-space mapping (lights.h:685-715) ----
+    @staticmethod
+    def _image_from_render(t, w):
+        lx = vm.dot(w, t["frame"][0])
+        ly = vm.dot(w, t["frame"][1])
+        lz = vm.dot(w, t["frame"][2])
+        valid = lz > 1e-7
+        lzs = torch.clamp(lz, min=1e-7)
+        u = torch.clamp((torch.atan2(lx, lzs) + np.pi / 2) / np.pi, 0.0, 1.0)
+        v = torch.clamp((torch.atan2(ly, lzs) + np.pi / 2) / np.pi, 0.0, 1.0)
+        dw_duv = np.pi ** 2 * (1 - lx * lx) * (1 - ly * ly) / lzs
+        return torch.stack([u, v], -1), dw_duv, valid
+
+    @staticmethod
+    def _render_from_image(t, uv):
+        x = torch.tan(-np.pi / 2 + uv[..., 0] * np.pi)
+        y = torch.tan(-np.pi / 2 + uv[..., 1] * np.pi)
+        wl = torch.stack([x, y, torch.ones_like(x)], -1)
+        wl = wl / vm.length(wl)[..., None]
+        f = t["frame"]
+        w = wl[..., 0:1] * f[0] + wl[..., 1:2] * f[1] + wl[..., 2:3] * f[2]
+        dw_duv = (np.pi ** 2 * (1 - wl[..., 0] ** 2) * (1 - wl[..., 1] ** 2)
+                  / torch.clamp(wl[..., 2], min=1e-9))
+        return w, dw_duv
+
+    def _bounds(self, t, pt):
+        """The image-space window the portal subtends from pt (lights.h
+        ImageBounds): (lo, hi, valid)."""
+        uv0, _, v0 = self._image_from_render(
+            t, vm.normalize(t["portal"][0] - pt))
+        uv1, _, v1 = self._image_from_render(
+            t, vm.normalize(t["portal"][2] - pt))
+        return torch.minimum(uv0, uv1), torch.maximum(uv0, uv1), v0 & v1
+
+    # ---- the windowed distribution: bilinear SAT and bisection ----
+    def _sat_at(self, t, u, v):
+        R = self._R
+        xf = torch.clamp(u, 0.0, 1.0) * R
+        yf = torch.clamp(v, 0.0, 1.0) * R
+        x0 = torch.clamp(xf.to(torch.int64), 0, R - 1)
+        y0 = torch.clamp(yf.to(torch.int64), 0, R - 1)
+        fx = xf - x0
+        fy = yf - y0
+        s = t["sat"]
+        return ((1 - fx) * (1 - fy) * s[y0, x0] + fx * (1 - fy) * s[y0, x0 + 1]
+                + (1 - fx) * fy * s[y0 + 1, x0] + fx * fy * s[y0 + 1, x0 + 1])
+
+    def _window_integral(self, t, lo, hi):
+        return (self._sat_at(t, hi[..., 0], hi[..., 1])
+                - self._sat_at(t, lo[..., 0], hi[..., 1])
+                - self._sat_at(t, hi[..., 0], lo[..., 1])
+                + self._sat_at(t, lo[..., 0], lo[..., 1]))
+
+    def _density(self, t, uv):
+        R = self._R
+        return t["d"][_pixel(uv[..., 1], R), _pixel(uv[..., 0], R)]
+
+    def _bisect(self, integral, tgt, a, b):
+        """24 halvings of [a, b] toward integral(x) = tgt; the midpoint."""
+        for _ in range(24):
+            m = 0.5 * (a + b)
+            gt = integral(m) < tgt
+            a, b = torch.where(gt, m, a), torch.where(gt, b, m)
+        return 0.5 * (a + b)
+
+    def _sample_windowed(self, t, u2, lo, hi):
+        """uv ~ d within the window: (uv, pdf_uv within it, total > 0)."""
+        x0, y0 = lo[..., 0], lo[..., 1]
+        x1, y1 = hi[..., 0], hi[..., 1]
+        sat = lambda u, v: self._sat_at(t, u, v)
+
+        def colint(x):  # the integral over [x0, x] x [y0, y1]
+            return sat(x, y1) - sat(x, y0) - sat(x0, y1) + sat(x0, y0)
+
+        total = colint(x1)
+        x = self._bisect(colint, u2[..., 0] * total, x0, x1)
+        # the conditional along the sampled pixel column
+        R = self._R
+        ix = torch.clamp((x * R).to(torch.int64), 0, R - 1)
+        cx0, cx1 = ix / R, (ix + 1) / R
+
+        def rowint(y):  # the integral over the column x [y0, y]
+            return sat(cx1, y) - sat(cx0, y) - sat(cx1, y0) + sat(cx0, y0)
+
+        y = self._bisect(rowint, u2[..., 1] * rowint(y1), y0, y1)
+        uv = torch.stack([x, y], -1)
+        # each pixel's weight d covers uv-area 1/R^2 and the SAT is scaled
+        # by 1/R^2, so the density at uv is d[pixel] itself
+        pdf_uv = self._density(t, uv) / torch.clamp(total, min=1e-20)
+        return uv, pdf_uv, total > 0
+
+    # ---- the light interface ----
+    def sample_li(self, p, u2, lam):
+        n = p.shape[0]
+        t = self._tensors(p.device)
+        lo, hi, bvalid = self._bounds(t, p)
+        uv, pdf_uv, ok = self._sample_windowed(t, u2, lo, hi)
+        wi, dw_duv = self._render_from_image(t, uv)
+        # pdf_omega = pdf_uv / (dw/duv) (lights.cpp:1243)
+        pdf = pdf_uv / torch.clamp(dw_duv, min=1e-9)
+        L = _le_spectral(t["image"], uv, lam, self.scale)
+        dist = torch.full((n,), 2.0 * self.scene_radius, device=p.device)
+        return LightLiSample(L, wi, dist, torch.clamp(pdf, min=1e-20),
+                             bvalid & ok & (pdf > 0))
+
+    def _inside(self, t, uv, pt):
+        lo, hi, bvalid = self._bounds(t, pt)
+        inside = torch.all(uv >= lo, -1) & torch.all(uv <= hi, -1)
+        return lo, hi, bvalid & inside
+
+    def pdf_li(self, p, wi):
+        t = self._tensors(p.device)
+        uv, dw_duv, dvalid = self._image_from_render(t, wi)
+        lo, hi, inside = self._inside(t, uv, p)
+        integ = self._window_integral(t, lo, hi)
+        pdf_uv = self._density(t, uv) / torch.clamp(integ, min=1e-20)
+        return torch.where(dvalid & inside & (integ > 0),
+                           pdf_uv / torch.clamp(dw_duv, min=1e-9), 0.0)
+
+    def le_escaped(self, d, lam):
+        # the reference's Le tests ray.o's window (lights.cpp:1208); an
+        # escaped ray carries its direction only, so the scene centre
+        # stands in for its origin
+        t = self._tensors(d.device)
+        uv, _, dvalid = self._image_from_render(t, d)
+        _, _, inside = self._inside(t, uv, t["center"].expand(d.shape))
+        L = _le_spectral(t["image"], uv, lam, self.scale)
+        return torch.where((dvalid & inside)[..., None], L, 0.0)
+
+    def power_estimate(self) -> float:
+        return max(self._phi, 1e-9)
+
+
+@dataclass(frozen=True)
+class ProjectionLight(_NoEscape):
+    """Image projector (lights.h:308): a point light whose intensity is
+    modulated by an image over the field of view along `direction`."""
+    position: np.ndarray
+    direction: np.ndarray
+    image: object                        # textures.ImageTexture (rgb)
+    spectrum: Callable
+    scale: float = 1.0
+    fov_deg: float = 45.0
+    is_delta = True
+    is_infinite = False
+
+    def _consts(self, device):
+        def make(dev):
+            z = np.asarray(self.direction, np.float64)
+            z = z / np.linalg.norm(z)
+            up = (np.array([0, 1, 0.0]) if abs(z[1]) < 0.9
+                  else np.array([1, 0, 0.0]))
+            x = np.cross(up, z)
+            x /= np.linalg.norm(x)
+            y = np.cross(z, x)
+            return tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                         for a in (self.position, x, y, z))
+        return per_device(self, device, make)
+
+    def sample_li(self, p, u2, lam):
+        pl, bx, by, bz = self._consts(p.device)
+        wi, dist, d2 = _toward(pl, p)
+        w = -wi  # from the light to the point
+        lz = vm.dot(w, bz)
+        tan_half = float(np.float32(np.tan(np.deg2rad(self.fov_deg) / 2)))
+        lzs = torch.clamp(lz, min=1e-9)
+        u = vm.dot(w, bx) / lzs / tan_half * 0.5 + 0.5
+        v = vm.dot(w, by) / lzs / tan_half * 0.5 + 0.5
+        inside = (lz > 0) & (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+        mod = sp.rgb_to_spectrum_smits_batched(
+            self.image.eval(torch.stack([u, v], -1)), lam)
+        L = (self.spectrum(lam) * self.scale) * mod / d2[..., None]
+        L = torch.where(inside[..., None], L, 0.0)
+        return LightLiSample(L, wi, dist, torch.ones_like(dist), inside)
+
+    def power_estimate(self) -> float:
+        return float(self.scale)
+
+
+@dataclass(frozen=True)
+class GoniometricLight(_NoEscape):
+    """A point light whose intensity over directions comes from an
+    equirect image (lights.h:361)."""
+    position: np.ndarray
+    image: object                        # textures.ImageTexture
+    spectrum: Callable
+    scale: float = 1.0
+    is_delta = True
+    is_infinite = False
+
+    def sample_li(self, p, u2, lam):
+        (pl,) = _f32_on(self, p.device, self.position)
+        wi, dist, d2 = _toward(pl, p)
+        uv = ImageInfiniteLight._dir_to_uv(-wi)
+        rgb = self.image.eval(uv)
+        mod = (sp.rgb_to_spectrum_smits_batched(rgb, lam)
+               if rgb.ndim == uv.ndim else rgb[..., None])
+        L = self.spectrum(lam) * self.scale * mod / d2[..., None]
+        return LightLiSample(L, wi, dist, torch.ones_like(dist),
+                             torch.ones(dist.shape, dtype=torch.bool,
+                                        device=p.device))
+
+    def power_estimate(self) -> float:
+        return float(4 * np.pi * self.scale)
 
 
 def light_power(lt) -> float:

@@ -1,7 +1,8 @@
 """Render entry points
 (port of acceleratedvolrenderer_tpu/parallel/render.py: work_stride_for,
 make_wave_renderer, make_regen_renderer, render_regen, render,
-make_graph_wave_renderer and render_graph).
+render_with_aovs, render_gbuffer, render_spectral, make_graph_wave_renderer
+and render_graph).
 
 Every entry point runs on the CUDA card unless given another `device`
 (utils/device.py::resolve)."""
@@ -94,7 +95,7 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
     scene.integrator (path, simplepath, randomwalk, ao, or volpath over an
     empty medium, whose loop iterations are counted; the path integrators
     count 0), and a scene with no surface returns the infinite lights'
-    radiance.  Only the independent sampler is ported."""
+    radiance.  The film may be a Film or a SpectralFilm."""
     device = resolve(device)
     scene = scene.to(device)
     cam = scene.camera
@@ -135,7 +136,8 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
         sidx = torch.full(pixidx.shape, int(sample_idx), dtype=torch.int64,
                           device=device)
         ua, ub, rng = samplers.film_sample(scene.sampler, pixidx, sidx,
-                                           scene.spp, seed=scene.seed)
+                                           scene.spp, seed=scene.seed,
+                                           pix=pix)
         off = scene.filter.sample_offset(torch.stack([ua, ub], -1)) + 0.5
         if scene.disable_pixel_jitter:
             off = torch.full_like(off, 0.5)
@@ -144,10 +146,10 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
             ul = torch.full_like(ul, 0.5)
         swl = sp.sample_wavelengths_visible(ul)
         o, d = cam.generate_rays(pix, off)
-        L, iterations = trace(o, d, swl.lam, rng)
+        L, iterations = trace(o, d, swl.lam, rng, pixidx, sidx)
         return film.add_samples(pix, L, swl), iterations
 
-    def trace(o, d, lam, rng):
+    def trace(o, d, lam, rng, pixidx, sidx):
         """(L, loop iterations) of the chunk's camera rays, by the
         reference's branches (its render.py l. 133-218)."""
         if med_spec is not None:
@@ -167,11 +169,17 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
         if not prims:
             return lights_mod.escaped_radiance(scene.lights, d, lam)[0], 0
         if integ == "path":
+            # a low-discrepancy sampler covers the path dimensions too
+            # (samplers.h Get1D advancing `dimension`); its fallback past
+            # max_dims runs on a stream of its own, not the caller's
+            usrc = (None if scene.sampler == "independent" else
+                    samplers.PathSampler(scene.sampler, pixidx, sidx,
+                                         scene.spp, seed=scene.seed + 0x9A7))
             L, _ = path_mod.li_path(
                 prims, scene.lights, o, d, lam, rng,
                 max_depth=scene.max_depth,
                 light_strategy=scene.light_sampler,
-                regularize=scene.regularize)
+                regularize=scene.regularize, uniform_source=usrc)
         elif integ == "simplepath":
             # SimplePathIntegrator's defaults: light sampling without MIS
             L, _ = path_mod.li_path(prims, scene.lights, o, d, lam, rng,
@@ -368,6 +376,109 @@ def render(scene, spp: Optional[int] = None, progress: bool = False, *,
                  "rays_per_sec": H * W * spp / dt,
                  "iterations": sum(chunk_iterations),
                  "chunk_iterations": chunk_iterations}
+
+
+def render_with_aovs(scene, spp: Optional[int] = None, *, device=None):
+    """render() plus per-pixel variance (the GBufferFilm variance channels,
+    film.h:319), by Welford's update over the per-wave images: returns
+    ((H, W, 3) image, {"variance", "relative_variance"}, stats); the
+    variance is that of the mean image."""
+    dev = resolve(device)
+    spp = spp if spp is not None else scene.spp
+    H, W = scene.height, scene.width
+    render_wave, density, majorant = make_wave_renderer(scene, device=dev)
+    mean = np.zeros((H, W, 3), np.float64)
+    m2 = np.zeros((H, W, 3), np.float64)
+    prev = np.zeros((H, W, 3), np.float32)
+    prev_w = np.zeros((H, W), np.float32)
+    film = Film.create(H, W, dev)
+    _sync(dev)
+    t0 = time.time()
+    for s in range(spp):
+        film, _ = render_wave(film, density, majorant, s)
+        cur_sum = film.rgb_sum.cpu().numpy()
+        cur_w = film.weight_sum.cpu().numpy()
+        dw = np.maximum(cur_w - prev_w, 1e-12)[..., None]
+        wave_img = (cur_sum - prev) / dw
+        prev, prev_w = cur_sum, cur_w
+        delta = wave_img - mean
+        mean += delta / (s + 1)
+        m2 += delta * (wave_img - mean)
+    img = film.to_image().cpu().numpy()
+    dt = time.time() - t0
+    var = (m2 / max(spp - 1, 1) / spp).astype(np.float32)
+    aovs = {"variance": var,
+            "relative_variance": var / (img.astype(np.float64) ** 2 + 1e-4)}
+    return img, aovs, {"render_time": dt, "spp": spp}
+
+
+def render_gbuffer(scene, spp: Optional[int] = None, *, device=None):
+    """Geometric AOVs of the first surface hit of each pixel-centre camera
+    ray (the GBufferFilm channels, film.h:319): P, N, albedo (the mean
+    over four 550 nm lanes as RGB), uv and depth, from one intersect_all
+    over the opaque primitives; a pixel without a hit has depth inf and
+    zeros.  Returns ({name: numpy array}, stats)."""
+    from ..models import shapes as shapes_mod
+    from ..utils import colorspace as cspace
+
+    dev = resolve(device)
+    scene = scene.to(dev)
+    H, W = scene.height, scene.width
+    opaque = tuple(p for p in scene.primitives if p.material is not None)
+    N = H * W
+    _sync(dev)
+    t0 = time.time()
+    pix = torch.as_tensor(_wave_pixels(W, H, None), device=dev)
+    o, d = scene.camera.generate_rays(
+        pix, torch.full((N, 2), 0.5, device=dev))
+    if opaque:
+        hit = shapes_mod.intersect_all(opaque, o, d, torch.inf)
+        found = torch.isfinite(hit.t)
+        lam = torch.full((N, sp.N_SPECTRUM_SAMPLES), 550.0, device=dev)
+        p_ctx = torch.where(found[:, None],
+                            o + torch.nan_to_num(hit.t, posinf=0.0)[:, None]
+                            * d, o)
+        prm = path_mod._gather_mat_params(opaque, lam, hit.uv, N, p=p_ctx,
+                                          n=hit.n)
+        alb_spec = path_mod._take(
+            prm["albedo"], torch.clamp(hit.prim_id, 0, len(opaque) - 1))
+        swl = sp.SampledWavelengths(lam, torch.ones_like(lam))
+        p_hit = torch.where(found[:, None], o + hit.t[:, None] * d, 0.0)
+        n_hit = torch.where(found[:, None], hit.n, 0.0)
+        alb = torch.where(found[:, None], alb_spec, 0.0)
+        alb_rgb = cspace.xyz_to_rgb(sp.to_xyz(alb * sp.CIE_Y_INTEGRAL, swl))
+        uv = torch.where(found[:, None], hit.uv, 0.0)
+        depth = hit.t
+    else:
+        p_hit = n_hit = alb_rgb = torch.zeros((N, 3), device=dev)
+        uv = torch.zeros((N, 2), device=dev)
+        depth = torch.full((N,), torch.inf, device=dev)
+    host = lambda t, *shape: t.cpu().numpy().reshape(H, W, *shape)
+    aovs = {"P": host(p_hit, 3), "N": host(n_hit, 3),
+            "albedo": host(torch.clamp(alb_rgb, min=0.0), 3),
+            "uv": host(uv, 2), "depth": host(depth)}
+    return aovs, {"render_time": time.time() - t0}
+
+
+def render_spectral(scene, spp: Optional[int] = None, n_buckets: int = 16,
+                    *, device=None):
+    """Render through the wave driver into a SpectralFilm (film.h:401): RGB
+    plus one image per wavelength bucket.  Returns (film, stats)."""
+    from ..models.film import SpectralFilm
+
+    dev = resolve(device)
+    spp = spp if spp is not None else scene.spp
+    H, W = scene.height, scene.width
+    render_wave, density, majorant = make_wave_renderer(scene, device=dev)
+    film = SpectralFilm.create(H, W, n_buckets=n_buckets, device=dev)
+    _sync(dev)
+    t0 = time.time()
+    for s in range(spp):
+        film, _ = render_wave(film, density, majorant, s)
+    _sync(dev)
+    dt = time.time() - t0
+    return film, {"render_time": dt, "spp": spp,
+                  "rays_per_sec": H * W * spp / dt}
 
 
 def make_graph_wave_renderer(scene, graph, *, device=None):

@@ -84,8 +84,11 @@ def scene_from_arrays(arrays: dict, device=None) -> Scene:
     A scene without a medium gives majorant None (the other medium keys may
     then be left out).  Optional surfaces and lights: `primitives`, a list of
     plain primitives (object_from; each with its material's plain form or
-    None), and `lights`, plain lights added after the sun and sky; and the
-    scene's `integrator`, `light_sampler` and `regularize`."""
+    None), and `lights`, plain lights added after the sun and sky (the
+    image, portal, projection and goniometric lights among them, with their
+    numpy images; a projector's or goniometric light's `image` the plain
+    form of an ImageTexture); and the scene's `integrator`, `sampler`,
+    `light_sampler` and `regularize`."""
     a = arrays
     needed = (KEYS if a.get("majorant") is not None
               else KEYS[len(MEDIUM_KEYS):])
@@ -133,6 +136,7 @@ def scene_from_arrays(arrays: dict, device=None) -> Scene:
         camera=cam, medium=med, lights=lights,
         primitives=[object_from(p, device) for p in a.get("primitives", ())],
         integrator=a.get("integrator", "volpath"),
+        sampler=a.get("sampler", "independent"),
         light_sampler=a.get("light_sampler", "uniform"),
         regularize=bool(a.get("regularize", False)),
         max_depth=int(a["max_depth"]), spp=int(a["spp"]),

@@ -20,3 +20,11 @@ def xyz_to_rgb(xyz):
     """(..., 3) XYZ -> linear sRGB as explicit multiply-adds (fixed order)."""
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     return torch.stack([x * r[0] + y * r[1] + z * r[2] for r in _M], dim=-1)
+
+
+def _mat3(v, m):
+    """(..., 3) times (3, 3)^T as broadcast multiply-adds in a fixed order;
+    m a numpy matrix or a tensor."""
+    m = torch.as_tensor(m, device=v.device)
+    return (v[..., 0:1] * m[:, 0] + v[..., 1:2] * m[:, 1]
+            + v[..., 2:3] * m[:, 2])

@@ -308,14 +308,14 @@ def test_light_sampling_matches_jax(strategy):
                jl._adaptive_pmfs(jlights, j[0]), rtol=1e-5, atol=1e-7)
 
 
-def test_samplers_and_lights_of_the_next_slice_raise():
-    with pytest.raises(NotImplementedError, match="independent"):
-        tsamplers.film_sample("sobol", torch.zeros(4, dtype=torch.int64),
+def test_filtered_texture_and_item_7_materials_raise():
+    """What the port still refuses: the filtered image texture (the MIP
+    map) and the subsurface and measured materials (ROADMAP Queue 1 item
+    7).  Every sampler and light of the reference is ported."""
+    for kind in tsamplers.KINDS:
+        tsamplers.film_sample(kind, torch.zeros(4, dtype=torch.int64),
                               torch.zeros(4, dtype=torch.int64), 4)
-    for cls in (tl.ImageInfiniteLight, tl.PortalImageInfiniteLight,
-                tl.ProjectionLight, tl.GoniometricLight):
-        with pytest.raises(NotImplementedError, match="sampler slice"):
-            cls(np.ones((2, 2, 3), np.float32))
+    tl.ImageInfiniteLight(np.ones((2, 4, 3), np.float32))
     with pytest.raises(NotImplementedError, match="item 7"):
         tt.ImageTexture(np.ones((2, 2, 3), np.float32), filtered=True)
     for cls in (tm.SubsurfaceMaterial, tm.MeasuredMaterial):

@@ -61,7 +61,7 @@ def arrays_from_jax_scene(js):
         sigma_a=one(med.sigma_a_spec), sigma_s=one(med.sigma_s_spec),
         scale=med.scale, g=med.g, spp=js.spp, max_depth=js.max_depth,
         seed=js.seed, max_march_steps=js.max_march_steps,
-        scene_radius=js.scene_radius,
+        scene_radius=js.scene_radius, sampler=js.sampler,
         Le=_emission(med.Le_spec) if med.Le_spec is not None else None,
         Le_scale=med.Le_scale,
         filter=(type(filt).__name__.replace("Filter", "").lower(), *filt),

@@ -34,6 +34,13 @@ def plain(obj):
     if isinstance(obj, jtex.ImageTexture):
         return dict(kind="ImageTexture", image=np.asarray(obj.image),
                     scale=obj.scale, invert=obj.invert)
+    if isinstance(obj, jl.ImageInfiniteLight):
+        return dict(kind="ImageInfiniteLight", image=np.asarray(obj.image),
+                    scale=obj.scale, scene_radius=obj.scene_radius)
+    if isinstance(obj, jl.PortalImageInfiniteLight):
+        # the JAX light keeps only its rectified image: portal_light()
+        # records the arguments it was built from
+        return dict(obj.port_plain)
     if callable(obj) and not dataclasses.is_dataclass(obj):
         return _spectrum_value(obj)
     out = {"kind": type(obj).__name__}
@@ -44,6 +51,15 @@ def plain(obj):
         else:
             out[f.name] = plain(_spectrum_value(v))
     return out
+
+
+def portal_light(image, portal, **kw):
+    """A JAX PortalImageInfiniteLight that knows its plain form."""
+    lt = jl.PortalImageInfiniteLight(image, portal, **kw)
+    lt.port_plain = dict(kind="PortalImageInfiniteLight",
+                         image=np.asarray(image, np.float32),
+                         portal=np.asarray(portal, np.float32), **kw)
+    return lt
 
 
 def _plain_light(lt):
@@ -74,6 +90,7 @@ def surface_arrays_from_jax_scene(js):
             pixel_bounds=js.pixel_bounds)
     arrays.update(
         sun_dir=np.zeros(3, np.float32), sun_L=None, sky_L=None,
+        sampler=js.sampler,
         lights=[_plain_light(lt) for lt in js.lights],
         primitives=[plain(p) for p in js.primitives],
         integrator=js.integrator, light_sampler=js.light_sampler,
