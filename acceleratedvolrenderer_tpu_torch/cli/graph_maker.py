@@ -1,14 +1,16 @@
 """Graph precompute CLI (port of acceleratedvolrenderer_tpu/cli/graph_maker.py).
 
-    python -m acceleratedvolrenderer_tpu_torch.cli.graph_maker preset:sphere \\
-        [--config cfg.json] [--node-radius M] [--bounces B ...] \\
-        [--out BASE] [--format txt|npz|both] [--quiet] [--cpu]
+    python -m acceleratedvolrenderer_tpu_torch.cli.graph_maker \\
+        scene.pbrt|preset:sphere|preset:cloud [--config cfg.json] \\
+        [--node-radius M] [--bounces B ...] [--out BASE] \\
+        [--format txt|npz|both] [--quiet] [--cpu]
 
 Builds the scene's graph (FreeGraphBuilder), its light vector and, for
 each bounce count, the final light (compute_final_light), and writes
 <out>_d<bounces>.txt / .npz and <out>_stats.json.  The work runs on the
-CUDA card; --cpu runs it on the CPU.  Scenes: preset:sphere and
-preset:cloud; .pbrt scenes need the scene parser, which is not ported.
+CUDA card; --cpu runs it on the CPU.  A .pbrt scene goes through
+scene/parser.py::load_scene; without --config, a <scene>.json beside it is
+the config.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        prog="avrt-graph-maker",
+        prog="avrt-torch-graph-maker",
         description="Precompute the graph radiance cache for a volumetric "
                     "scene")
     ap.add_argument("scene",
@@ -46,20 +48,20 @@ def main(argv=None):
     from ..models import lights as lm
     from ..utils.device import resolve
 
-    if not args.scene.startswith("preset:"):
-        raise NotImplementedError(
-            f"graph_maker: {args.scene!r}: .pbrt scenes need the scene "
-            "parser (scene/parser.py), which the port does not have yet; "
-            "use preset:sphere or preset:cloud")
-    from ..scene import presets
-
     device = resolve("cpu" if args.cpu else None)
+    if args.scene.startswith("preset:"):
+        from ..scene import presets
 
-    base = args.scene.split(":", 1)[1]
-    make = {"sphere": presets.sphere_medium, "cloud": presets.cloud}
-    if base not in make:
-        ap.error(f"unknown preset {base!r}: one of {sorted(make)}")
-    scene = make[base](device=device)
+        base = args.scene.split(":", 1)[1]
+        make = {"sphere": presets.sphere_medium, "cloud": presets.cloud}
+        if base not in make:
+            ap.error(f"unknown preset {base!r}: one of {sorted(make)}")
+        scene = make[base](device=device)
+    else:
+        from ..scene.parser import load_scene
+
+        scene = load_scene(args.scene, device=device)
+        base = os.path.splitext(os.path.basename(args.scene))[0]
 
     if scene.medium is None:
         ap.error("scene has no medium")
@@ -68,7 +70,13 @@ def main(argv=None):
         ap.error("graph precompute needs a distant light")
     light_dir = distant[0].direction.cpu().numpy()
 
-    cfg = GraphConfig.from_json(args.config) if args.config else GraphConfig()
+    # config: explicit > the scene file's <name>.json > defaults
+    cfg_path = args.config
+    if cfg_path is None and not args.scene.startswith("preset:"):
+        auto = os.path.splitext(args.scene)[0] + ".json"
+        if os.path.exists(auto):
+            cfg_path = auto
+    cfg = GraphConfig.from_json(cfg_path) if cfg_path else GraphConfig()
     if args.node_radius is not None:
         cfg.builder.radius_modifier = args.node_radius
 

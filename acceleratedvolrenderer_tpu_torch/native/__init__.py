@@ -1,12 +1,15 @@
-"""Native (C++) host code of the graph layer, loaded with ctypes
-(port of acceleratedvolrenderer_tpu/native/__init__.py: merge_points and
-KDTree).
+"""Native (C++) host code, loaded with ctypes (port of
+acceleratedvolrenderer_tpu/native/__init__.py: merge_points and KDTree of
+the graph layer, and the LZ4 block codec of utils/blosc.py).
 
-kdtree.cpp is compiled with g++ on first use (not at import) into
-build/native/ at the repository root, with the reference's flags, and
-rebuilt when the source is newer than the library.  There is no fallback:
-when the library cannot be built or loaded, every entry point raises,
-because a silent fallback to another merge would change the graph.
+Each source is compiled with g++ on first use (not at import) into its own
+library under build/native/ at the repository root, with the reference's
+flags, and rebuilt when the source is newer than the library.  kdtree.cpp
+has no fallback: when it cannot be built or loaded, its entry points
+raise, because a silent fallback to another merge would change the graph.
+The LZ4 entries return None when lz4.cpp cannot be built or loaded, as
+the reference's do, and utils/blosc.py then runs its pure-Python codec
+(the reference's choice, made there and only there).
 """
 from __future__ import annotations
 
@@ -21,27 +24,32 @@ import numpy as np
 SRC = Path(__file__).resolve().parent / "kdtree.cpp"
 BUILD_DIR = SRC.parents[2] / "build" / "native"
 LIB_PATH = BUILD_DIR / "libavrt_kdtree.so"
+LZ4_SRC = SRC.with_name("lz4.cpp")
+LZ4_LIB_PATH = BUILD_DIR / "libavrt_lz4.so"
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib = None
+_lz4_lib = None
+_lz4_tried = False
+# what a failed build of each source leaves its callers
+NO_FALLBACK = {"kdtree.cpp": "the graph layer has no fallback merge: "}
 
 
-def _build(lib_path: Path):
-    """Compile kdtree.cpp into lib_path (atomically) when it is missing or
+def _build(lib_path: Path, src: Path = SRC):
+    """Compile `src` into lib_path (atomically) when it is missing or
     older than the source; raises RuntimeError when g++ fails."""
-    if lib_path.exists() and lib_path.stat().st_mtime >= SRC.stat().st_mtime:
+    if lib_path.exists() and lib_path.stat().st_mtime >= src.stat().st_mtime:
         return
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)],
+        subprocess.run(["g++", *CXX_FLAGS, str(src), "-o", str(tmp)],
                        check=True, capture_output=True, text=True)
     except (OSError, subprocess.CalledProcessError) as e:
         log = getattr(e, "stderr", "") or str(e)
-        raise RuntimeError(f"native: building {SRC.name} with g++ failed; "
-                           f"the graph layer has no fallback merge: "
-                           f"{log}") from e
+        raise RuntimeError(f"native: building {src.name} with g++ failed; "
+                           f"{NO_FALLBACK.get(src.name, '')}{log}") from e
     os.replace(tmp, lib_path)
 
 
@@ -125,3 +133,53 @@ class KDTree:
             self._h, _ptr(q), nq, ctypes.c_float(radius * radius),
             _ptr(counts), _ptr(sumd2))
         return counts, sumd2
+
+
+def lz4_library():
+    """The loaded LZ4 library, built on first use; None when it cannot be
+    built or loaded (the reference's semantics)."""
+    global _lz4_lib, _lz4_tried
+    with _lock:
+        if _lz4_tried:
+            return _lz4_lib
+        _lz4_tried = True
+        try:
+            _build(LZ4_LIB_PATH, LZ4_SRC)
+            lib = ctypes.CDLL(str(LZ4_LIB_PATH))
+        except (OSError, RuntimeError):
+            return None
+        lib.avrt_lz4_compress.restype = ctypes.c_int64
+        lib.avrt_lz4_compress.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+        lib.avrt_lz4_decompress.restype = ctypes.c_int64
+        lib.avrt_lz4_decompress.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+        _lz4_lib = lib
+        return lib
+
+
+def lz4_compress_block(src: bytes):
+    """Native LZ4 block encode; None when the library is unavailable (the
+    caller then runs the pure-Python encoder)."""
+    lib = lz4_library()
+    if lib is None:
+        return None
+    n = len(src)
+    cap = n + n // 255 + 16
+    dst = np.empty(cap, np.uint8)
+    r = lib.avrt_lz4_compress(src, n, _ptr(dst), cap)
+    if r < 0:
+        raise ValueError("lz4: compress overflow")
+    return dst[:r].tobytes()
+
+
+def lz4_decompress_block(src: bytes, dst_size: int):
+    """Native LZ4 block decode; None when the library is unavailable."""
+    lib = lz4_library()
+    if lib is None:
+        return None
+    dst = np.empty(max(dst_size, 1), np.uint8)
+    r = lib.avrt_lz4_decompress(src, len(src), _ptr(dst), dst_size)
+    if r != dst_size:
+        raise ValueError(f"lz4: decoded {r} bytes, expected {dst_size}")
+    return dst[:dst_size].tobytes()

@@ -10,7 +10,9 @@ from ..models.media import MediumSpec
 
 @dataclass
 class Scene:
-    camera: object                       # PerspectiveCamera
+    # PerspectiveCamera / OrthographicCamera / SphericalCamera /
+    # RealisticCamera (models/cameras.py)
+    camera: object
     medium: Optional[MediumSpec] = None
     lights: List = field(default_factory=list)
     max_depth: int = 5
@@ -18,12 +20,15 @@ class Scene:
     scene_radius: float = 1e4
     spp: int = 16
     seed: int = 0
-    sampler: str = "independent"
+    sampler: str = "independent"   # independent | stratified | sobol |
+    #   paddedsobol | zsobol | pmj02bn | halton (models/samplers.py)
     max_march_steps: int = 100000
     light_sampler: str = "uniform"   # uniform | power | bvh
     primitives: List = field(default_factory=list)   # models/shapes.py
-    # volpath (default; the fused integrator) | path | simplepath |
-    # randomwalk | ao (models/integrators/path.py, scenes without a medium)
+    # volpath (default; the fused integrator) | simplevolpath | path |
+    # simplepath | randomwalk | ao (models/integrators/path.py, scenes
+    # without a medium) | graph; the reference's lightpath, bdpt, mlt and
+    # sppm are not ported (cli/pbrt.py raises on them)
     integrator: str = "volpath"
     regularize: bool = False         # widen near-specular lobes (path)
     # wave renderer knobs (--disable-pixel-jitter, --disable-wavelength-

@@ -1,11 +1,13 @@
 """Sampled spectra, the 4-wavelength point-sample representation
 (port of acceleratedvolrenderer_tpu/utils/spectrum.py: CIE fits, visible
-wavelength sampling, constant and blackbody spectra, Smits' RGB ->
-spectrum and spectrum -> XYZ)."""
+wavelength sampling, constant and blackbody spectra, the daylight
+stand-in, Smits' RGB -> spectrum, the named spectra of glasses, metals and
+illuminants, piecewise-linear spectra and spectrum -> XYZ)."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 N_SPECTRUM_SAMPLES = 4
@@ -90,6 +92,12 @@ def blackbody_normalized(T):
     return f
 
 
+def d_illuminant(T=6504.0):
+    """Daylight at correlated colour temperature T as a normalized
+    blackbody, the reference's stand-in for the tabulated CIE D series."""
+    return blackbody_normalized(T)
+
+
 # Smits' (1999) RGB -> spectrum box basis, sampled at ten wavelengths
 _SMITS_LAMBDA = (380.0, 417.8, 455.6, 493.3, 531.1, 568.9, 606.7, 644.4,
                  682.2, 720.0)
@@ -108,17 +116,62 @@ _SMITS_BLUE = (1.0, 1.0, .8916, .3323, .0000, .0000, .0003, .0369, .0483,
                .0496)
 
 
+def interp(x, xp, fp):
+    """np.interp of float32 x over the increasing sample points xp with
+    values fp (python sequences or numpy arrays, cast to float32): linear
+    between the points, held at the end values outside."""
+    xp = torch.as_tensor(np.asarray(xp, np.float32), device=x.device)
+    fp = torch.as_tensor(np.asarray(fp, np.float32), device=x.device)
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1,
+                    len(xp) - 1)
+    x0, f0 = xp[i - 1], fp[i - 1]
+    f = f0 + ((x - x0) / (xp[i] - x0)) * (fp[i] - f0)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def piecewise_linear_spectrum(lam_nm, values):
+    """The spectrum of (wavelength, value) samples, a "spectrum"
+    parameter's pairs: np.interp of lam over them."""
+    lam_nm = np.asarray(lam_nm, np.float32)
+    values = np.asarray(values, np.float32)
+
+    def f(lam):
+        return interp(lam, lam_nm, values)
+
+    return f
+
+
 def _smits_interp(table, lam):
     """Piecewise-linear interpolation of `table` over _SMITS_LAMBDA at lam,
     held at the end values outside (numpy's interp)."""
-    xp = torch.tensor(_SMITS_LAMBDA, dtype=torch.float32, device=lam.device)
-    fp = torch.tensor(table, dtype=torch.float32, device=lam.device)
-    i = torch.clamp(torch.searchsorted(xp, lam.contiguous(), right=True), 1,
-                    len(xp) - 1)
-    x0, f0 = xp[i - 1], fp[i - 1]
-    f = f0 + ((lam - x0) / (xp[i] - x0)) * (fp[i] - f0)
-    f = torch.where(lam < xp[0], fp[0], f)
-    return torch.where(lam > xp[-1], fp[-1], f)
+    return interp(lam, _SMITS_LAMBDA, table)
+
+
+def rgb_albedo_spectrum(rgb):
+    """An RGB reflectance as a smooth spectrum by Smits' basis: rgb is a
+    python or numpy triple, the branch is chosen on the host."""
+    r, g, b = float(rgb[0]), float(rgb[1]), float(rgb[2])
+    if r <= g and r <= b:
+        terms = [(r, _SMITS_WHITE)] + (
+            [(g - r, _SMITS_CYAN), (b - g, _SMITS_BLUE)] if g <= b
+            else [(b - r, _SMITS_CYAN), (g - b, _SMITS_GREEN)])
+    elif g <= r and g <= b:
+        terms = [(g, _SMITS_WHITE)] + (
+            [(r - g, _SMITS_MAGENTA), (b - r, _SMITS_BLUE)] if r <= b
+            else [(b - g, _SMITS_MAGENTA), (r - b, _SMITS_RED)])
+    else:
+        terms = [(b, _SMITS_WHITE)] + (
+            [(r - b, _SMITS_YELLOW), (g - r, _SMITS_GREEN)] if r <= g
+            else [(g - b, _SMITS_YELLOW), (r - g, _SMITS_RED)])
+
+    def f(lam):
+        out = torch.zeros(lam.shape, dtype=torch.float32, device=lam.device)
+        for w, table in terms:
+            out = out + w * _smits_interp(table, lam)
+        return torch.clamp(out, min=0.0)
+
+    return f
 
 
 def rgb_to_spectrum_smits_batched(rgb, lam):
@@ -157,3 +210,82 @@ def y_luminance(values, swl: SampledWavelengths):
     ok = swl.pdf > 0.0
     w = torch.where(ok, values / torch.where(ok, swl.pdf, 1.0), 0.0)
     return torch.mean(w * cie_y(swl.lam), dim=-1) / CIE_Y_INTEGRAL
+
+
+def _sellmeier(b, c):
+    """Index of refraction n(lambda) from Sellmeier coefficients (lambda in
+    nm, the formula in um)."""
+    b1, b2, b3 = b
+    c1, c2, c3 = c
+
+    def f(lam_nm):
+        u2 = (lam_nm * 1e-3) ** 2
+        n2 = 1.0 + b1 * u2 / (u2 - c1) + b2 * u2 / (u2 - c2) \
+            + b3 * u2 / (u2 - c3)
+        return torch.sqrt(torch.clamp(n2, min=1.0))
+
+    return f
+
+
+_GLASS_SELLMEIER = {
+    "glass-BK7": ((1.03961212, 0.231792344, 1.01046945),
+                  (0.00600069867, 0.0200179144, 103.560653)),
+    "glass-BAF10": ((1.5851495, 0.143559385, 1.08521269),
+                    (0.00926681282, 0.0424489805, 105.613573)),
+    "glass-FK51A": ((0.971247817, 0.216901417, 0.904651666),
+                    (0.00472301995, 0.0153575612, 168.68133)),
+    "glass-LASF9": ((2.00029547, 0.298926886, 1.80691843),
+                    (0.0121426017, 0.0538736236, 156.530829)),
+    "glass-F5": ((1.52481889, 0.187085527, 1.42729015),
+                 (0.011254756, 0.0588995392, 129.141675)),
+    "glass-F10": ((1.62153902, 0.256287842, 1.64447552),
+                  (0.0122241457, 0.0595736775, 147.468793)),
+    "glass-F11": ((1.73759695, 0.313747346, 1.89878101),
+                  (0.013188707, 0.0623068142, 155.23629)),
+}
+
+# (lambda_nm, value) visible-range samples; linearly interpolated, clamped
+_METAL_IOR = {
+    "metal-Au-eta": ((400, 450, 500, 550, 600, 650, 700),
+                     (1.658, 1.426, 0.855, 0.347, 0.180, 0.143, 0.131)),
+    "metal-Au-k": ((400, 450, 500, 550, 600, 650, 700),
+                   (1.956, 1.846, 1.895, 2.731, 3.068, 3.800, 4.103)),
+    "metal-Ag-eta": ((400, 450, 500, 550, 600, 650, 700),
+                     (0.054, 0.045, 0.050, 0.057, 0.059, 0.057, 0.041)),
+    "metal-Ag-k": ((400, 450, 500, 550, 600, 650, 700),
+                   (2.120, 2.568, 3.037, 3.464, 3.890, 4.296, 4.693)),
+    "metal-Cu-eta": ((400, 450, 500, 550, 600, 650, 700),
+                     (1.175, 1.150, 1.120, 1.041, 0.454, 0.221, 0.213)),
+    "metal-Cu-k": ((400, 450, 500, 550, 600, 650, 700),
+                   (2.163, 2.399, 2.598, 2.591, 3.010, 3.435, 3.808)),
+    "metal-Al-eta": ((400, 450, 500, 550, 600, 650, 700),
+                     (0.490, 0.618, 0.769, 0.958, 1.200, 1.468, 1.830)),
+    "metal-Al-k": ((400, 450, 500, 550, 600, 650, 700),
+                   (4.861, 5.471, 6.080, 6.690, 7.260, 7.790, 8.310)),
+    "metal-CuZn-eta": ((400, 500, 600, 700),
+                       (1.350, 0.960, 0.450, 0.440)),
+    "metal-CuZn-k": ((400, 500, 600, 700),
+                     (1.750, 2.050, 3.000, 3.650)),
+    "metal-MgO-eta": ((400, 550, 700), (1.762, 1.737, 1.724)),
+    "metal-MgO-k": ((400, 550, 700), (0.0, 0.0, 0.0)),
+    "metal-TiO2-eta": ((400, 500, 600, 700),
+                       (2.98, 2.73, 2.61, 2.55)),
+    "metal-TiO2-k": ((400, 500, 600, 700), (0.0, 0.0, 0.0, 0.0)),
+}
+
+
+def named_spectrum(name):
+    """The spectrum of a pbrt named spectrum, or None if unknown."""
+    if name in _GLASS_SELLMEIER:
+        return _sellmeier(*_GLASS_SELLMEIER[name])
+    if name in _METAL_IOR:
+        return piecewise_linear_spectrum(*_METAL_IOR[name])
+    if name == "stdillum-A":
+        return blackbody_normalized(2856.0)
+    if name == "stdillum-D50":
+        return d_illuminant(5003.0)
+    if name in ("stdillum-D65", "stdillum-dci", "canonical"):
+        return d_illuminant(6504.0)
+    if name == "illum-acesD60":
+        return d_illuminant(6000.0)
+    return None

@@ -103,8 +103,9 @@ class Transform(NamedTuple):
         return self._mat3_vec(self.m, v)
 
 
-def look_at(eye, look, up, device) -> Transform:
-    """Camera-to-world transform (pbrt LookAt: left-handed, +z forward)."""
+def look_at_matrix(eye, look, up) -> np.ndarray:
+    """(4, 4) float64 camera-to-world matrix of pbrt's LookAt
+    (left-handed, +z forward)."""
     eye = np.asarray(eye, np.float64)
     d = np.asarray(look, np.float64) - eye
     d = d / np.linalg.norm(d)
@@ -119,7 +120,33 @@ def look_at(eye, look, up, device) -> Transform:
     c2w[:3, 1] = np.cross(d, right)
     c2w[:3, 2] = d
     c2w[:3, 3] = eye
+    return c2w
+
+
+def look_at(eye, look, up, device) -> Transform:
+    """Camera-to-world transform (pbrt LookAt: left-handed, +z forward)."""
+    c2w = look_at_matrix(eye, look, up)
     return Transform.from_numpy(c2w, np.linalg.inv(c2w), device)
+
+
+def rotate_matrix(angle_deg: float, axis) -> np.ndarray:
+    """(4, 4) float64 rotation by angle_deg about `axis` (pbrt Rotate)."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    theta = np.deg2rad(angle_deg)
+    s, c = np.sin(theta), np.cos(theta)
+    m = np.eye(4)
+    x, y, z = a
+    m[0, 0] = x * x + (1 - x * x) * c
+    m[0, 1] = x * y * (1 - c) - z * s
+    m[0, 2] = x * z * (1 - c) + y * s
+    m[1, 0] = x * y * (1 - c) + z * s
+    m[1, 1] = y * y + (1 - y * y) * c
+    m[1, 2] = y * z * (1 - c) - x * s
+    m[2, 0] = x * z * (1 - c) - y * s
+    m[2, 1] = y * z * (1 - c) + x * s
+    m[2, 2] = z * z + (1 - z * z) * c
+    return m
 
 
 def intersect_aabb(o, d, t_max, lo, hi):
@@ -140,3 +167,22 @@ def intersect_aabb(o, d, t_max, lo, hi):
     hit = (t0 <= t1) & (t1 > 0.0) & (t0 < t_max)
     t0 = torch.clamp(t0, min=0.0)
     return hit, t0, torch.minimum(t1, t_max)
+
+
+def equal_area_square_to_sphere(p):
+    """Low-distortion [0,1]^2 -> S^2 mapping (Clarberg 2008); p (..., 2)."""
+    u = 2.0 * p[..., 0] - 1.0
+    v = 2.0 * p[..., 1] - 1.0
+    up = torch.abs(u)
+    vp = torch.abs(v)
+    sd = 1.0 - (up + vp)
+    d = torch.abs(sd)
+    r = 1.0 - d
+    phi = torch.where(r == 0.0, 1.0,
+                      (vp - up) / torch.clamp(r, min=1e-24) + 1.0) * (
+        np.pi / 4.0)
+    z = torch.copysign(1.0 - r * r, sd)
+    cos_phi = torch.copysign(torch.cos(phi), u)
+    sin_phi = torch.copysign(torch.sin(phi), v)
+    rr = r * safe_sqrt(2.0 - r * r)
+    return torch.stack([cos_phi * rr, sin_phi * rr, z], dim=-1)

@@ -47,7 +47,7 @@ Phases (any failure raises, and the script exits non-zero):
      (fused route); central differences on the 3 largest-gradient voxels
      equal the gradient to 1%;
   8. slice: the 1280x720 cloud over the 256^3 grid, 16384 lanes, the bench
-     knobs, spp 16: one timed render (the earlier phases have run every
+     knobs, spp SPP 8 (16 before phase 28 came): one timed render (the earlier phases have run every
      kernel and code path of it).  The film must be finite with a positive
      mean, and the march kernel must have launched exactly once per loop
      iteration;
@@ -185,7 +185,25 @@ Phases (any failure raises, and the script exits non-zero):
      bucket images finite); render_gbuffer of the room and of phase 23's
      cloud with surfaces at 1280x720, the 32x24 room's on the GPU and the
      CPU; render_with_aovs of the room through path at spp 2, its mean
-     within FULL_MEAN_TOL of phase 24's path frame.
+     within FULL_MEAN_TOL of phase 24's path frame;
+ 28. scene file: phase 8's 256^3 density written to a .nvdb
+     (utils/nvdb.py), converted by cli/nanovdb2pbrt.py to a "uniformgrid"
+     block (257^3: the converter adds a layer of background, as pbrt's
+     does) and wrapped in a .pbrt file stating the preset's 1280x720
+     scene (scene_file_text), rendered by the CLI (`cli/pbrt.py --spp 1
+     --stats --mse-reference-image` phase 14's frame): seconds of each
+     step (nvdb write, conversion, parse, render, EXR write and read
+     back), the MSE against phase 14's frame, iterations, march launches
+     (one per iteration), Mrays/s and peak memory; the parsed grid equal
+     bit for bit to the values its text states (the converter prints six
+     decimals: within GRID_TEXT_TOL of the preset's) and its extra layer
+     zero; the
+     mean within FULL_MEAN_TOL of phase 14's; the same scene at 32x24 on
+     the GPU and the CPU at phase 5's tolerances; then a 256x256 fog box
+     file (fog_box_file_text) through `--checkpoint` at spp 8 and
+     `--checkpoint-every 4`, stopped once the first checkpoint lands and
+     resumed: the EXR equal bit for bit to an uninterrupted render, the
+     gather launched once per loop iteration of each run.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -211,7 +229,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-SPP = 16
+# phase 8, cut from 16 to pay for phase 28; spp is traffic, not width
+SPP = 8
 # phase 9 at spp 2 (bench.py's backward leg takes 4): with phases 23-24
 # the script passed 950 s on a slow host; spp is traffic, not width
 GRAD_SPP = 2
@@ -271,6 +290,9 @@ FULL = (1280, 720)               # the room's and the G-buffers' frame
 # two full-width frames of one image by other samplers, spp or entries:
 # means within 2%, as phase 14 holds render() to regen
 FULL_MEAN_TOL = 0.02
+# nanovdb2pbrt prints six decimals: a parsed value is within half a unit of
+# the sixth decimal of the grid's, plus its own float32 rounding
+GRID_TEXT_TOL = 5e-7 + float(np.finfo(np.float32).eps) / 2
 HBM_BYTES_PER_MS = 3.35e9        # H100 SXM device memory, 3.35 TB/s
 F32_OPS_PER_MS = 67e9            # H100 SXM float32 outside the tensor cores
 
@@ -1019,6 +1041,7 @@ def phase_wave_full(dev, scene, regen_mean, card):
     if rel > 0.02:
         raise AssertionError(f"wave full: mean {img.mean()} is not within "
                              f"2% of the regen frame's {regen_mean}")
+    return img
 
 
 def small_gpu_cpu(what, make_scene, dev, mean_tol=1e-3, **knobs):
@@ -2198,11 +2221,271 @@ def phase_portal_entries(dev, sky, room_means, card):
                              "is not within 2% of phase 24's")
 
 
+def scene_file_text(block, width, height):
+    """A .pbrt file stating presets.cloud's scene at width x height, spp 1,
+    max depth 16 (phase 8's), around the "uniformgrid" parameter `block`
+    that nanovdb2pbrt printed: the camera's world-to-camera matrix, fov
+    31.07 and the Gaussian filter; the medium's p0 / p1 (in the block),
+    scale, g, sigma_a 0 and sigma_s 1; the sun (scale 2.6, the preset's
+    direction) and the uniform sky (scale 0.03)."""
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    w2c = " ".join(repr(float(v)) for v in presets.CLOUD_W2C.T.reshape(-1))
+    sun = " ".join(repr(float(v)) for v in presets.CLOUD_SUN_DIR)
+    return (
+        "# presets.cloud: the disney-cloud 720p analog\n"
+        f"Transform [ {w2c} ]\n"
+        'Camera "perspective" "float fov" [31.07]\n'
+        f'Film "rgb" "integer xresolution" [{width}] '
+        f'"integer yresolution" [{height}] "string filename" "cloud.exr"\n'
+        'PixelFilter "gaussian"\n'
+        'Sampler "independent" "integer pixelsamples" [1]\n'
+        'Integrator "volpath" "integer maxdepth" [16]\n'
+        "WorldBegin\n"
+        'LightSource "distant" "rgb L" [1 1 1] "float scale" [2.6]\n'
+        f'    "point3 from" [0 0 0] "point3 to" [{sun}]\n'
+        'LightSource "infinite" "rgb L" [1 1 1] "float scale" [0.03]\n'
+        "AttributeBegin\n"
+        'MakeNamedMedium "cloud" "string type" "uniformgrid"\n'
+        + block +
+        '    "rgb sigma_a" [0 0 0] "rgb sigma_s" [1 1 1]\n'
+        '    "float scale" [0.2] "float g" [0.877]\n'
+        'MediumInterface "cloud" ""\n'
+        'Material ""\n'
+        'Shape "sphere" "float radius" [174]\n'
+        "AttributeEnd\n")
+
+
+def fog_box_file_text(res, spp):
+    """A .pbrt file stating presets.fog_box's scene (a homogeneous unit box,
+    sigma_a 0.5, sigma_s 2, a distant light of 3 and a sky of 0.1) at
+    res x res and spp."""
+    return (
+        "LookAt 0.5 0.5 -2.6  0.5 0.5 0.5  0 1 0\n"
+        'Camera "perspective" "float fov" [35]\n'
+        f'Film "rgb" "integer xresolution" [{res}] '
+        f'"integer yresolution" [{res}]\n'
+        f'Sampler "independent" "integer pixelsamples" [{spp}]\n'
+        'Integrator "volpath" "integer maxdepth" [5]\n'
+        "WorldBegin\n"
+        'LightSource "distant" "rgb L" [1 1 1] "float scale" [3]\n'
+        '    "point3 from" [0 0 0] "point3 to" [0.3 -1 0.4]\n'
+        'LightSource "infinite" "rgb L" [1 1 1] "float scale" [0.1]\n'
+        "AttributeBegin\n"
+        'MakeNamedMedium "fog" "string type" "homogeneous"\n'
+        '    "rgb sigma_a" [0.5 0.5 0.5] "rgb sigma_s" [2 2 2]\n'
+        'MediumInterface "fog" ""\n'
+        'Material ""\n'
+        'Shape "sphere" "float radius" [1]\n'
+        "AttributeEnd\n")
+
+
+class _Interrupt(Exception):
+    """Stops a checkpointed render once its first checkpoint has landed."""
+
+
+def run_cli(argv):
+    """cli/pbrt.py's main(argv); returns the JSON of its --stats line."""
+    import contextlib
+    import io
+
+    from acceleratedvolrenderer_tpu_torch.cli import pbrt
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pbrt.main(argv)
+    if rc != 0:
+        raise AssertionError(f"pbrt {argv}: exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def checkpoint_leg(dev, work, card):
+    """Phase 28's fog box file through `--checkpoint`: an uninterrupted
+    render at spp 8, then the checkpointed one stopped once its first
+    checkpoint lands (after 4 samples) and resumed by the same command;
+    the two EXRs equal bit for bit, the gather launched once per loop
+    iteration of each run.  Returns the gather launches of both runs."""
+    from acceleratedvolrenderer_tpu_torch.parallel import checkpoint
+    from acceleratedvolrenderer_tpu_torch.utils.image import read_exr
+
+    path = work / "fog.pbrt"
+    path.write_text(fog_box_file_text(256, 8))
+    ref, out, ck = (str(work / n) for n in ("fog_ref.exr", "fog.exr",
+                                             "fog_ck.npz"))
+    launches = 0
+    zero_kernel_counts()
+    st = run_cli([str(path), "-o", ref, "--stats"])
+    counts = kernel_counts()
+    if counts != (0, st["iterations"], 0):
+        raise AssertionError(f"fog box file: launches {counts} for "
+                             f"{st['iterations']} iterations")
+    launches += counts[1]
+    argv = [str(path), "-o", out, "--stats", "--checkpoint", ck,
+            "--checkpoint-every", "4"]
+    save = checkpoint.save
+
+    def save_then_stop(*args, **kw):
+        save(*args, **kw)
+        raise _Interrupt
+
+    t0 = time.time()
+    with mock.patch.object(checkpoint, "save", save_then_stop):
+        try:
+            run_cli(argv)
+        except _Interrupt:
+            pass
+        else:
+            raise AssertionError("fog box file: no checkpoint was written")
+    if not Path(ck).exists() or Path(out).exists():
+        raise AssertionError("fog box file: the stopped run left no "
+                             "checkpoint, or an image")
+    t1 = time.time()
+    zero_kernel_counts()
+    st = run_cli(argv)
+    counts = kernel_counts()
+    a, b = read_exr(out)[0], read_exr(ref)[0]
+    print(f"fog box file 256x256 spp 8: uninterrupted, stopped after its "
+          f"first checkpoint ({t1 - t0:.1f} s) and resumed from sample "
+          f"{st['resumed_from']} ({st['render_time']:.3f} s, "
+          f"{st['iterations']} iterations, (march, gather, dma) launches "
+          f"{counts}): resumed EXR equals the uninterrupted one bit for "
+          f"bit: {np.array_equal(a, b)}, checkpoint removed: "
+          f"{not Path(ck).exists()}, on {card}", flush=True)
+    if not (np.array_equal(a, b) and st["resumed_from"] == 4
+            and not Path(ck).exists()):
+        raise AssertionError("fog box file: the resumed render differs from "
+                             "the uninterrupted one")
+    if counts != (0, st["iterations"], 0):
+        raise AssertionError(f"fog box file resumed: launches {counts} for "
+                             f"{st['iterations']} iterations")
+    return launches + counts[1]
+
+
+def phase_scene_file(dev, scene, wave_img, card):
+    """Phase 28: phase 8's density through a .nvdb, nanovdb2pbrt and a
+    .pbrt file to the CLI's 1280x720 frame (see the module docstring);
+    scene is phase 8's, wave_img phase 14's frame.  Returns the march
+    launches of the CLI frame and the gather launches of the fog-box
+    leg."""
+    import contextlib
+    import tempfile
+
+    from acceleratedvolrenderer_tpu_torch.cli import nanovdb2pbrt
+    from acceleratedvolrenderer_tpu_torch.models import film
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+    from acceleratedvolrenderer_tpu_torch.scene import parser
+    from acceleratedvolrenderer_tpu_torch.utils import image, nvdb
+
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    density = scene.medium.density.cpu().numpy()
+    n = density.shape[0]
+    half = 100.0
+    t0 = time.time()
+    nvdb.write_nvdb(str(work / "cloud.nvdb"), nvdb.NvdbGrid(
+        name="density", data=density, index_min=(-n // 2,) * 3,
+        world_bbox=np.array([[-half] * 3, [half] * 3]),
+        voxel_size=np.full(3, 2 * half / n)))
+    t1 = time.time()
+    nanovdb2pbrt.main([str(work / "cloud.nvdb"), "-o",
+                       str(work / "grid.txt")])
+    block = (work / "grid.txt").read_text()
+    t2 = time.time()
+    path = work / "cloud.pbrt"
+    path.write_text(scene_file_text(block, scene.width, scene.height))
+    ref = str(work / "phase14.exr")
+    image.write_exr(ref, wave_img)
+    print(f"scene file: nvdb write {t1 - t0:.2f} s "
+          f"({(work / 'cloud.nvdb').stat().st_size / 2 ** 20:.1f} MiB), "
+          f"nanovdb2pbrt {t2 - t1:.2f} s ({len(block) / 2 ** 20:.1f} MiB of "
+          f"text), scene file {path.stat().st_size / 2 ** 20:.1f} MiB",
+          flush=True)
+
+    # time the CLI's parse and EXR write by wrapping what it calls
+    steps, parsed = {}, []
+    load_scene, write_film = parser.load_scene, film.write_film
+
+    def timed_load(*args, **kw):
+        t = time.time()
+        parsed.append(load_scene(*args, **kw))
+        steps["parse"] = time.time() - t
+        return parsed[-1]
+
+    def timed_write(*args, **kw):
+        t = time.time()
+        write_film(*args, **kw)
+        steps["exr write"] = time.time() - t
+
+    out = str(work / "cloud.exr")
+    torch.cuda.reset_peak_memory_stats(dev)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(parser, "load_scene",
+                                              timed_load))
+        stack.enter_context(mock.patch.object(film, "write_film",
+                                              timed_write))
+        zero_kernel_counts()
+        t3 = time.time()
+        st = run_cli([str(path), "-o", out, "--spp", "1", "--stats",
+                      "--mse-reference-image", ref])
+        t4 = time.time()
+        counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    t5 = time.time()
+    img = image.read_exr(out)[0]
+    t6 = time.time()
+    mean14 = float(wave_img.mean())
+    rel = abs(float(img.mean()) - mean14) / mean14
+    print(f"scene file: pbrt {scene.width}x{scene.height} spp 1: parse "
+          f"{steps['parse']:.2f} s, render {st['render_time']:.3f} s "
+          f"({st['iterations']} iterations, {st['chunk_iterations']} per "
+          f"chunk, {st['rays_per_sec'] / 1e6:.4f} Mrays/s), EXR write "
+          f"{steps['exr write']:.2f} s, read back {t6 - t5:.2f} s, the "
+          f"CLI call {t4 - t3:.2f} s; (march, gather, dma) launches "
+          f"{counts}; peak device memory {peak:.3f} GiB; MSE against phase "
+          f"14's frame {st['mse']:.6e}; film mean {img.mean():.6f} vs phase "
+          f"14's {mean14:.6f} (rel diff {rel:.4e}) on {card}", flush=True)
+    _check_frame("scene file", img, (scene.height, scene.width, 3))
+    if counts != (st["iterations"], 0, 0):
+        raise AssertionError(f"scene file: launches {counts} for "
+                             f"{st['iterations']} iterations")
+    if rel > FULL_MEAN_TOL:
+        raise AssertionError("scene file: mean not within 2% of phase 14's")
+
+    # the parsed grid: the values its text states, bit for bit
+    sc = parsed[0]
+    grid = sc.medium.density.cpu().numpy()
+    start = block.index('"float density" [') + len('"float density" [')
+    stated = np.array(block[start:block.rindex("]")].split(),
+                      np.float64).astype(np.float32).reshape(grid.shape)
+    err = float(np.abs(grid[:n, :n, :n] - density).max())
+    print(f"scene file: parsed grid {grid.shape}, equal to its text bit for "
+          f"bit: {np.array_equal(grid, stated)}, extra layer zero: "
+          f"{not grid[n:].any() and not grid[:, n:].any() and not grid[..., n:].any()}"
+          f", max |parsed - preset| {err:.3e}, bounds {sc.medium.bounds_lo} "
+          f"{sc.medium.bounds_hi}", flush=True)
+    if not (np.array_equal(grid, stated) and grid.shape == (n + 1,) * 3
+            and not grid[n:].any() and not grid[:, n:].any()
+            and not grid[..., n:].any() and err <= GRID_TEXT_TOL):
+        raise AssertionError("scene file: the parsed grid is not the one "
+                             "the file states")
+    small = replace(sc, camera=sc.camera._replace(width=32, height=24))
+    imgs = [render.render(small, device=dev)[0],
+            render.render(small.to("cpu"), device="cpu")[0]]
+    compare_frames("scene file 32x24 gpu vs cpu", *imgs)
+    del parsed[:], sc, small
+    gather_n = checkpoint_leg(dev, work, card)
+    tmp.cleanup()
+    return counts[0], gather_n
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
     print(f"[phase {name}: {time.time() - t0:.1f} s]", flush=True)
     return out
+
+
+T0 = time.time()
 
 
 def main():
@@ -2233,7 +2516,8 @@ def main():
     timed("grad fd", phase_grad_fd, dev)
     timed("wave grad fd", phase_wave_grad_fd, dev)
     launches, scene, slice_rec = timed("slice", phase_slice, dev, card)
-    timed("wave full", phase_wave_full, dev, scene, slice_rec[0], card)
+    wave_img = timed("wave full", phase_wave_full, dev, scene, slice_rec[0],
+                     card)
     timed("grad full", phase_grad_full, dev, scene, card)
     gather_rec.update(timed("fog box", phase_fog, dev, card))
     march_rec["chunk65536_launches"] = (
@@ -2254,8 +2538,13 @@ def main():
     march_rec.update(sky_rec)
     timed("room samplers", phase_room_samplers, dev, room_means, card)
     timed("portal entries", phase_portal_entries, dev, sky, room_means, card)
+    march_n, gather_n = timed("scene file", phase_scene_file, dev, scene,
+                              wave_img, card)
+    march_rec["scene_file_launches"] = march_n
+    gather_rec["scene_file_launches"] = gather_n
 
     src = "acceleratedvolrenderer_tpu_torch/csrc/"
+    print(f"chip_smoke: {time.time() - T0:.1f} s wall")
     print(card)
     print(json.dumps({"kernels": [
         dict(name="march_block", route="cuda", source=src + "march.cu",

@@ -692,3 +692,38 @@ def test_image_light_search_matches_searchsorted_on_card(dev):
     assert torch.equal(got, want)
     cpu = lights._search_rows(cdf.reshape(-1).cpu(), 128, row.cpu(), u.cpu())
     assert torch.equal(got.cpu(), cpu)
+
+
+def test_cli_scene_file_matches_cpu(dev, tmp_path):
+    """The port's CLI on a 64x48 .pbrt cloud (chip_smoke.scene_file_text
+    around a 32^3 grid printed by nanovdb2pbrt) on the card and with --cpu:
+    the EXRs at phase 5's tolerances, one march launch per loop iteration
+    on the card and none on the CPU."""
+    import contextlib
+    import io
+    import json
+
+    from acceleratedvolrenderer_tpu_torch.cli import nanovdb2pbrt, pbrt
+    from acceleratedvolrenderer_tpu_torch.utils.image import read_exr
+
+    cs = _chip_smoke()
+    density = presets.cloud(64, 48, grid_res=32,
+                            device="cpu").medium.density.numpy()
+    block = io.StringIO()
+    nanovdb2pbrt.emit_pbrt(density, [-100.0] * 3, [100.0] * 3, "density",
+                           block)
+    path = tmp_path / "cloud.pbrt"
+    path.write_text(cs.scene_file_text(block.getvalue(), 64, 48))
+    imgs = []
+    for extra in ([], ["--cpu"]):
+        out = str(tmp_path / f"cloud{len(extra)}.exr")
+        buf = io.StringIO()
+        march.launches = gather.launches = 0
+        with contextlib.redirect_stdout(buf):
+            assert pbrt.main([str(path), "-o", out, "--spp", "2", "--stats",
+                              *extra]) == 0
+        st = json.loads(buf.getvalue().strip().splitlines()[-1])
+        want = (0, 0) if extra else (st["iterations"], 0)
+        assert (march.launches, gather.launches) == want
+        imgs.append(read_exr(out)[0])
+    _assert_frames_close(*imgs)

@@ -489,9 +489,22 @@ def test_full_build_and_lighting_match_jax(jax_graph):
     np.testing.assert_allclose(g.search_range, jg.search_range, rtol=1e-5)
 
 
-def test_graph_maker_refuses_pbrt_scenes(tmp_path):
-    with pytest.raises(NotImplementedError, match="scene parser"):
+def test_graph_maker_refuses_pbrt_scenes(tmp_path, capsys):
+    """graph_maker takes .pbrt scenes through the port's parser; it refuses
+    one without a medium, or without a distant light, as the reference
+    does, and a missing file."""
+    with pytest.raises(FileNotFoundError):
         graph_maker.main([str(tmp_path / "scene.pbrt"), "--cpu"])
+    scene = tmp_path / "scene.pbrt"
+    head = ('Camera "perspective"\nWorldBegin\n'
+            'LightSource "infinite" "rgb L" [1 1 1]\n')
+    medium = ('MakeNamedMedium "fog" "string type" "homogeneous"\n'
+              'MediumInterface "fog" ""\nShape "sphere"\n')
+    for text, why in ((head, "no medium"), (head + medium, "distant light")):
+        scene.write_text(text)
+        with pytest.raises(SystemExit):
+            graph_maker.main([str(scene), "--cpu", "--quiet"])
+        assert why in capsys.readouterr().err
 
 
 def test_graph_maker_cli_on_cpu(tmp_path):
