@@ -8,9 +8,10 @@ Renders a .pbrt file (scene/parser.py) or a preset on the CUDA card
 and without `--cpu` it raises.  --integrator routes volpath (default),
 simplevolpath, path, simplepath, randomwalk and ao through render(), graph
 (with --graph-data, or --graph-debug) through render_graph, analyzer and
-function to their back ends; lightpath, bdpt, sppm and mlt are not ported
-and raise NotImplementedError, whether the flag or the scene file names
-them.
+function to their back ends, and lightpath, bdpt, sppm and mlt to their
+renderers (render_lightpath, render_bdpt, render_sppm, render_mlt), whether
+the flag or the scene file names them (the reference routes these four on
+the flag only and renders such a file with volpath).
 """
 from __future__ import annotations
 
@@ -19,10 +20,6 @@ import json
 import os
 import sys
 import time
-
-
-# the reference's integrators the port does not have yet
-UNPORTED = ("lightpath", "bdpt", "sppm", "mlt")
 
 
 def _device(args):
@@ -214,11 +211,6 @@ def main(argv=None):
     else:
         scene = load_scene(args.scene, device=device)
     integ = args.integrator or scene.integrator
-    if integ in UNPORTED:
-        raise NotImplementedError(
-            f"--integrator {integ}: not ported yet (ROADMAP Queue 1 item 7: "
-            f"{', '.join(sorted(UNPORTED))}); no other integrator stands in")
-
     if args.spp is not None:
         scene.spp = args.spp
     if args.quick:
@@ -266,7 +258,7 @@ def main(argv=None):
     # pixel-bounds / jitter options are honored only by the wave/regen
     # renderers; the reference applies PBRTOptions globally, so warn loudly
     # when an integrator that ignores them is selected (ADVICE r1).
-    if args.integrator == "analyzer":
+    if integ in ("mlt", "bdpt", "sppm", "lightpath", "analyzer"):
         ignored = []
         if getattr(scene, "pixel_bounds", None) is not None:
             ignored.append("--pixel/--pixelbounds/--cropwindow")
@@ -278,7 +270,7 @@ def main(argv=None):
             import warnings
 
             warnings.warn(
-                f"--integrator {args.integrator} ignores "
+                f"--integrator {integ} ignores "
                 f"{', '.join(ignored)}; rendering the full frame with "
                 f"default jitter")
 
@@ -313,6 +305,30 @@ def main(argv=None):
         graph = (Graph.read_npz(args.graph_data) if args.graph_data.endswith(".npz")
                  else Graph.read_text(args.graph_data))
         img, stats = render_mod.render_graph(scene, graph, device=device)
+    elif integ == "lightpath":
+        img, stats = render_mod.render_lightpath(scene, device=device)
+        stats.setdefault("rays_per_sec",
+                         stats["n_paths"] / max(stats["render_time"], 1e-9))
+    elif integ == "bdpt":
+        from ..models.integrators import bdpt as bdpt_mod
+
+        img, stats, _ = bdpt_mod.render_bdpt(
+            scene, max_depth=scene.max_depth, spp=scene.spp,
+            keep_strategies=False, device=device)
+        stats.setdefault("rays_per_sec", 0.0)
+    elif integ == "sppm":
+        from ..models.integrators import sppm as sppm_mod
+
+        img, stats = sppm_mod.render_sppm(scene, device=device)
+    elif integ == "mlt":
+        from ..models.integrators import mlt as mlt_mod
+
+        img, stats = mlt_mod.render_mlt(scene, seed=args.seed, device=device)
+        # a black bootstrap returns {"b": 0.0} alone
+        stats.setdefault("render_time", 0.0)
+        stats.setdefault("spp", scene.spp)
+        stats.setdefault("rays_per_sec", stats.get("mutations", 0)
+                         / max(stats["render_time"], 1e-9))
     elif args.integrator == "function":
         import time as _time
 

@@ -45,6 +45,44 @@ class PerspectiveCamera(NamedTuple):
         d_w = normalize(self.c2w.apply_vector(d_cam))
         return o_w, d_w
 
+    def _screen_half_extents(self):
+        # np.tan on the host: the card's tan is an ulp off the CPU's
+        tan_half = float(np.tan(np.deg2rad(self.fov_deg) / 2.0))
+        aspect = self.width / self.height
+        if aspect > 1.0:
+            return tan_half * aspect, tan_half
+        return tan_half, tan_half / aspect
+
+    def film_area_z1(self) -> float:
+        """Area of the image window on the z=1 camera plane: the A of the
+        perspective importance We = 1 / (A cos^4 theta)."""
+        sx, sy = self._screen_half_extents()
+        return float(4.0 * sx * sy)
+
+    def project(self, p_world):
+        """World points (N, 3) -> (raster xy (N, 2) float, cos theta against
+        the camera's forward axis, inside the frustum): the camera end of a
+        light-tracing connection (pbrt's PerspectiveCamera::SampleWi)."""
+        pc = self.c2w.inverse().apply_point(p_world)
+        z = pc[..., 2]
+        ok_z = z > 1e-6
+        zs = torch.where(ok_z, z, 1.0)
+        x_cam = pc[..., 0] / zs
+        y_cam = pc[..., 1] / zs
+        sx, sy = self._screen_half_extents()
+        px = (x_cam / sx + 1.0) * 0.5 * self.width
+        py = (1.0 - y_cam / sy) * 0.5 * self.height
+        inside = (ok_z & (px >= 0) & (px < self.width)
+                  & (py >= 0) & (py < self.height))
+        dist = torch.linalg.norm(pc, dim=-1)
+        cos_t = torch.where(dist > 0, z / torch.clamp(dist, min=1e-12), 0.0)
+        return torch.stack([px, py], -1), cos_t, inside
+
+    @property
+    def position(self):
+        """The pinhole in world space, (3,)."""
+        return self.c2w.apply_point(torch.zeros((3,), device=self.c2w.m.device))
+
 
 class OrthographicCamera(NamedTuple):
     c2w: Transform

@@ -5,10 +5,10 @@ Every ray bounces in lockstep through a python loop over max_depth;
 material polymorphism is masked evaluation over the static BxDF families
 (models/bxdfs.py), gathered from per-primitive parameter stacks.  Draws
 come through a uniform source, in the reference's order: a `PCGSource` over
-the per-ray PCG streams, or for `li_path` a samplers.PathSampler.  The
-measured material and the subsurface walk (their modules) and the MLT
-primary-sample source are not ported: a scene with a subsurface
-or measured primitive cannot be built (materials.py raises).
+the per-ray PCG streams, or for `li_path` a samplers.PathSampler or the MLT
+integrator's `VectorSource`.  The measured material and the subsurface walk
+(their modules) are not ported: a scene with a subsurface or measured
+primitive cannot be built (materials.py raises).
 """
 from __future__ import annotations
 
@@ -37,6 +37,21 @@ class PCGSource:
             self.rng, u = dda.pcg_uniform(self.rng)
         else:
             self.rng, u = dda.pcg_uniform_masked(self.rng, mask)
+        return u
+
+
+class VectorSource:
+    """Draws column after column from a fixed primary-sample vector (N, D),
+    the PSSMLT sample space (pbrt's MLTSampler); past the last column it
+    repeats it.  The mask is ignored: every lane consumes every draw."""
+
+    def __init__(self, u_vec):
+        self.u = u_vec
+        self.idx = 0
+
+    def next(self, mask=None):
+        u = self.u[:, min(self.idx, self.u.shape[1] - 1)]
+        self.idx += 1
         return u
 
 
@@ -374,7 +389,8 @@ def li_path(prims: tuple, lights: list, o, d, lam, rng, *, max_depth: int = 5,
         d_cur = torch.where(a3, wi_w, d_cur)
         spec_prev = torch.where(alive, bs.specular, spec_prev)
         pdf_prev = torch.where(alive, bs.pdf, pdf_prev)
-    return L, src.rng
+    # a VectorSource has no stream: rng comes back as it went in
+    return L, getattr(src, "rng", rng)
 
 
 def li_random_walk(prims, lights, o, d, lam, rng, *, max_depth=5):

@@ -8,9 +8,7 @@ whole batch:
   1. ops/dda.py::delta_track: march to the next real event (nulls inlined);
   2. ops/transmittance.py::ratio_track: the NEE shadow ray of scattered rays;
   3. the HG direction sample and the state update.
-The bounce loop reads one flag from the device per bounce.  The reference's
-`uniform_source` (the primary-sample vector of its MLT integrator) is not
-ported.
+The bounce loop reads one flag from the device per bounce.
 """
 from __future__ import annotations
 
@@ -30,9 +28,17 @@ class LiResult(NamedTuple):
 
 def li(med: MediumArrays, lights: list, o, d, lam, rng, *, maj_res,
        homogeneous: bool, max_depth: int = 5, scene_radius: float = 1e4,
-       max_march_steps: int = 100000) -> LiResult:
+       max_march_steps: int = 100000, uniform_source=None) -> LiResult:
     """Radiance along the rays (o, d) (N, 3) at wavelengths lam (N, LANES),
-    with the PCG streams rng (N,)."""
+    with the PCG streams rng (N,).
+
+    `uniform_source` (path.VectorSource), the volumetric PSS-MLT hook,
+    supplies the structural draws of each bounce (the NEE light pick and
+    2D, then the phase 2D, in that order); the free-flight draws stay on
+    rng.  With a source every one of the max_depth + 1 bounces runs, with
+    the finished lanes masked, and the loop reads no flag: the source's
+    cursor, and so the vector's dimension count, do not depend on the
+    data."""
     N = o.shape[0]
     LANES = lam.shape[-1]
     f32 = torch.float32
@@ -46,8 +52,16 @@ def li(med: MediumArrays, lights: list, o, d, lam, rng, *, maj_res,
     t_inf = torch.full((N,), torch.inf, dtype=f32, device=dev)
     g = med.g
 
+    def draw(mask):
+        nonlocal rng
+        if uniform_source is not None:
+            return uniform_source.next()
+        rng, u = dda.pcg_uniform_masked(rng, mask)
+        return u
+
     bounce = 0
-    while bounce <= max_depth and bool(torch.any(active)):
+    while bounce <= max_depth and (uniform_source is not None
+                                   or bool(torch.any(active))):
         # stage 1: march to the next real event
         res = dda.delta_track(med, o, d, t_inf, beta, r_u, r_l, rng, active,
                               maj_res, collect_emission=True,
@@ -77,9 +91,7 @@ def li(med: MediumArrays, lights: list, o, d, lam, rng, *, maj_res,
         wo = -d
 
         # stage 2: next-event estimation
-        rng, u1 = dda.pcg_uniform_masked(rng, sc)
-        rng, u2a = dda.pcg_uniform_masked(rng, sc)
-        rng, u2b = dda.pcg_uniform_masked(rng, sc)
+        u1, u2a, u2b = draw(sc), draw(sc), draw(sc)
         ls, is_delta = lights_mod.sample_one_light(
             lights, p, u1, torch.stack([u2a, u2b], -1), lam)
         f_hat = phase_ops.hg_phase(wo, ls.wi, g)
@@ -97,8 +109,7 @@ def li(med: MediumArrays, lights: list, o, d, lam, rng, *, maj_res,
         L = L + torch.where((nee_ok & (denom_nee > 0))[:, None], nee, 0.0)
 
         # stage 3: the phase-function direction sample
-        rng, u3a = dda.pcg_uniform_masked(rng, sc)
-        rng, u3b = dda.pcg_uniform_masked(rng, sc)
+        u3a, u3b = draw(sc), draw(sc)
         wi, ps_pdf = phase_ops.sample_hg(wo, torch.stack([u3a, u3b], -1), g)
         # beta *= p / pdf == 1 for HG; r_l = r_u / ps_pdf
         r_l = torch.where(sc[:, None], r_u / torch.clamp(

@@ -176,11 +176,11 @@ class SubsurfaceMaterial:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "SubsurfaceMaterial: not ported yet: its BSSRDF "
-            "(models/bssrdf.py) is ROADMAP Queue 1 item 7")
+            "(models/bssrdf.py) is ROADMAP Queue 1 item 1")
 
 
 class MeasuredMaterial:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "MeasuredMaterial: not ported yet: the measured BRDF "
-            "(models/measured.py) is ROADMAP Queue 1 item 7")
+            "(models/measured.py) is ROADMAP Queue 1 item 1")

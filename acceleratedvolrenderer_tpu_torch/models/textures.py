@@ -110,7 +110,7 @@ class ImageTexture:
         if filtered:
             raise NotImplementedError(
                 "ImageTexture(filtered=True): not ported yet: the MIP map "
-                "(models/mipmap.py) is ROADMAP Queue 1 item 7")
+                "(models/mipmap.py) is ROADMAP Queue 1 item 1")
         img = np.array(image, np.float32)
         if img.ndim == 2:
             img = img[..., None]

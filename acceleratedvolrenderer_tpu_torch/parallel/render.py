@@ -1,8 +1,8 @@
 """Render entry points
 (port of acceleratedvolrenderer_tpu/parallel/render.py: work_stride_for,
 make_wave_renderer, make_regen_renderer, render_regen, render,
-render_with_aovs, render_gbuffer, render_spectral, make_graph_wave_renderer
-and render_graph).
+render_lightpath, render_with_aovs, render_gbuffer, render_spectral,
+make_graph_wave_renderer and render_graph).
 
 Every entry point runs on the CUDA card unless given another `device`
 (utils/device.py::resolve)."""
@@ -376,6 +376,46 @@ def render(scene, spp: Optional[int] = None, progress: bool = False, *,
                  "rays_per_sec": H * W * spp / dt,
                  "iterations": sum(chunk_iterations),
                  "chunk_iterations": chunk_iterations}
+
+
+def render_lightpath(scene, spp: Optional[int] = None, n_paths_per_wave=None,
+                     *, device=None):
+    """The LightPath integrator's renderer: each wave traces H*W light paths
+    (or n_paths_per_wave) and splats them through the camera
+    (models/integrators/light_path.py); the image is the splat sum over the
+    number of traced paths.  Returns ((H, W, 3) numpy image, stats)."""
+    from ..models.integrators import light_path as lp_mod
+    from ..utils import colorspace
+
+    dev = resolve(device)
+    scene = scene.to(dev)
+    spp = spp if spp is not None else scene.spp
+    H, W = scene.height, scene.width
+    n_paths = n_paths_per_wave or (H * W)
+    pidx = torch.arange(n_paths, dtype=torch.int64, device=dev)
+    splat = torch.zeros((H * W + 1, 3), dtype=torch.float32, device=dev)
+    _sync(dev)
+    t0 = time.time()
+    for s in range(spp):
+        rng = dda.seed_stream(pidx, torch.full_like(pidx, s),
+                              salt=scene.seed + 17)
+        rng, ul = dda.pcg_uniform(rng)
+        swl = sp.sample_wavelengths_visible(ul)
+        pix, val, _ = lp_mod.trace_light_paths(
+            tuple(scene.primitives), scene.lights, scene.camera, n_paths,
+            swl.lam, rng, max_depth=scene.max_depth,
+            light_strategy=scene.light_sampler)
+        reps = pix.shape[0] // n_paths
+        swl_r = sp.SampledWavelengths(swl.lam.repeat(reps, 1),
+                                      swl.pdf.repeat(reps, 1))
+        rgb = torch.nan_to_num(colorspace.xyz_to_rgb(sp.to_xyz(val, swl_r)),
+                               nan=0.0, posinf=0.0, neginf=0.0)
+        # invalid splats land in the last row, which the image drops
+        flat = torch.where(pix[:, 0] >= 0, pix[:, 1] * W + pix[:, 0], H * W)
+        splat.index_add_(0, flat, rgb)
+    img = (splat[:H * W].reshape(H, W, 3) / (spp * n_paths)).cpu().numpy()
+    dt = time.time() - t0
+    return img, {"render_time": dt, "spp": spp, "n_paths": spp * n_paths}
 
 
 def render_with_aovs(scene, spp: Optional[int] = None, *, device=None):

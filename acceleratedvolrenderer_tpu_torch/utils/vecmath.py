@@ -89,6 +89,9 @@ class Transform(NamedTuple):
     def to(self, device):
         return Transform(self.m.to(device), self.m_inv.to(device))
 
+    def inverse(self) -> "Transform":
+        return Transform(self.m_inv, self.m)
+
     def _mat3_vec(self, m, v):
         return (v[..., 0:1] * m[:3, 0] + v[..., 1:2] * m[:3, 1]
                 + v[..., 2:3] * m[:3, 2])

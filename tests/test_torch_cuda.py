@@ -727,3 +727,42 @@ def test_cli_scene_file_matches_cpu(dev, tmp_path):
         assert (march.launches, gather.launches) == want
         imgs.append(read_exr(out)[0])
     _assert_frames_close(*imgs)
+
+
+@pytest.mark.parametrize("integ", ["lightpath", "bdpt", "sppm", "mlt"])
+def test_cli_other_integrators_match_cpu(dev, tmp_path, integ):
+    """cli/pbrt.py --integrator lightpath / bdpt / sppm / mlt on a 32x24
+    file (chip_smoke.room_file_text; the fog box for BDPT) on the card and
+    with --cpu, at chip_smoke.INTEG_MEAN_TOL and INTEG_PIXEL_SHARE (see
+    their comment); MLT, whose chain may part on an accept that rounds the
+    other way, by the reference's 15% mean gate.  No kernel launches."""
+    import contextlib
+    import io
+
+    from acceleratedvolrenderer_tpu_torch.cli import pbrt
+    from acceleratedvolrenderer_tpu_torch.ops import dma_gather
+    from acceleratedvolrenderer_tpu_torch.utils.image import read_exr
+
+    cs = _chip_smoke()
+    path = tmp_path / "s.pbrt"
+    path.write_text(cs.fog_box_file_text(24, 1) if integ == "bdpt"
+                    else cs.room_file_text(32, 24))
+    imgs = []
+    for extra in ([], ["--cpu"]):
+        out = str(tmp_path / f"o{len(extra)}.exr")
+        march.launches = gather.launches = dma_gather.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert pbrt.main([str(path), "--integrator", integ, "-o", out,
+                              *extra]) == 0
+        assert (march.launches, gather.launches, dma_gather.launches) == (
+            0, 0, 0)
+        imgs.append(read_exr(out)[0][..., :3])
+    gpu, cpu = imgs
+    assert np.isfinite(gpu).all() and gpu.mean() > 0
+    rel = abs(gpu.mean() - cpu.mean()) / cpu.mean()
+    if integ == "mlt":
+        assert rel < 0.15
+    else:
+        assert rel < cs.INTEG_MEAN_TOL
+        close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-5).all(-1).mean()
+        assert close >= cs.INTEG_PIXEL_SHARE

@@ -473,7 +473,7 @@ def test_unknown_texture_class_warns():
 
 
 def test_measured_material_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         tparser.PbrtParser(device="cpu").parse_string(
             'WorldBegin\nMaterial "measured" "string filename" "x.bsdf"\n')
 

@@ -311,15 +311,15 @@ def test_light_sampling_matches_jax(strategy):
 def test_filtered_texture_and_item_7_materials_raise():
     """What the port still refuses: the filtered image texture (the MIP
     map) and the subsurface and measured materials (ROADMAP Queue 1 item
-    7).  Every sampler and light of the reference is ported."""
+    1).  Every sampler and light of the reference is ported."""
     for kind in tsamplers.KINDS:
         tsamplers.film_sample(kind, torch.zeros(4, dtype=torch.int64),
                               torch.zeros(4, dtype=torch.int64), 4)
     tl.ImageInfiniteLight(np.ones((2, 4, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         tt.ImageTexture(np.ones((2, 2, 3), np.float32), filtered=True)
     for cls in (tm.SubsurfaceMaterial, tm.MeasuredMaterial):
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
             cls()
 
 
