@@ -57,7 +57,7 @@ def radial_average(spec: np.ndarray, n_bins: int = 32):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser("avrt-pspec")
+    ap = argparse.ArgumentParser("avrt-torch-pspec")
     ap.add_argument("sampler", help="|".join(samplers.KINDS))
     ap.add_argument("--npoints", type=int, default=64)
     ap.add_argument("--resolution", type=int, default=64)

@@ -67,6 +67,8 @@ class Subpath(NamedTuple):
     kind: torch.Tensor      # (N, V) material kind (surfaces only)
     spec: torch.Tensor      # (N, V) bool: a delta-lobe-sampled vertex
     prm: dict               # key -> (N, V, ...) material parameters
+    lam: torch.Tensor = None    # (N, LANES) wavelengths (measured BRDFs)
+    measured: tuple = ()        # the measured-BRDF registry
 
     def _surf_f_pdf(self, k: int, w, adjoint: bool = False):
         """(f, pdf) of the vertex-k BSDF toward w, wo back along the
@@ -77,7 +79,8 @@ class Subpath(NamedTuple):
         wo_l = vmu.to_local(bx, by, bz, -self.wi[:, k])
         wi_l = vmu.to_local(bx, by, bz, w)
         prm_k = {key: v[:, k] for key, v in self.prm.items()}
-        f, p = _bsdf_f_pdf(self.kind[:, k], prm_k, wo_l, wi_l)
+        f, p = _bsdf_f_pdf(self.kind[:, k], prm_k, wo_l, wi_l, self.lam,
+                           self.measured)
         if adjoint:
             is_diel = self.kind[:, k] == materials_mod.KIND_DIELECTRIC
             transmitted = (wo_l[..., 2] * wi_l[..., 2] < 0) & is_diel
@@ -129,7 +132,9 @@ def _walk(med, o, d, beta0, rng, n_vertices, maj_res, homogeneous, pdf0,
     LANES = beta0.shape[-1]
     V = n_vertices
     has_surf = len(prims) > 0
-    coated = (mat_static or {}).get("coated_stochastic", False)
+    ms = mat_static or {}
+    coated = ms.get("coated_stochastic", False)
+    m_lam, m_tables = ms.get("lam"), ms.get("measured", ())
     z = lambda *shape, dtype=torch.float32: torch.zeros(
         (N, V) + shape, dtype=dtype, device=dev)
     p_all, wi_all, n_all = z(3), z(3), z(3)
@@ -212,8 +217,8 @@ def _walk(med, o, d, beta0, rng, n_vertices, maj_res, homogeneous, pdf0,
             rng, ulobe = dda.pcg_uniform_masked(rng, sc)
             bx, by, bz = vmu.frame_from_z(n_true)
             wo_l = vmu.to_local(bx, by, bz, -cur_d)
-            bs = _bsdf_sample(kind_ids, prm_k, wo_l, ulobe, u2,
-                              coated_stochastic=coated)
+            bs = _bsdf_sample(kind_ids, prm_k, wo_l, ulobe, u2, m_lam,
+                              m_tables, coated_stochastic=coated)
             wi_s = vmu.from_local(bx, by, bz, bs.wi)
             cos_s = torch.abs(bs.wi[..., 2])
             ok_s = (bs.pdf > 0) & (bs.f > 0).any(-1)
@@ -244,7 +249,7 @@ def _walk(med, o, d, beta0, rng, n_vertices, maj_res, homogeneous, pdf0,
                 wo_new_l = vmu.to_local(bx, by, bz, torch.where(
                     surf_rev[:, None], wi_s, wi))
                 _, p_back = _bsdf_f_pdf(kind_ids, prm_k, wo_new_l,
-                                        wi_back_l)
+                                        wi_back_l, m_lam, m_tables)
                 rev_sa = torch.where(surf_rev, p_back, rev_sa)
                 prev_conv = torch.where(
                     surf_all[:, k - 1],
@@ -267,7 +272,8 @@ def _walk(med, o, d, beta0, rng, n_vertices, maj_res, homogeneous, pdf0,
         active = sc
 
     return (Subpath(p_all, wi_all, beta_all, valid_all, pdf_fwd, pdf_rev,
-                    surf_all, n_all, kind_all, spec_all, prm_all),
+                    surf_all, n_all, kind_all, spec_all, prm_all,
+                    m_lam, m_tables),
             rng, L_emit)
 
 
@@ -367,7 +373,8 @@ def render_bdpt(scene, max_depth: int = 4, spp: int = 8,
 
     def mat_fn_of(lam):
         """(mat_fn, mat_static): the per-hit parameter gather and the
-        static context the BSDF sampler needs."""
+        static context the BSDF sampler needs (the wavelengths, the
+        measured-BRDF registry, the stochastic-coated flag)."""
         if not has_surf:
             return None, None
         probe = _gather_mat_params(opaque, lam[:1],
@@ -381,7 +388,8 @@ def render_bdpt(scene, max_depth: int = 4, spp: int = 8,
                    if k not in ("kind", "emissive") and not k.startswith("_")}
             return _take(stacks["kind"], mid), prm
 
-        return mat_fn, {"coated_stochastic": probe["_coated_stochastic"]}
+        return mat_fn, {"lam": lam, "measured": probe["_measured_tables"],
+                        "coated_stochastic": probe["_coated_stochastic"]}
 
     def no_hit(a):
         return torch.zeros((a.shape[0],), dtype=torch.bool, device=dev)

@@ -181,7 +181,8 @@ def trace_light_paths(prims: tuple, lights: list, camera, n_paths: int, lam,
         wo_l = vmu.to_local(bx, by, bz, wo)
         to_cam = vmu.normalize(cam_p - p_hit)
         wi_l = vmu.to_local(bx, by, bz, to_cam)
-        f_cam, _ = _bsdf_f_pdf(kind_ids, prm, wo_l, wi_l)
+        f_cam, _ = _bsdf_f_pdf(kind_ids, prm, wo_l, wi_l, lam,
+                               stacks["_measured_tables"])
         cos_cam_s = torch.abs(wi_l[..., 2])
         p_off = p_hit + hit.n * torch.where(
             vmu.dot(hit.n, to_cam) > 0, _SURF_EPS, -_SURF_EPS)[:, None]
@@ -190,7 +191,8 @@ def trace_light_paths(prims: tuple, lights: list, camera, n_paths: int, lam,
         # continue the walk
         u_lobe = src.next(shade)
         u2 = torch.stack([src.next(shade), src.next(shade)], -1)
-        bs = _bsdf_sample(kind_ids, prm, wo_l, u_lobe, u2)
+        bs = _bsdf_sample(kind_ids, prm, wo_l, u_lobe, u2, lam,
+                          stacks["_measured_tables"])
         cos_b = torch.abs(bs.wi[..., 2])
         ok_b = shade & (bs.pdf > 0) & (bs.f > 0).any(-1)
         beta = torch.where(ok_b[:, None], beta * bs.f * (

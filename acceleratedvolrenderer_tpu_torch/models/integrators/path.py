@@ -6,9 +6,10 @@ material polymorphism is masked evaluation over the static BxDF families
 (models/bxdfs.py), gathered from per-primitive parameter stacks.  Draws
 come through a uniform source, in the reference's order: a `PCGSource` over
 the per-ray PCG streams, or for `li_path` a samplers.PathSampler or the MLT
-integrator's `VectorSource`.  The measured material and the subsurface walk
-(their modules) are not ported: a scene with a subsurface or measured
-primitive cannot be built (materials.py raises).
+integrator's `VectorSource`.  A measured material's lanes go through its
+BRDF's tables (models/measured.py, one registry slot per distinct BRDF);
+a subsurface hit samples an exit point (models/bssrdf.py) and continues
+from it as a Lambertian vertex.
 """
 from __future__ import annotations
 
@@ -65,16 +66,17 @@ def _uv_hash(uv):
     return (bits % 65536).to(torch.float32) / 65536.0
 
 
-def _mat_param_row(m, lam, uv, N, p=None, n=None):
+def _mat_param_row(m, lam, uv, N, p=None, n=None, mreg=None):
     """The parameters of ONE material at the hit points, each (N, ...);
     MixMaterial resolves per lane by hashing the hit uv against `amount`
-    (materials.h MixMaterial::ChooseMaterial)."""
+    (materials.h MixMaterial::ChooseMaterial).  mreg maps id(measured
+    BRDF) to its registry slot."""
     dev = lam.device
     L = lam.shape[-1]
     zeros_s = torch.zeros((N, L), device=dev)
     if isinstance(m, materials_mod.MixMaterial):
-        a = _mat_param_row(m.m1, lam, uv, N, p, n)
-        b = _mat_param_row(m.m2, lam, uv, N, p, n)
+        a = _mat_param_row(m.m1, lam, uv, N, p, n, mreg)
+        b = _mat_param_row(m.m2, lam, uv, N, p, n, mreg)
         h = (_uv_hash(uv) if uv is not None
              else torch.zeros((N,), device=dev))
         pick_a = h < m.amount
@@ -85,8 +87,20 @@ def _mat_param_row(m, lam, uv, N, p=None, n=None):
     spectral = lambda v: materials_mod._eval_spectral(v, lam, uv, p, n)
     full = lambda v: torch.full((N,), float(v), device=dev)
     conductor = kind == materials_mod.KIND_CONDUCTOR
+    if kind == materials_mod.KIND_SUBSURFACE:
+        rgb = lambda v: torch.as_tensor(
+            np.asarray(v, np.float32), device=dev).expand(N, 3)
+        ss_albedo, ss_ell = rgb(m.reflectance_rgb), rgb(m.mfp_rgb)
+    else:
+        ss_albedo = torch.zeros((N, 3), device=dev)
+        ss_ell = torch.full((N, 3), 1e-3, device=dev)
+    slot = -1
+    if kind == materials_mod.KIND_MEASURED and mreg is not None:
+        slot = mreg.get(id(m.brdf), -1)
     return dict(
         kind=torch.full((N,), int(kind), dtype=torch.int64, device=dev),
+        measured_slot=torch.full((N,), slot, dtype=torch.int64, device=dev),
+        ss_albedo=ss_albedo, ss_ell=ss_ell,
         albedo=spectral(getattr(m, "reflectance", None)),
         refl=spectral(getattr(m, "reflectance", None)),
         trans=spectral(getattr(m, "transmittance", None)),
@@ -112,13 +126,32 @@ def _any_stochastic(m):
     return bool(getattr(m, "stochastic", False))
 
 
+def _collect_measured(m, registry):
+    """Add m's measured BRDFs (through MixMaterials) to registry, a pair
+    ({id(brdf): slot}, [brdf, ...])."""
+    if isinstance(m, materials_mod.MixMaterial):
+        _collect_measured(m.m1, registry)
+        _collect_measured(m.m2, registry)
+    elif getattr(m, "kind", None) == materials_mod.KIND_MEASURED:
+        if id(m.brdf) not in registry[0]:
+            registry[0][id(m.brdf)] = len(registry[1])
+            registry[1].append(m.brdf)
+
+
 def _gather_mat_params(opaque, lam, uv, N, p=None, n=None):
     """Per-primitive parameter stacks: a dict of (M, N, ...) tensors, with
-    `kind` per lane (M, N) so a MixMaterial resolves per hit, the python
-    `emissive` flags and `_coated_stochastic`."""
-    rows = [_mat_param_row(pr.material, lam, uv, N, p, n) for pr in opaque]
+    `kind` per lane (M, N) so a MixMaterial resolves per hit; the python
+    `emissive` flags; and, under keys starting with "_", python objects:
+    `_measured_tables` (the measured BRDFs by registry slot) and
+    `_coated_stochastic`."""
+    registry = ({}, [])
+    for pr in opaque:
+        _collect_measured(pr.material, registry)
+    rows = [_mat_param_row(pr.material, lam, uv, N, p, n, registry[0])
+            for pr in opaque]
     out = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
     out["emissive"] = [bool(pr.material.emissive) for pr in opaque]
+    out["_measured_tables"] = tuple(registry[1])
     out["_coated_stochastic"] = any(_any_stochastic(pr.material)
                                     for pr in opaque)
     return out
@@ -146,8 +179,10 @@ _KINDS = (materials_mod.KIND_DIFFUSE, materials_mod.KIND_CONDUCTOR,
           materials_mod.KIND_COATED_DIFFUSE)
 
 
-def _bsdf_sample(kind_ids, prm, wo_l, u_lobe, u2, coated_stochastic=False):
-    """Masked-select BSDF sampling over the static lobe families."""
+def _bsdf_sample(kind_ids, prm, wo_l, u_lobe, u2, lam=None, measured=(),
+                 coated_stochastic=False):
+    """Masked-select BSDF sampling over the static lobe families; the
+    lanes of measured registry slot i sample measured[i] (at lam)."""
     s_dif = bxdfs.diffuse_sample(wo_l, u2, prm["albedo"])
     s_con = bxdfs.conductor_sample(wo_l, u2, prm["eta_c"], prm["k_c"],
                                    prm["alpha"])
@@ -183,12 +218,33 @@ def _bsdf_sample(kind_ids, prm, wo_l, u_lobe, u2, coated_stochastic=False):
         s_cod = bxdfs.BSDFSample(*(torch.where(
             stoch[:, None] if a.dim() == 2 else stoch, a, b)
             for a, b in zip(s_wsel, s_cod)))
-    return _select([s_dif, s_con, s_die, s_thn, s_dft, s_cod], _KINDS,
-                   kind_ids)
+    out = _select([s_dif, s_con, s_die, s_thn, s_dft, s_cod], _KINDS,
+                  kind_ids)
+    if measured and lam is not None:
+        from .. import measured as measured_mod
+
+        for slot, brdf in enumerate(measured):
+            sel = _measured_lanes(kind_ids, prm, slot)
+            wi_m, f_m, p_m, valid_m = measured_mod.measured_sample(
+                brdf, wo_l, u2, lam)
+            out = bxdfs.BSDFSample(
+                torch.where(sel[:, None], wi_m, out.wi),
+                torch.where(sel[:, None], f_m, out.f),
+                torch.where(sel, torch.where(valid_m, p_m, 0.0), out.pdf),
+                torch.where(sel, False, out.specular),
+                torch.where(sel, 1.0, out.eta_scale),
+                torch.where(sel, False, out.transmitted))
+    return out
 
 
-def _bsdf_f_pdf(kind_ids, prm, wo_l, wi_l):
-    """Masked-select f and pdf over the lobe families (delta lobes: 0)."""
+def _measured_lanes(kind_ids, prm, slot):
+    return ((kind_ids == materials_mod.KIND_MEASURED)
+            & (prm["measured_slot"] == slot))
+
+
+def _bsdf_f_pdf(kind_ids, prm, wo_l, wi_l, lam=None, measured=()):
+    """Masked-select f and pdf over the lobe families (delta lobes: 0);
+    the lanes of measured registry slot i evaluate measured[i]."""
     f_dif = bxdfs.diffuse_f(wo_l, wi_l, prm["albedo"])
     p_dif = bxdfs.diffuse_pdf(wo_l, wi_l)
     f_con = bxdfs.conductor_f(wo_l, wi_l, prm["eta_c"], prm["k_c"],
@@ -211,6 +267,15 @@ def _bsdf_f_pdf(kind_ids, prm, wo_l, wi_l):
         sel = kind_ids == kid
         f = torch.where(sel[:, None], fi, f)
         p = torch.where(sel, pi, p)
+    if measured and lam is not None:
+        from .. import measured as measured_mod
+
+        for slot, brdf in enumerate(measured):
+            sel = _measured_lanes(kind_ids, prm, slot)
+            f = torch.where(sel[:, None],
+                            measured_mod.measured_f(brdf, wo_l, wi_l, lam), f)
+            p = torch.where(sel, measured_mod.measured_pdf(brdf, wo_l, wi_l),
+                            p)
     return f, p
 
 
@@ -237,6 +302,41 @@ def _side(n, w):
     return torch.where(vmu.dot(n, w) > 0, _SURF_EPS, -_SURF_EPS)[:, None]
 
 
+def _subsurface_exit(src, opaque, hit, mid, p_hit, wo, surf, kind_ids, prm,
+                     lam, tab):
+    """The subsurface branch of li_path (SeparableBSSRDF exit sampling,
+    cpu/integrators.cpp:526-592, reshaped): a subsurface hit moves to a
+    profile-sampled exit point on the same primitive and goes on as a
+    Lambertian vertex whose albedo carries (1 - F(wo)) and the
+    channel-MIS profile weight, Smits-converted.  Draws u_ch, u_r, u_phi
+    on the subsurface lanes; updates prm["albedo"] in place and returns
+    (p_hit, hit, kind_ids)."""
+    from .. import bssrdf as bssrdf_mod
+    from ...utils import spectrum as sp
+
+    is_ss = surf & (kind_ids == materials_mod.KIND_SUBSURFACE)
+    u_ch = src.next(is_ss)
+    u_r = src.next(is_ss)
+    u_phi = src.next(is_ss)
+    n_entry = vmu.face_forward(hit.n, wo)
+    if tab is not None:
+        exit_p, exit_n, w_rgb, _ = bssrdf_mod.sample_exit_tabulated(
+            opaque, mid, p_hit, n_entry, tab, u_ch, u_r, u_phi)
+    else:
+        exit_p, exit_n, w_rgb, _ = bssrdf_mod.sample_exit(
+            opaque, mid, p_hit, n_entry, prm["ss_albedo"], prm["ss_ell"],
+            u_ch, u_r, u_phi)
+    f_o = bxdfs.fresnel_dielectric(torch.abs(vmu.dot(n_entry, wo)),
+                                   prm["eta_d"])
+    w_spec = (sp.rgb_to_spectrum_smits_batched(
+        torch.clamp(w_rgb, min=0.0), lam) * (1.0 - f_o)[:, None])
+    ss3 = is_ss[:, None]
+    prm["albedo"] = torch.where(ss3, w_spec, prm["albedo"])
+    return (torch.where(ss3, exit_p, p_hit),
+            hit._replace(n=torch.where(ss3, exit_n, hit.n)),
+            torch.where(is_ss, materials_mod.KIND_DIFFUSE, kind_ids))
+
+
 def li_path(prims: tuple, lights: list, o, d, lam, rng, *, max_depth: int = 5,
             light_strategy: str = "uniform", regularize: bool = False,
             uniform_source=None, nee: bool = True, mis: bool = True):
@@ -254,6 +354,21 @@ def li_path(prims: tuple, lights: list, o, d, lam, rng, *, max_depth: int = 5,
     lights_all = scene_lights_with_area(lights, opaque)
     emitters = tuple(pp for pp in opaque if pp.material.emissive)
     non_emitters = tuple(pp for pp in opaque if not pp.material.emissive)
+    ss_mats = [pp.material for pp in opaque
+               if getattr(pp.material, "kind", 0)
+               == materials_mod.KIND_SUBSURFACE]
+    ss_tab = None
+    # the tabulated beam diffusion profile when the scene's one subsurface
+    # material asks for it; several subsurface materials take Burley's
+    if len(ss_mats) == 1 and getattr(ss_mats[0], "profile",
+                                     "burley") == "tabulated":
+        from .. import bssrdf as bssrdf_mod
+
+        m0 = ss_mats[0]
+        ss_tab = bssrdf_mod.tabulated_channel_arrays(
+            bssrdf_mod.compute_beam_diffusion_table(
+                g=float(getattr(m0, "g", 0.0)), eta=float(m0.eta)),
+            np.asarray(m0.reflectance_rgb), np.asarray(m0.mfp_rgb), dev)
 
     L = torch.zeros_like(lam)
     beta = torch.ones_like(lam)
@@ -294,6 +409,11 @@ def li_path(prims: tuple, lights: list, o, d, lam, rng, *, max_depth: int = 5,
         prm = {k: _take(v, mid) for k, v in stacks.items()
                if k not in ("kind", "emissive") and not k.startswith("_")}
         emissive_mask = torch.tensor(stacks["emissive"], device=dev)[mid]
+        measured = stacks["_measured_tables"]
+        if ss_mats:
+            p_hit, hit, kind_ids = _subsurface_exit(
+                src, opaque, hit, mid, p_hit, wo, surf, kind_ids, prm, lam,
+                ss_tab)
 
         # ---- an emissive hit (one-sided), MIS against NEE ----
         hit_emit = surf & emissive_mask & (vmu.dot(hit.n, wo) > 0)
@@ -319,7 +439,8 @@ def li_path(prims: tuple, lights: list, o, d, lam, rng, *, max_depth: int = 5,
                 lights_all, p_hit + n_g * _side(n_g, wo), u1, u2, lam,
                 strategy=light_strategy)
             wi_l_nee = vmu.to_local(bx, by, bz, ls.wi)
-            f_nee, pdf_b_nee = _bsdf_f_pdf(kind_ids, prm, wo_l, wi_l_nee)
+            f_nee, pdf_b_nee = _bsdf_f_pdf(kind_ids, prm, wo_l, wi_l_nee,
+                                           lam, measured)
             if stacks["_coated_stochastic"]:
                 # stochastic coated lanes evaluate the slab-aware layered
                 # BRDF that their walk samples (the reference's
@@ -362,7 +483,7 @@ def li_path(prims: tuple, lights: list, o, d, lam, rng, *, max_depth: int = 5,
             # non-specular bounce
             prm_s = dict(prm, alpha=torch.where(
                 spec_prev, prm["alpha"], torch.clamp(prm["alpha"], min=0.3)))
-        bs = _bsdf_sample(kind_ids, prm_s, wo_l, u_lobe, u2b,
+        bs = _bsdf_sample(kind_ids, prm_s, wo_l, u_lobe, u2b, lam, measured,
                           coated_stochastic=stacks["_coated_stochastic"])
         cos_b = torch.abs(bs.wi[..., 2])
         ok_b = shade & (bs.pdf > 0) & (bs.f > 0).any(-1)

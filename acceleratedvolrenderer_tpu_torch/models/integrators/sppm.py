@@ -125,7 +125,8 @@ def _camera_pass(prims, lights, cam, pix, pixidx, lam, rng, *, max_depth,
             lights_all, p_hit + n_g * _side(n_g, wo), u1, u2, lam,
             strategy=light_strategy)
         wi_l_nee = vmu.to_local(bx, by, bz, ls.wi)
-        f_nee, _ = _bsdf_f_pdf(kind_ids, prm, wo_l, wi_l_nee)
+        f_nee, _ = _bsdf_f_pdf(kind_ids, prm, wo_l, wi_l_nee, lam,
+                               stacks["_measured_tables"])
         cos_nee = torch.abs(wi_l_nee[..., 2])
         p_off = p_hit + n_g * _side(n_g, ls.wi)
         occl = shapes_mod.occluded(non_emitters, p_off, ls.wi, ls.dist)
@@ -155,7 +156,8 @@ def _camera_pass(prims, lights, cam, pix, pixidx, lam, rng, *, max_depth,
         cont = shade & ~store_now
         u_lobe = src.next(cont)
         u2b = torch.stack([src.next(cont), src.next(cont)], -1)
-        bs = _bsdf_sample(kind_ids, prm, wo_l, u_lobe, u2b)
+        bs = _bsdf_sample(kind_ids, prm, wo_l, u_lobe, u2b, lam,
+                          stacks["_measured_tables"])
         cos_b = torch.abs(bs.wi[..., 2])
         ok_b = cont & (bs.pdf > 0) & (bs.f > 0).any(-1)
         beta = torch.where(ok_b[:, None], beta * bs.f * (
@@ -269,7 +271,8 @@ def _photon_pass(prims, lights, n_photons, lam, rng, vp, radius, *,
         wo_l = vmu.to_local(bx, by, bz, -d_cur)
         u_lobe = src.next(shade)
         u2b = torch.stack([src.next(shade), src.next(shade)], -1)
-        bs = _bsdf_sample(kind_ids, prm, wo_l, u_lobe, u2b)
+        bs = _bsdf_sample(kind_ids, prm, wo_l, u_lobe, u2b, lam_p,
+                          stacks["_measured_tables"])
         cos_b = torch.abs(bs.wi[..., 2])
         ok_b = shade & (bs.pdf > 0) & (bs.f > 0).any(-1)
         beta_new = beta * bs.f * (cos_b / torch.clamp(bs.pdf,

@@ -5,14 +5,14 @@ material = None on a primitive is a transparent medium interface.  There is
 no per-ray dispatch: the integrators stack every primitive's parameters and
 select per lane by the material's `kind`.  A reflectance-like parameter is
 a number, a callable of the wavelengths, or a texture of models/textures.py
-evaluated at the hit.  The subsurface and measured materials (their BSSRDF
-and measured-BRDF modules) are not ported and raise.
+evaluated at the hit.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 KIND_DIFFUSE = 0
@@ -172,15 +172,41 @@ class MixMaterial:
         return getattr(self.m1, "kind", KIND_DIFFUSE)
 
 
-class SubsurfaceMaterial:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SubsurfaceMaterial: not ported yet: its BSSRDF "
-            "(models/bssrdf.py) is ROADMAP Queue 1 item 1")
+@dataclass(frozen=True)
+class SubsurfaceMaterial(_Emissive):
+    """Subsurface scattering (materials.h subsurface, bssrdf.{h,cpp}):
+    a diffusion BSSRDF given by its diffuse reflectance and mean free path
+    per RGB channel.  models/bssrdf.py samples the exit point; path.py
+    continues from it as a Lambertian vertex."""
+    reflectance_rgb: tuple = (0.5, 0.5, 0.5)
+    mfp_rgb: tuple = (0.01, 0.01, 0.01)
+    eta: float = 1.33
+    #: "burley" = normalized diffusion; "tabulated" = the photon beam
+    #: diffusion table (bssrdf.compute_beam_diffusion_table)
+    profile: str = "burley"
+    g: float = 0.0
+    emission: Optional[Callable] = None
+    emission_scale: float = 1.0
+
+    kind = KIND_SUBSURFACE
+
+    @property
+    def reflectance(self):
+        """The albedo an integrator without a BSSRDF walk uses (the fused
+        volumetric surface branch): mean(reflectance_rgb)."""
+        return float(np.mean(self.reflectance_rgb))
 
 
-class MeasuredMaterial:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MeasuredMaterial: not ported yet: the measured BRDF "
-            "(models/measured.py) is ROADMAP Queue 1 item 1")
+@dataclass(frozen=True)
+class MeasuredMaterial(_Emissive):
+    """A measured BRDF (materials.h MeasuredMaterial, bxdfs.h
+    MeasuredBxDF): the RGL .bsdf tables of models/measured.py, dispatched
+    per lane through the integrators' measured-table registry."""
+    brdf: object                        # models.measured.MeasuredBRDF
+    filename: str = ""
+    emission: Optional[Callable] = None
+    emission_scale: float = 1.0
+
+    kind = KIND_MEASURED
+    roughness = 1.0                     # never treated as specular
+    eta = 1.5

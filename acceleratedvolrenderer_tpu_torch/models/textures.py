@@ -100,17 +100,14 @@ class MixTexture:
 
 
 class ImageTexture:
-    """Bilinear image lookup, wrap-repeat (pbrt ImageTexture).  The
-    filtered lookup (`filtered=True`, the MIP map of models/mipmap.py) is
-    not ported."""
+    """Bilinear image lookup, wrap-repeat (pbrt ImageTexture).
+    `filtered=True` builds a MIP map (models/mipmap.py: trilinear and
+    fixed-probe EWA) for eval_filtered / eval_ewa, which take the uv
+    footprint a caller tracks from ray differentials."""
 
     def __init__(self, image: np.ndarray, scale: float = 1.0,
                  invert: bool = False, filtered: bool = False,
                  max_anisotropy: float = 8.0):
-        if filtered:
-            raise NotImplementedError(
-                "ImageTexture(filtered=True): not ported yet: the MIP map "
-                "(models/mipmap.py) is ROADMAP Queue 1 item 1")
         img = np.array(image, np.float32)
         if img.ndim == 2:
             img = img[..., None]
@@ -118,6 +115,33 @@ class ImageTexture:
         self.scale = float(scale)
         self.invert = bool(invert)
         self._device_image = {}
+        self.mipmap = None
+        if filtered:
+            from .mipmap import MIPMap
+
+            self.mipmap = MIPMap(img, max_anisotropy=max_anisotropy)
+
+    def _post(self, out):
+        out = out * self.scale
+        if self.invert:
+            out = 1.0 - out
+        if self.image.shape[2] == 1:
+            out = out[..., 0]
+        return out
+
+    def _mip(self):
+        if self.mipmap is None:
+            raise ValueError("ImageTexture: construct with filtered=True "
+                             "for a filtered lookup")
+        return self.mipmap
+
+    def eval_filtered(self, uv, width):
+        """Trilinear MIP lookup (MIPMap::Filter); width = uv footprint."""
+        return self._post(self._mip().lookup_trilinear(uv, width))
+
+    def eval_ewa(self, uv, duv0, duv1):
+        """Anisotropic EWA lookup (MIPMap::EWA)."""
+        return self._post(self._mip().lookup_ewa(uv, duv0, duv1))
 
     def eval(self, uv):
         key = str(uv.device)
@@ -125,7 +149,7 @@ class ImageTexture:
             self._device_image[key] = torch.as_tensor(self.image,
                                                       device=uv.device)
         im = self._device_image[key]
-        H, W, C = im.shape
+        H, W, _ = im.shape
         u = uv[..., 0] % 1.0
         v = uv[..., 1] % 1.0
         x = u * W - 0.5
@@ -136,14 +160,9 @@ class ImageTexture:
         fy = (y - y0)[..., None]
         x0w, x1w = x0 % W, (x0 + 1) % W
         y0w, y1w = y0 % H, (y0 + 1) % H
-        out = ((1 - fy) * ((1 - fx) * im[y0w, x0w] + fx * im[y0w, x1w])
-               + fy * ((1 - fx) * im[y1w, x0w] + fx * im[y1w, x1w]))
-        out = out * self.scale
-        if self.invert:
-            out = 1.0 - out
-        if C == 1:
-            out = out[..., 0]
-        return out
+        return self._post(
+            (1 - fy) * ((1 - fx) * im[y0w, x0w] + fx * im[y0w, x1w])
+            + fy * ((1 - fx) * im[y1w, x0w] + fx * im[y1w, x1w]))
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,10 @@ def hg_phase(wo, wi, g):
     return hg_p(vm.dot(wo, wi), g)
 
 
+def hg_pdf(wo, wi, g):
+    return hg_phase(wo, wi, g)
+
+
 def sample_hg(wo, u, g):
     """Sample wi around wo by exact inversion; returns (wi, pdf)."""
     g = torch.clamp(g, -0.99, 0.99)
@@ -40,3 +44,11 @@ def sample_hg(wo, u, g):
     x, y, z = vm.frame_from_z(wo)
     wi = vm.from_local(x, y, z, wl)
     return wi, hg_p(cos_theta, g)
+
+
+def hg_phase_scalar_np(cos_theta, g):
+    """HG phase value by cos(theta) in numpy float64, for table bakes
+    (util/scattering.h HenyeyGreenstein)."""
+    denom = 1 + g * g + 2 * g * np.asarray(cos_theta)
+    return (1 - g * g) / (4 * np.pi * np.maximum(denom, 1e-9)
+                          * np.sqrt(np.maximum(denom, 1e-9)))

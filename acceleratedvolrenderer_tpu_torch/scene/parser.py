@@ -685,10 +685,11 @@ class PbrtParser:
                 reflectance_rgb=rgb3("reflectance", 0.5),
                 mfp_rgb=rgb3("mfp", 0.01), eta=flt("eta", 1.33))
         if kind == "measured":
-            # the measured BRDF is not ported: MeasuredMaterial raises,
-            # naming its ROADMAP item
+            from ..models import measured as measured_mod
+
             fn = params.get("filename", (None, ['""']))[1][0].strip('"')
-            return mats.MeasuredMaterial(filename=fn)
+            return mats.MeasuredMaterial(
+                brdf=measured_mod.MeasuredBRDF.from_file(fn), filename=fn)
         if kind == "mix":
             names = [v.strip('"') for v in
                      params.get("materials", (None, []))[1]]

@@ -27,8 +27,8 @@ class Scene:
     primitives: List = field(default_factory=list)   # models/shapes.py
     # volpath (default; the fused integrator) | simplevolpath | path |
     # simplepath | randomwalk | ao (models/integrators/path.py, scenes
-    # without a medium) | graph; the reference's lightpath, bdpt, mlt and
-    # sppm are not ported (cli/pbrt.py raises on them)
+    # without a medium) | graph | lightpath | bdpt | sppm | mlt (cli/pbrt.py
+    # runs the last four through their own entries)
     integrator: str = "volpath"
     regularize: bool = False         # widen near-specular lobes (path)
     # wave renderer knobs (--disable-pixel-jitter, --disable-wavelength-

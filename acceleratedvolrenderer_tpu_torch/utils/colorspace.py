@@ -13,6 +13,7 @@ XYZ_TO_SRGB = np.array(
     ],
     np.float32,
 )
+SRGB_TO_XYZ = np.linalg.inv(XYZ_TO_SRGB.astype(np.float64)).astype(np.float32)
 _M = XYZ_TO_SRGB.tolist()   # float32 values, exact as python floats
 
 
@@ -28,3 +29,18 @@ def _mat3(v, m):
     m = torch.as_tensor(m, device=v.device)
     return (v[..., 0:1] * m[:, 0] + v[..., 1:2] * m[:, 1]
             + v[..., 2:3] * m[:, 2])
+
+
+def rgb_to_xyz(rgb):
+    return _mat3(rgb, SRGB_TO_XYZ)
+
+
+def linear_to_srgb(x):
+    x = torch.clamp(x, 0.0, 1.0)
+    return torch.where(x <= 0.0031308, 12.92 * x,
+                       1.055 * torch.pow(x, 1.0 / 2.4) - 0.055)
+
+
+def srgb_to_linear(x):
+    return torch.where(x <= 0.04045, x / 12.92,
+                       torch.pow((x + 0.055) / 1.055, 2.4))

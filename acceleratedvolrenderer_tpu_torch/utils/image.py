@@ -2,8 +2,9 @@
 ImageMetadata, the ZIP-compressed scanline EXR writer write_exr, the
 scanline EXR reader read_exr (NONE, RLE, ZIPS, ZIP and PIZ chunks),
 read_image, write_png, mse / mrse / mae, PFM and QOI), numpy, struct and
-zlib only; PIL is imported by write_png and by read_image of a non-EXR
-file, when they run.  Files are byte-identical to the reference writer's.
+zlib only: PNG files are written and read here too (8-bit gray, gray +
+alpha, RGB and RGBA, non-interlaced).  EXR files are byte-identical to the
+reference writer's.
 """
 from __future__ import annotations
 
@@ -263,16 +264,168 @@ def _rle_decode(data: bytes) -> bytes:
 # PNG / metrics
 # ---------------------------------------------------------------------------
 
-def write_png(path: str, rgb: np.ndarray, tonemap: bool = True):
-    from PIL import Image as PILImage
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# color type -> channels (8-bit samples): gray, RGB, gray + alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 
-    rgb = np.asarray(rgb, np.float32)
-    if tonemap:
-        x = np.clip(rgb, 0.0, 1.0)
-        x = np.where(x <= 0.0031308, 12.92 * x, 1.055 * np.power(np.maximum(x, 1e-8), 1 / 2.4) - 0.055)
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_png(pixels: np.ndarray) -> bytes:
+    """An 8-bit PNG of uint8 pixels (H, W) gray or (H, W, C) with C 1-4
+    (gray, gray + alpha, RGB, RGBA); every row unfiltered (type 0)."""
+    a = np.asarray(pixels, np.uint8)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, c = a.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          a.reshape(h, w * c)], axis=1)
+    return (_PNG_MAGIC
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype,
+                                              0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def _unfilter_row(ftype, row, prev, bpp):
+    """One scanline's bytes with its filter undone (PNG spec 9.2); row and
+    prev uint8 arrays (prev zeros for the first row)."""
+    if ftype == 0:
+        return row
+    if ftype == 2:                                      # Up
+        return (row + prev).astype(np.uint8)
+    if ftype == 1:                                      # Sub
+        r = row.reshape(-1, bpp).astype(np.int64)
+        return (np.cumsum(r, axis=0) % 256).astype(np.uint8).reshape(-1)
+    out = bytearray(row.tobytes())
+    up = prev.tobytes()
+    n = len(out)
+    if ftype == 3:                                      # Average
+        for i in range(n):
+            left = out[i - bpp] if i >= bpp else 0
+            out[i] = (out[i] + ((left + up[i]) >> 1)) & 0xFF
+    elif ftype == 4:                                    # Paeth
+        for i in range(n):
+            a = out[i - bpp] if i >= bpp else 0
+            b = up[i]
+            c = up[i - bpp] if i >= bpp else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            out[i] = (out[i] + pred) & 0xFF
     else:
-        x = np.clip(rgb, 0.0, 1.0)
-    PILImage.fromarray((x * 255.0 + 0.5).astype(np.uint8)).save(path)
+        raise ValueError(f"PNG: unknown filter type {ftype}")
+    return np.frombuffer(bytes(out), np.uint8)
+
+
+# PNG bit depths by color type: gray, RGB, palette, gray + alpha, RGBA
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_samples(rows, w, c, depth):
+    """(h, w, c) samples of unfiltered scanlines rows (h, stride) uint8:
+    uint16 at depth 16, else uint8 (sub-byte samples unpacked, unscaled)."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * c].reshape(h, w, c)
+    if depth == 16:
+        b = rows[:, :2 * w * c].reshape(h, w, c, 2).astype(np.uint16)
+        return (b[..., 0] << 8) | b[..., 1]
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The pixels (H, W, C) of a PNG: gray, gray + alpha, RGB or RGBA as
+    stored, a palette expanded to RGB (RGBA with a tRNS chunk); uint16 for
+    16-bit files, else uint8 (gray of 1, 2 or 4 bits scaled to 8); plain
+    or Adam7-interlaced, all five filter types."""
+    if data[:8] != _PNG_MAGIC:
+        raise ValueError("not a PNG file")
+    pos, idat, hdr, plte, trns = 8, [], None, None, None
+    while pos < len(data):
+        (n,) = struct.unpack_from(">I", data, pos)
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if hdr is None:
+        raise ValueError("PNG: no IHDR chunk")
+    w, h, depth, ctype, _comp, _filt, interlace = hdr
+    if depth not in _PNG_DEPTHS.get(ctype, ()) or interlace > 1:
+        raise ValueError(f"PNG: bit depth {depth}, color type {ctype}, "
+                         f"interlace {interlace} is not a valid PNG")
+    if ctype == 3 and plte is None:
+        raise ValueError("PNG: palette image without a PLTE chunk")
+    c = _PNG_CHANNELS.get(ctype, 1)
+    bpp = max(1, c * depth // 8)            # the filters' byte distance
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    out = np.zeros((h, w, c), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * c * depth + 7) // 8
+        block = raw[pos:pos + ph * (1 + stride)].reshape(ph, 1 + stride)
+        pos += ph * (1 + stride)
+        rows = np.empty((ph, stride), np.uint8)
+        prev = np.zeros(stride, np.uint8)
+        for y in range(ph):
+            prev = rows[y] = _unfilter_row(int(block[y, 0]), block[y, 1:],
+                                           prev, bpp)
+        out[y0::dy, x0::dx] = _png_samples(rows, pw, c, depth)
+    if ctype == 3:
+        idx = out[..., 0]
+        pal = plte
+        if trns is not None:
+            alpha = np.full(len(plte), 255, np.uint8)
+            alpha[:len(trns)] = trns[:len(plte)]
+            pal = np.concatenate([plte, alpha[:, None]], axis=1)
+        return pal[np.minimum(idx, len(pal) - 1)]
+    if ctype == 0 and depth < 8:
+        out *= 255 // ((1 << depth) - 1)
+    return out
+
+
+def read_png(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def png_unit(pixels: np.ndarray) -> np.ndarray:
+    """decode_png's integer pixels as float32 in [0, 1]."""
+    return pixels.astype(np.float32) / np.iinfo(pixels.dtype).max
+
+
+def write_png(path: str, rgb: np.ndarray, tonemap: bool = True):
+    """An 8-bit PNG of a linear image: clipped to [0, 1], sRGB-encoded when
+    tonemap (else stored as is), rounded to 8 bits."""
+    rgb = np.asarray(rgb, np.float32)
+    x = np.clip(rgb, 0.0, 1.0)
+    if tonemap:
+        x = np.where(x <= 0.0031308, 12.92 * x,
+                     1.055 * np.power(np.maximum(x, 1e-8), 1 / 2.4) - 0.055)
+    with open(path, "wb") as f:
+        f.write(encode_png((x * 255.0 + 0.5).astype(np.uint8)))
 
 
 def mse(a: np.ndarray, b: np.ndarray) -> float:
@@ -292,17 +445,20 @@ def mae(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def read_image(path: str):
-    """Generic loader -> (rgb (H, W, 3) float32, attrs dict).  EXR via the
-    native reader; PNG/JPG via PIL with sRGB -> linear decode (matches
-    Image::Read's LinearColorEncoding handling, util/image.cpp)."""
+    """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
+    reader above; PNG decoded here, sRGB -> linear (Image::Read's
+    LinearColorEncoding handling, util/image.cpp).  Other formats (JPEG
+    among them) raise."""
     if path.endswith(".exr"):
         img, _names, attrs = read_exr(path)
         return np.asarray(img[:, :, :3], np.float32), attrs
-    from PIL import Image as PILImage
-
-    x = np.asarray(PILImage.open(path), np.float32) / 255.0
-    if x.ndim == 2:
-        x = np.repeat(x[:, :, None], 3, axis=2)
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _PNG_MAGIC:
+        raise ValueError(f"{path}: only EXR and PNG images are read")
+    x = png_unit(decode_png(data))
+    if x.shape[2] < 3:                  # gray (+ alpha)
+        x = np.repeat(x[:, :, :1], 3, axis=2)
     x = x[:, :, :3]
     lin = np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
     return lin.astype(np.float32), {}

@@ -289,3 +289,132 @@ def named_spectrum(name):
     if name == "illum-acesD60":
         return d_illuminant(6000.0)
     return None
+
+
+# ---------------------------------------------------------------------------
+# RGBSigmoidPolynomial (util/spectrum.h) and the table generator of pbrt's
+# cmd/rgb2spec_opt.cpp.  As in the reference, the whole coefficient lattice
+# is one batched Levenberg-Marquardt fit, every lattice point a lane, here
+# with the closed-form Jacobian of the three coefficients; the error is
+# taken in linear sRGB (the reference's CIELAB and this drive in-gamut
+# residuals to ~0, where the model is exact).
+# ---------------------------------------------------------------------------
+
+_SRGB_XYZ_TO_RGB = np.array([
+    [3.2406, -1.5372, -0.4986],
+    [-0.9689, 1.8758, 0.0415],
+    [0.0557, -0.2040, 1.0570]], np.float64)
+
+
+def sigmoid(x):
+    """s(x) = 1/2 + x / (2 sqrt(1 + x^2)) (RGBSigmoidPolynomial::s)."""
+    return 0.5 + x / (2.0 * torch.sqrt(1.0 + x * x))
+
+
+def sigmoid_polynomial_eval(coeffs, lam):
+    """The sigmoid-polynomial reflectance: coeffs (..., 3) = (c0, c1, c2)
+    over the wavelength in nm, lam (...,) nm; values in (0, 1)."""
+    x = (coeffs[..., 0] * lam + coeffs[..., 1]) * lam + coeffs[..., 2]
+    return sigmoid(x)
+
+
+def _sigmoid_fit_basis(q: int = 95, device="cpu"):
+    """(lam01 (Q,), basis (Q, 3)) on device: the normalized quadrature
+    wavelengths and M_xyz2rgb (xbar, ybar, zbar D65) weights, normalized so
+    that a unit reflectance maps to RGB (1, 1, 1)."""
+    lam_nm = np.linspace(LAMBDA_MIN, LAMBDA_MAX, q)
+    lam01 = (lam_nm - LAMBDA_MIN) / (LAMBDA_MAX - LAMBDA_MIN)
+    lam_t = torch.as_tensor(lam_nm, dtype=torch.float32)
+    ill = d_illuminant()(lam_t).numpy().astype(np.float64)
+    xyz = cie_xyz(lam_t).numpy().astype(np.float64)
+    w = xyz * ill[:, None]
+    w /= (ill * xyz[:, 1]).sum()                       # white -> Y = 1
+    basis = w @ _SRGB_XYZ_TO_RGB.T                     # (Q, 3)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return t(lam01), t(basis)
+
+
+def fit_sigmoid_polynomial(rgb, iters: int = 60, device=None):
+    """Batched Levenberg-Marquardt fit of sigmoid-polynomial coefficients
+    to linear-sRGB reflectances, one lane per colour (rgb2spec_opt.cpp's
+    optimization).  rgb: (N, 3) in [0, 1], a tensor (fitted on its device)
+    or an array (fitted on `device`, the CUDA card by default).  Returns
+    (N, 3) float32 coefficients in the nanometre domain of
+    sigmoid_polynomial_eval."""
+    from .device import resolve
+
+    if not isinstance(rgb, torch.Tensor):
+        rgb = torch.as_tensor(np.asarray(rgb, np.float32),
+                              device=resolve(device))
+    rgb = rgb.to(torch.float32)
+    dev = rgb.device
+    lam01, basis = _sigmoid_fit_basis(device=dev)
+    powers = torch.stack([lam01 * lam01, lam01, torch.ones_like(lam01)])
+
+    def model(c):
+        """(residual's model RGB (N, 3), ds/dx (N, Q)) at coefficients c."""
+        x = (c[:, 0:1] * lam01 + c[:, 1:2]) * lam01 + c[:, 2:3]
+        xx = 1.0 + x * x
+        return sigmoid(x) @ basis, 0.5 / (xx * torch.sqrt(xx))
+
+    eye = torch.eye(3, device=dev)
+    # start from a flat spectrum at the mean reflectance: c = (0, 0, logit)
+    m = torch.clamp(rgb.mean(-1), 1e-3, 1 - 1e-3)
+    z = (2 * m - 1) / (2.0 * torch.sqrt(torch.clamp(m * (1 - m), min=1e-6)))
+    c = torch.stack([torch.zeros_like(z), torch.zeros_like(z), z], -1)
+    mu = torch.full((rgb.shape[0],), 1e-2, device=dev)
+    for _ in range(iters):
+        rgb_c, ds = model(c)
+        r = rgb_c - rgb                                # (N, 3)
+        # J[n, i, j] = sum_q basis[q, i] ds[n, q] (lam01^(2 - j))[q]
+        J = torch.einsum("nq,qi,jq->nij", ds, basis, powers)
+        JtJ = torch.einsum("nij,nik->njk", J, J)
+        Jtr = torch.einsum("nij,ni->nj", J, r)
+        dc = torch.linalg.solve(JtJ + mu[:, None, None] * eye,
+                                Jtr[..., None])[..., 0]
+        c_new = c - dc
+        better = (((model(c_new)[0] - rgb) ** 2).sum(-1)
+                  < (r ** 2).sum(-1))
+        c = torch.where(better[:, None], c_new, c)
+        mu = torch.where(better, mu * 0.5, mu * 4.0)
+    # normalized lam01 -> nm: x = a t^2 + b t + c, t = (lam - L0) / DL
+    dl = LAMBDA_MAX - LAMBDA_MIN
+    a, b, cc = c[..., 0], c[..., 1], c[..., 2]
+    return torch.stack([a / dl ** 2,
+                        b / dl - 2 * a * LAMBDA_MIN / dl ** 2,
+                        cc - b * LAMBDA_MIN / dl + a * (LAMBDA_MIN / dl) ** 2],
+                       -1)
+
+
+def make_rgb2spec_table(res: int = 32, iters: int = 60, device=None):
+    """An RGBToSpectrumTable-style coefficient lattice (rgb2spec_opt.cpp's
+    main loop): for each max-component axis l in {r, g, b} and lattice
+    point (z = the max value, x, y = the other components / max), the
+    fitted coefficients, on `device` (the CUDA card by default).  Returns
+    a (3, res, res, res, 3) float32 numpy array (l, z, y, x, c)."""
+    zs = (np.arange(res) + 0.5) / res                  # the max component
+    xs = (np.arange(res) + 0.5) / res
+    out = np.zeros((3, res, res, res, 3), np.float32)
+    for l in range(3):
+        zz, yy, xx = np.meshgrid(zs, xs, xs, indexing="ij")
+        rgb = np.zeros(zz.shape + (3,), np.float32)
+        rgb[..., l] = zz
+        rgb[..., (l + 1) % 3] = xx * zz
+        rgb[..., (l + 2) % 3] = yy * zz
+        coeffs = fit_sigmoid_polynomial(rgb.reshape(-1, 3), iters=iters,
+                                        device=device)
+        out[l] = coeffs.cpu().numpy().reshape(res, res, res, 3)
+    return out
+
+
+def rgb_albedo_spectrum_sigmoid(rgb, iters: int = 40):
+    """An RGB reflectance as a smooth sigmoid-polynomial spectrum callable
+    (RGBAlbedoSpectrum, spectrum.h), fitted once on the CPU (a scene-build
+    step); the callable evaluates on its wavelengths' device."""
+    c = fit_sigmoid_polynomial(np.asarray(rgb, np.float32).reshape(1, 3),
+                               iters=iters, device="cpu")[0]
+
+    def f(lam):
+        return sigmoid_polynomial_eval(c.to(lam.device), lam)
+
+    return f

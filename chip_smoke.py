@@ -106,14 +106,15 @@ Phases (any failure raises, and the script exits non-zero):
  17. explosion (RGB grids), 256x256: render() at spp 16 and regen at spp 4,
      means within 2%, one march launch per iteration; and a 12x12 frame on
      the GPU and the CPU at phase 5's tolerances;
- 18. residual shadow: the march kernel's residual instance at N 16384, K 8,
-     16^3 timed as phase 3 times the plain one, with its bound; phase 8's
-     scene by regen at spp RESIDUAL_SPP 1 with the bench knobs and
-     residual_shadow:
-     every march launch the residual instance, one per iteration, film
-     finite with a mean within 2% of phase 8's; seconds and Mrays/s beside
-     phase 8's; then the 32x24 cloud at 208 lanes (the window route, two
-     gather launches per iteration) on the GPU and the CPU, compared;
+ 18. residual shadow: phase 8's scene by regen at spp RESIDUAL_SPP 1
+     with the bench knobs at WIDE_LANES lanes and residual_shadow: every
+     march launch the residual instance, one per iteration, film finite
+     with a mean within 2% of phase 8's; seconds and Mrays/s beside phase
+     8's; the frame's march call RESIDUAL_CAPTURE_CALL (N WIDE_LANES, K 8,
+     16^3) through the kernel and its plain version, timed as phase 3
+     times the plain instance, with its bound; then the 32x24 cloud at 208
+     lanes (the window route, two gather launches per iteration) on the
+     GPU and the CPU, compared;
  19. knobs: the 32x24 cloud with event_groups 2, with retire_every 2
      (per-sample retire, one retire group) and with per-sample retire
      alone (accum_spp off), each on the GPU and the CPU, compared at
@@ -143,7 +144,8 @@ Phases (any failure raises, and the script exits non-zero):
      kernels (`graph_launches` in the kernels' record);
  23. cloud + surfaces: phase 8's scene with a ground quad, a rough
      conductor sphere and a glass sphere (cloud_with_surfaces), by
-     render_regen with the bench knobs at spp SURF_REGEN_SPP and by render()
+     render_regen with the bench knobs at WIDE_LANES lanes and spp
+     SURF_REGEN_SPP and by render()
      at spp 1: films finite, positive, means within 2%, one march launch per
      loop iteration (`cloud_surfaces_regen_launches`,
      `cloud_surfaces_render_launches`), seconds, iterations, Mrays/s, mean
@@ -164,7 +166,7 @@ Phases (any failure raises, and the script exits non-zero):
      (cloud_under_sky: utils/sky.py's Preetham sky at the sun's elevation,
      as an ImageInfiniteLight) through render() at spp 1 with pmj02bn
      (chunks of 262144 rays) and regen at spp 1 with zsobol and the bench
-     knobs (16384 lanes): films finite, positive, means within
+     knobs at WIDE_LANES lanes: films finite, positive, means within
      FULL_MEAN_TOL, one march launch per iteration (`sky_*_launches`),
      seconds, iterations, Mrays/s, peak memory, the regen ms per iteration
      beside phase 8's; the regen frame's march call SKY_CAPTURE_CALL
@@ -227,20 +229,45 @@ Phases (any failure raises, and the script exits non-zero):
      --cpu, and through their
      entries on the 32x24 room and cloud on the GPU and the CPU, to
      INTEG_MEAN_TOL / INTEG_PIXEL_SHARE (MLT by the 15% gate).
+ 30. item1 (the MIP map, the subsurface and measured materials, hair and
+     the tools), each leg's seconds, rate, peak device memory and launches
+     beside the card: (a) room_file_text with the glass sphere subsurface
+     and the diffuse one measured (a .bsdf that measured.synthesize_ggx
+     writes; item1_file_text) by the pbrt CLI at 1280x720 spp 1, the
+     subsurface sphere's pixels not black, the 32x24 file on the GPU and
+     with --cpu to INTEG_MEAN_TOL / INTEG_PIXEL_SHARE; (b)
+     tests/test_bssrdf.py's subsurface ball at 1280x720 spp 1 by render()
+     with the Burley and the tabulated profile, means within 12%, the beam
+     diffusion table's host seconds; (c) the light path, SPPM and BDPT
+     (with a distant light and a thin fog) through the CLI on (a)'s file
+     at 32x24 on the GPU and the CPU; (d) the 32x24 cloud over 32^3 with a
+     subsurface and a measured sphere by render() on the GPU and the CPU
+     (the reference's Lambert-fallback warning, SURF_MEAN_TOL, one march
+     launch per iteration, call ITEM1_CAPTURE_CALL against plain); (e)
+     262,144 trilinear and EWA lookups into a 1024^2 RGB MIP map, card
+     against CPU at rtol 1e-5 / atol 1e-6, ms per call; (f) hair_sample at
+     1,048,576 lanes, the white furnace (0.85-1.15) from the card's
+     numbers, 65,536 lanes against the CPU; (g) imgtool diff of (b)'s
+     frames (MSE, MRSE, L1, FLIP), convert to PNG and falsecolor (no PIL),
+     plytool info on the room's mesh, cyhair2pbrt parsed back (4 curves),
+     rgb2spec_opt at resolution 64 (786,432 fits) with 64 lattice points
+     held to the CPU fit at rtol 1e-4.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
 of the kernel and of its library call; the march kernel's times at its
 main-path shapes (the N 262144 ones under `wave_`, the N 65536 ones under
 `chunk65536_` beside the render() launches of phases 16 and 17, the
-residual instance's under `residual_`, beside its launches in phase 18),
+residual instance's under `residual_`, at phase 18's captured call's
+lane count `residual_lanes` beside its launches there),
 beside everything one call launches and the launch floor, and the sky
 frames' launches and captured call under `sky_`; the gather's
 fog-box launches (regen, and render() under `fog_render_launches`) and its
 times at V 1 (under `v1_`, and `v1_n65536_` at n 65536*8); the dma
 kernel's cold times, and its launches, which are its runs on the card in
 phase 11, beside its wrapper calls; `integrators_launches`, each kernel's
-launches in phase 29's full-size legs) and the result JSON.
+launches in phase 29's full-size legs; `item1_launches`, in phase 30's
+legs) and the result JSON.
 """
 import json
 import subprocess
@@ -296,6 +323,21 @@ GRAPH_SPP = 16
 # (1,904 iterations against spp 2's 2,048: the tail sets the count), and
 # phase 24's 32x24 frames on the GPU and the CPU at ROOM_SMALL_SPP 2 (was 4)
 SURF_REGEN_SPP = 1
+# phases 18, 23 and 25 run phase 8's scene and its variants (residual
+# shadow, surfaces, the sky map) by regen at WIDE_LANES lanes, phase 8 and
+# its gradient at bench.py's 16,384: with all at 16,384 the whole script
+# took 1,198.7 s on one NVIDIA H100 80GB HBM3 host at 700 W (limit 1200
+# s).  A regen loop's iterations grow with the pixels over the lanes
+# (1,904-2,112 at 1280x720 and 16,384 lanes) and not with max_depth (a
+# CPU check on a 160x90 cloud: 240 iterations at depth 16, 8 and 4), and
+# an iteration's time is host bound, so the lanes are what these legs can
+# give without cutting the frame or its noise (a regen frame's pixels are
+# equal at any lane count: each pixel draws from its own streams).  Cutting
+# spp instead would not have paid: at spp 1 the tail sets the count.  The
+# march calls these legs launch are N WIDE_LANES, so each leg holds one of
+# its own captured calls to plain (phase 18 also times and bounds it)
+WIDE_LANES = 131072
+WIDE_KNOBS = dict(BENCH_KNOBS, n_lanes=WIDE_LANES)
 ROOM_SMALL_SPP = 2
 # the 32x24 cloud with surfaces, GPU against CPU: means to 1e-2, not phase
 # 5's 1e-3.  The card and the CPU reroute 0.2% of its samples (6 of 3,072
@@ -304,13 +346,14 @@ ROOM_SMALL_SPP = 2
 # through the glass or off the ground moves the 3,072-sample mean by up
 # to 1e-3 alone; pixels keep phase 5's rule
 SURF_MEAN_TOL = 1e-2
-SURF_CAPTURE_CALL = 300          # the regen frame's march call held to plain
+SURF_CAPTURE_CALL = 150          # the regen frame's march call held to plain
+RESIDUAL_CAPTURE_CALL = 150      # phase 18's, the residual instance
 ROOM_SPP = 1
 ROOM_VOLPATH_TOL = 0.02
 # phases 25-27: the samplers, the image lights and the render entries
 SKY_RES = 512                    # the sky map: 512^2 equal-area, 512x1024
 SKY_SPP = 1
-SKY_CAPTURE_CALL = 300
+SKY_CAPTURE_CALL = 150
 SKY_SAMPLE_INDICES = (0, 1, 1023)
 PORTAL_POINTS = 262144
 FULL = (1280, 720)               # the room's and the G-buffers' frame
@@ -1259,29 +1302,17 @@ def phase_residual(dev, scene, slice_rec, card):
     from acceleratedvolrenderer_tpu_torch.parallel import render
     from acceleratedvolrenderer_tpu_torch.scene import presets
 
-    lanes = to_dev(march.random_lanes(16384, (16, 16, 16), seed=7,
-                                      residual=True), dev)
-    kw = dict(K=8, maj_res=(16, 16, 16), **lanes)
-    call = lambda: march.march_block(**kw)
-    compare_march(call(), march.march_block_plain(**kw))
-    flush = torch.empty(64 * 2 ** 20, device=dev).zero_
-    ms = time_ms(call, 200)
-    warm_us = device_us(call, 200, "march_kernel")
-    cold_us = device_us(lambda: (flush(), call()), 200, "march_kernel")
-    b = bound(nbytes(*lanes.values()) + nbytes(*call().values()),
-              30 * 8 * int(lanes["hunting"].sum()))
-    print(f"march residual instance N 16384 K 8 16^3: equal to plain; "
-          f"wrapper {ms:.4f} ms, kernel alone {warm_us:.2f} us warm / "
-          f"{cold_us:.2f} us cold, bound {b[0]:.6f} ms ({b[1]})", flush=True)
-
+    captured, capture = march_capture(RESIDUAL_CAPTURE_CALL)
     march.launches = march.residual_launches = gather.launches = 0
-    img, st = render.render_regen(scene, spp=RESIDUAL_SPP, device=dev,
-                                  residual_shadow=True, **BENCH_KNOBS)
+    with mock.patch.object(march, "march_block", capture):
+        img, st = render.render_regen(scene, spp=RESIDUAL_SPP, device=dev,
+                                      residual_shadow=True, **WIDE_KNOBS)
     counts = (march.launches, march.residual_launches, gather.launches)
     mean0, secs0, mrays0 = slice_rec
     rel = abs(float(img.mean()) - mean0) / mean0
     mrays = scene.width * scene.height * RESIDUAL_SPP / st["render_time"] / 1e6
-    print(f"residual shadow {scene.width}x{scene.height} spp {RESIDUAL_SPP}: "
+    print(f"residual shadow {scene.width}x{scene.height} spp {RESIDUAL_SPP} "
+          f"at {WIDE_LANES} lanes: "
           f"{st['iterations']} iterations, (march, residual, gather) "
           f"launches {counts}, {st['render_time']:.3f} s, {mrays:.4f} "
           f"Mrays/s (phase 8, spp {SPP}: {secs0:.3f} s, {mrays0:.4f} "
@@ -1297,6 +1328,29 @@ def phase_residual(dev, scene, slice_rec, card):
     if rel > 0.02:
         raise AssertionError("residual shadow: mean not within 2% of phase "
                              "8's")
+
+    # the frame's residual march call RESIDUAL_CAPTURE_CALL: held to its
+    # plain version, timed as phase 3 times the plain instance, bounded
+    err = check_captured_march("residual shadow", captured,
+                               RESIDUAL_CAPTURE_CALL)
+    args, kw = captured["args"], captured["kw"]
+    if kw.get("control") is None:
+        raise AssertionError("residual shadow: the captured march call is "
+                             "not the residual instance")
+    call = lambda: march.march_block(*args, **kw)
+    n, K = args[6].shape[0], args[11]
+    flush = torch.empty(64 * 2 ** 20, device=dev).zero_
+    ms = time_ms(call, 200)
+    warm_us = device_us(call, 200, "march_kernel")
+    cold_us = device_us(lambda: (flush(), call()), 200, "march_kernel")
+    inputs = [a for a in (*args, *kw.values()) if torch.is_tensor(a)]
+    b = bound(nbytes(*inputs) + nbytes(*call().values()),
+              30 * K * int(args[10].sum()))
+    print(f"march residual instance N {n} K {K} (call "
+          f"{RESIDUAL_CAPTURE_CALL} of the frame): wrapper {ms:.4f} ms, "
+          f"kernel alone {warm_us:.2f} us warm / {cold_us:.2f} us cold, "
+          f"bound {b[0]:.6f} ms ({b[1]})", flush=True)
+
     it, small = small_gpu_cpu(
         f"residual shadow 32x24 at {WINDOW_LANES} lanes",
         lambda d: presets.cloud(**SMALL, device=d), dev,
@@ -1304,7 +1358,8 @@ def phase_residual(dev, scene, slice_rec, card):
     if small != (0, 2 * it):
         raise AssertionError(f"residual window route: (march, gather) "
                              f"launches {small}, expected (0, {2 * it})")
-    return dict(residual_launches=counts[1], residual_ms=ms,
+    return dict(residual_launches=counts[1], residual_lanes=n,
+                residual_max_abs_err=err, residual_ms=ms,
                 residual_device_us=warm_us,
                 residual_cold_device_us=cold_us, residual_bound_ms=b[0],
                 residual_bound_by=b[1])
@@ -1818,19 +1873,25 @@ def cloud_under_sky(scene, res=512):
     return replace(scene, lights=[sun, image_light])
 
 
-def first_hit_fractions(scene):
-    """The share of pixel-centre camera rays whose first hit is each of the
-    scene's primitives, on the CPU."""
+def first_hit_ids(scene):
+    """(H, W) the primitive index of each pixel-centre camera ray's first
+    hit (-1: none), on the CPU."""
     from acceleratedvolrenderer_tpu_torch.models import shapes
 
     H, W = scene.height, scene.width
     ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     pix = torch.as_tensor(np.stack([xs.ravel(), ys.ravel()], -1))
-    cam = scene.camera.to("cpu")
-    o, d = cam.generate_rays(pix, torch.full((H * W, 2), 0.5))
+    o, d = scene.camera.to("cpu").generate_rays(
+        pix, torch.full((H * W, 2), 0.5))
     hit = shapes.intersect_all(scene.primitives, o, d, torch.inf)
-    return [float((hit.prim_id == i).float().mean())
-            for i in range(len(scene.primitives))]
+    return hit.prim_id.reshape(H, W).numpy()
+
+
+def first_hit_fractions(scene):
+    """The share of pixel-centre camera rays whose first hit is each of the
+    scene's primitives, on the CPU."""
+    ids = first_hit_ids(scene)
+    return [float((ids == i).mean()) for i in range(len(scene.primitives))]
 
 
 def _frame_line(what, img, st, counts, peak, card):
@@ -1885,7 +1946,7 @@ def check_captured_march(what, captured, n_call):
     torch.cuda.synchronize()
     check_march_layout(out, ref)
     err = compare_march(out, ref)
-    print(f"{what}: march_block call {n_call} of the regen frame "
+    print(f"{what}: march_block call {n_call} of the frame "
           f"({int(hunting.sum())} of {hunting.numel()} lanes hunting, "
           f"{int(out['landed'].sum())} landed, {int(out['escaped'].sum())} "
           f"escaped) equals march_block_plain, max |diff| {err:.3e}",
@@ -1916,7 +1977,7 @@ def phase_cloud_surfaces(dev, scene, card):
         if entry == "regen":
             with mock.patch.object(march, "march_block", capture):
                 img, st = render.render_regen(sc, spp=SURF_REGEN_SPP,
-                                              device=dev, **BENCH_KNOBS)
+                                              device=dev, **WIDE_KNOBS)
         else:
             img, st = render.render(sc, spp=1, device=dev)
         counts = kernel_counts()
@@ -1925,9 +1986,9 @@ def phase_cloud_surfaces(dev, scene, card):
                           peak, card), flush=True)
         _check_frame(f"cloud + surfaces {entry}", img, (H, W, 3))
         # one launch per loop iteration: the march kernel on the fused
-        # route (phase 8's lanes, render()'s chunks of 262144 rays), the
-        # gather on the window route
-        lanes = (min(BENCH_KNOBS["n_lanes"], H * W * SURF_REGEN_SPP)
+        # route (WIDE_LANES, render()'s chunks of 262144 rays), the gather
+        # on the window route
+        lanes = (min(WIDE_LANES, H * W * SURF_REGEN_SPP)
                  if entry == "regen" else min(262144, H * W))
         it = st["iterations"]
         want = ((it, 0, 0) if march.available(maj_size, lanes)
@@ -2034,7 +2095,7 @@ def phase_sky(dev, scene, slice_rec, card):
         if entry == "regen":
             with mock.patch.object(march, "march_block", capture):
                 img, st = render.render_regen(s, spp=SKY_SPP, device=dev,
-                                              **BENCH_KNOBS)
+                                              **WIDE_KNOBS)
             per_it = 1e3 * st["render_time"] / st["iterations"]
         else:
             img, st = render.render(s, spp=SKY_SPP, device=dev)
@@ -2051,8 +2112,9 @@ def phase_sky(dev, scene, slice_rec, card):
     mean8, secs8, _, it8 = slice_rec
     rel = abs(means["render"] - means["regen"]) / means["regen"]
     print(f"sky: render() (pmj02bn) mean vs regen (zsobol) mean rel diff "
-          f"{rel:.4e}; regen {per_it:.3f} ms per iteration against phase "
-          f"8's {1e3 * secs8 / it8:.3f} (independent sampler, uniform sky)",
+          f"{rel:.4e}; regen {per_it:.3f} ms per iteration at {WIDE_LANES} "
+          f"lanes against phase 8's {1e3 * secs8 / it8:.3f} at "
+          f"{BENCH_KNOBS['n_lanes']} (independent sampler, uniform sky)",
           flush=True)
     if rel > FULL_MEAN_TOL:
         raise AssertionError("sky: render() and regen means differ by more "
@@ -2850,6 +2912,484 @@ def phase_integrators(dev, scene, card):
     return tuple(int(sum(c)) for c in zip(*LEG_COUNTS)), counts[0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the MIP map, the subsurface and measured materials, hair and the
+# tools (imgtool with FLIP, plytool, cyhair2pbrt, rgb2spec_opt)
+# ---------------------------------------------------------------------------
+
+ITEM1_BSDF_ALPHA = 0.3
+SUBSURFACE_MATERIAL = ('Material "subsurface" "rgb reflectance" [0.8 0.5 0.3]'
+                       ' "rgb mfp" [0.05 0.05 0.05] "float eta" [1.33]\n')
+BURLEY_GATE = 0.12              # tests/test_bssrdf.py's tabulated-vs-Burley
+MIP_RES = 1024
+MIP_LOOKUPS = 262144
+HAIR_LANES = 1 << 20
+HAIR_CHECK_LANES = 65536
+RGB2SPEC_RES = 64               # pbrt's own build setting
+RGB2SPEC_CHECKS = 64
+ITEM1_COUNTS = []               # each leg's (march, gather, dma) launches
+
+
+def item1_file_text(width, height, bsdf, spp=1, bdpt=False):
+    """room_file_text with the glass sphere subsurface (reflectance 0.8 0.5
+    0.3, mfp 0.05, eta 1.33) and the diffuse sphere measured (the .bsdf
+    file `bsdf`).  bdpt: with a distant light and a thin homogeneous fog
+    sphere over the room, which BDPT needs."""
+    text = room_file_text(width, height, spp)
+    for old, new in (
+            ('Material "dielectric" "float eta" [1.5]\n',
+             SUBSURFACE_MATERIAL),
+            ('Material "diffuse" "rgb reflectance" [0.5 0.5 0.5]\n',
+             f'Material "measured" "string filename" ["{bsdf}"]\n')):
+        if text.count(old) != 1:
+            raise AssertionError(f"room_file_text: {old!r} not once")
+        text = text.replace(old, new)
+    if bdpt:
+        text += (
+            'LightSource "distant" "rgb L" [1 1 1] "float scale" [3]\n'
+            '    "point3 from" [0 0 0] "point3 to" [0.3 -1 0.4]\n'
+            "AttributeBegin\n"
+            'MakeNamedMedium "fog" "string type" "homogeneous"\n'
+            '    "rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [0.2 0.2 0.2]\n'
+            'MediumInterface "fog" ""\n'
+            'Material ""\n'
+            "Translate 0 1 1\n"
+            'Shape "sphere" "float radius" [1.8]\n'
+            "AttributeEnd\n")
+    return text
+
+
+def write_ggx_bsdf(path):
+    """measured.synthesize_ggx(alpha=ITEM1_BSDF_ALPHA) saved as a .bsdf."""
+    from acceleratedvolrenderer_tpu_torch.models import measured
+
+    measured.write_tensor_file(str(path), measured.tensors_of(
+        measured.synthesize_ggx(alpha=ITEM1_BSDF_ALPHA)))
+
+
+def item1_leg(what, fn, dev, card, n_work, unit):
+    """One leg of phase 30 on the card: its seconds, work per second and
+    peak device memory beside the card, and its (march, gather, dma)
+    launches, kept in ITEM1_COUNTS."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_kernel_counts()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{what}: {wall:.3f} s wall, {n_work / wall / 1e6:.4f} M{unit}/s, "
+          f"peak device memory {peak:.3f} GiB, (march, gather, dma) "
+          f"launches {counts} on {card}", flush=True)
+    ITEM1_COUNTS.append(counts)
+    return out
+
+
+def subsurface_ball(width, height, profile, device):
+    """tests/test_bssrdf.py::test_tabulated_profile_render_matches_burley's
+    scene: a unit subsurface sphere (reflectance 0.6 0.5 0.4, mfp 0.05)
+    under a uniform sky of 1, by `path` at max depth 5."""
+    from acceleratedvolrenderer_tpu_torch.models import lights, materials
+    from acceleratedvolrenderer_tpu_torch.models import shapes
+    from acceleratedvolrenderer_tpu_torch.models.cameras import (
+        PerspectiveCamera)
+    from acceleratedvolrenderer_tpu_torch.models.film import BoxFilter
+    from acceleratedvolrenderer_tpu_torch.scene.types import Scene
+    from acceleratedvolrenderer_tpu_torch.utils.spectrum import (
+        constant_spectrum)
+    from acceleratedvolrenderer_tpu_torch.utils.vecmath import look_at
+
+    ball = shapes.Sphere(center=np.zeros(3), radius=1.0,
+                         material=materials.SubsurfaceMaterial(
+                             reflectance_rgb=(0.6, 0.5, 0.4),
+                             mfp_rgb=(0.05, 0.05, 0.05), profile=profile))
+    cam = PerspectiveCamera(c2w=look_at((0, 0.4, -3.2), (0, 0, 0), (0, 1, 0),
+                                        device),
+                            fov_deg=36.0, width=width, height=height)
+    return Scene(camera=cam, medium=None,
+                 lights=[lights.UniformInfiniteLight(
+                     spectrum=constant_spectrum(1.0), scene_radius=30.0)],
+                 primitives=[ball], max_depth=5, filter=BoxFilter(), spp=1,
+                 scene_radius=30.0, integrator="path")
+
+
+def item1_frame(dev, work, card):
+    """(a): the room file with a subsurface and a measured sphere by the
+    CLI at 1280x720 spp 1; its subsurface sphere not black; the 32x24 file
+    on the GPU and with --cpu."""
+    from acceleratedvolrenderer_tpu_torch.models import materials
+    from acceleratedvolrenderer_tpu_torch.scene.parser import load_scene
+    from acceleratedvolrenderer_tpu_torch.utils import image
+
+    bsdf = work / "ggx.bsdf"
+    t0 = time.time()
+    write_ggx_bsdf(bsdf)
+    print(f"item1: ggx.bsdf (synthesize_ggx alpha {ITEM1_BSDF_ALPHA}, "
+          f"64^2 x 16) written in {time.time() - t0:.3f} s", flush=True)
+    path = work / "item1.pbrt"
+    path.write_text(item1_file_text(*FULL, bsdf))
+    out = str(work / "item1.exr")
+    st = item1_leg(f"item1 room {FULL[0]}x{FULL[1]} spp 1 (pbrt CLI)",
+                   lambda: run_cli([str(path), "--spp", "1", "--stats",
+                                    "-o", out]),
+                   dev, card, FULL[0] * FULL[1], "rays")
+    img = image.read_exr(out)[0][..., :3]
+    _check_frame("item1 room", img, (FULL[1], FULL[0], 3))
+    sc = load_scene(str(path), device="cpu")
+    ss = [i for i, p in enumerate(sc.primitives)
+          if isinstance(p.material, materials.SubsurfaceMaterial)]
+    mask = first_hit_ids(sc) == ss[0]
+    lum = img[mask] @ LUM
+    lit = float((lum > 0).mean())
+    print(f"item1 room: render {st['render_time']:.3f} s, luminance mean "
+          f"{lum_mean(img):.6f}; the subsurface sphere's {int(mask.sum())} "
+          f"pixels: luminance mean {lum.mean():.6f}, {lit:.4f} of them "
+          f"non-black", flush=True)
+    if not (mask.sum() > 0 and lum.mean() > 0 and lit >= 0.5):
+        raise AssertionError("item1 room: the subsurface sphere is black")
+    small = work / "item1_small.pbrt"
+    small.write_text(item1_file_text(32, 24, bsdf))
+    imgs = []
+    for extra in ([], ["--cpu"]):
+        o = str(work / f"item1_small{len(extra)}.exr")
+        run_cli([str(small), "--stats", "-o", o, *extra])
+        imgs.append(image.read_exr(o)[0][..., :3])
+    check_close("item1 room 32x24 gpu vs cpu", *imgs)
+    return bsdf
+
+
+def item1_burley(dev, work, card):
+    """(b): the subsurface ball at 1280x720 spp 1 by render() with each
+    profile; the tabulated mean within BURLEY_GATE of Burley's.  Returns
+    the two EXR paths."""
+    from acceleratedvolrenderer_tpu_torch.models import bssrdf
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+    from acceleratedvolrenderer_tpu_torch.utils import image
+
+    bssrdf._beam_diffusion_table.cache_clear()
+    t0 = time.time()
+    bssrdf.compute_beam_diffusion_table(g=0.0, eta=1.33)
+    print(f"item1 beam diffusion table (40 rho x 64 radii, host numpy): "
+          f"{time.time() - t0:.3f} s", flush=True)
+    means, paths = {}, []
+    for profile in ("burley", "tabulated"):
+        sc = subsurface_ball(*FULL, profile, dev)
+        img, st = item1_leg(f"item1 ball {profile} {FULL[0]}x{FULL[1]} spp 1",
+                            lambda: render.render(sc, spp=1, device=dev),
+                            dev, card, FULL[0] * FULL[1], "rays")
+        _check_frame(f"item1 ball {profile}", img, (FULL[1], FULL[0], 3))
+        means[profile] = float(img.mean())
+        paths.append(str(work / f"ball_{profile}.exr"))
+        image.write_exr(paths[-1], img)
+    rel = abs(means["tabulated"] - means["burley"]) / means["burley"]
+    print(f"item1 ball: tabulated mean {means['tabulated']:.6f} vs burley "
+          f"{means['burley']:.6f}: rel diff {rel:.4e} (gate {BURLEY_GATE})",
+          flush=True)
+    if rel >= BURLEY_GATE:
+        raise AssertionError("item1 ball: the profiles disagree")
+    return paths
+
+
+def item1_integrators(dev, work, bsdf, card):
+    """(c): the light path, SPPM and BDPT through the CLI on (a)'s file at
+    32x24 (BDPT's with a distant light and a thin fog), on the GPU and
+    with --cpu, at INTEG_MEAN_TOL and INTEG_PIXEL_SHARE."""
+    from acceleratedvolrenderer_tpu_torch.utils import image
+
+    for integ in ("lightpath", "sppm", "bdpt"):
+        path = work / f"item1_{integ}.pbrt"
+        path.write_text(item1_file_text(32, 24, bsdf, bdpt=integ == "bdpt"))
+        imgs = []
+        for extra in ([], ["--cpu"]):
+            out = str(work / f"item1_{integ}{len(extra)}.exr")
+            if extra:
+                st = run_cli([str(path), "--integrator", integ, "--stats",
+                              "-o", out, *extra])
+            else:
+                st = item1_leg(f"item1 {integ} 32x24 (pbrt CLI)",
+                               lambda: run_cli([str(path), "--integrator",
+                                                integ, "--stats", "-o", out]),
+                               dev, card, 32 * 24, "pixels")
+            imgs.append(image.read_exr(out)[0][..., :3])
+        check_close(f"item1 {integ} 32x24 gpu vs cpu", *imgs)
+
+
+def cloud_with_item1(scene):
+    """presets.cloud's scene with a subsurface sphere and a measured sphere
+    half inside the medium box's face toward the camera (where
+    cloud_with_surfaces puts its glass and metal spheres)."""
+    from acceleratedvolrenderer_tpu_torch.models import materials, measured
+    from acceleratedvolrenderer_tpu_torch.models import shapes
+
+    ss = shapes.Sphere(center=np.array([100.0, -20.0, 70.0]), radius=40.0,
+                       material=materials.SubsurfaceMaterial(
+                           reflectance_rgb=(0.8, 0.5, 0.3),
+                           mfp_rgb=(0.05, 0.05, 0.05)))
+    me = shapes.Sphere(center=np.array([100.0, -30.0, -80.0]), radius=45.0,
+                       material=materials.MeasuredMaterial(
+                           brdf=measured.synthesize_ggx(
+                               alpha=ITEM1_BSDF_ALPHA, res=16, n_theta=4)))
+    return replace(scene, primitives=[ss, me])
+
+
+ITEM1_FUSED_WARNING = ("fused volpath: material kind(s) MeasuredMaterial, "
+                       "SubsurfaceMaterial approximate to a Lambert albedo "
+                       "lobe in medium-bearing scenes")
+ITEM1_CAPTURE_CALL = 20
+
+
+def item1_fused(dev, card):
+    """(d): presets.cloud at 32x24 over a 32^3 grid with cloud_with_item1's
+    spheres by render() on the GPU and the CPU: the reference's warning,
+    the frames to SURF_MEAN_TOL, the march launches, and one captured
+    march call against its plain version."""
+    import warnings
+
+    from acceleratedvolrenderer_tpu_torch.ops import march
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    captured, capture = march_capture(ITEM1_CAPTURE_CALL)
+    imgs = []
+    for d in (dev, torch.device("cpu")):
+        sc = cloud_with_item1(presets.cloud(**SMALL, device=d))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if not imgs:
+                with mock.patch.object(march, "march_block", capture):
+                    img, st = item1_leg(
+                        "item1 fused cloud 32x24 render()",
+                        lambda: render.render(sc, device=d), dev, card,
+                        32 * 24 * SMALL["spp"], "rays")
+                counts = ITEM1_COUNTS[-1]
+                if counts != (st["iterations"], 0, 0):
+                    raise AssertionError(f"item1 fused: launches {counts}, "
+                                         f"{st['iterations']} iterations")
+            else:
+                img, _ = render.render(sc, device=d)
+        msgs = sorted({str(w.message) for w in caught
+                       if "fused volpath" in str(w.message)})
+        print(f"item1 fused on {d}: warnings {msgs}", flush=True)
+        if msgs != [ITEM1_FUSED_WARNING]:
+            raise AssertionError(f"item1 fused: warned {msgs}")
+        imgs.append(img)
+    compare_frames("item1 fused cloud 32x24 gpu vs cpu", *imgs,
+                   mean_tol=SURF_MEAN_TOL)
+    return check_captured_march("item1 fused", captured, ITEM1_CAPTURE_CALL)
+
+
+def item1_mipmap(dev, card):
+    """(e): a MIP_RES^2 RGB image's MIP map, MIP_LOOKUPS trilinear and EWA
+    lookups on the card against the CPU at rtol 1e-5 / atol 1e-6, ms per
+    call."""
+    from acceleratedvolrenderer_tpu_torch.models.mipmap import MIPMap
+
+    rng = np.random.default_rng(30)
+    t0 = time.time()
+    mip = MIPMap(rng.random((MIP_RES, MIP_RES, 3)).astype(np.float32))
+    build = time.time() - t0
+    n = MIP_LOOKUPS
+    host = dict(uv=rng.uniform(-1, 2, (n, 2)),
+                width=np.exp(rng.uniform(-9, 0, n)),
+                duv0=rng.normal(size=(n, 2)) * np.exp(rng.uniform(-6, -1,
+                                                               (n, 1))),
+                duv1=rng.normal(size=(n, 2)) * np.exp(rng.uniform(-8, -2,
+                                                               (n, 1))))
+    host = {k: v.astype(np.float32) for k, v in host.items()}
+    calls = dict(
+        trilinear=lambda a: mip.lookup_trilinear(a["uv"], a["width"]),
+        ewa=lambda a: mip.lookup_ewa(a["uv"], a["duv0"], a["duv1"]))
+    for name, fn in calls.items():
+        on = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        cpu = {k: torch.as_tensor(v) for k, v in host.items()}
+        got = item1_leg(f"item1 mipmap {name} {n} lookups", lambda: fn(on),
+                        dev, card, n, "lookups").cpu().numpy()
+        want = fn(cpu).numpy()
+        err = float(np.abs(got - want).max())
+        ms = time_ms(lambda: fn(on), 10)
+        print(f"item1 mipmap {name}: {ms:.4f} ms per call of {n} lookups "
+              f"({MIP_RES}^2 RGB, {mip.n_levels} levels, pyramid built in "
+              f"{build:.3f} s on the host), card vs cpu max |diff| "
+              f"{err:.3e} on {card}", flush=True)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"item1 mipmap {name}")
+
+
+def item1_hair(dev, card):
+    """(f): hair_sample (with its hair_f and hair_pdf) at HAIR_LANES lanes
+    on the card with sigma_a 0: tests/test_hair.py's white furnace (albedo
+    in 0.85-1.15) from the card's numbers; the first HAIR_CHECK_LANES
+    against the CPU."""
+    from acceleratedvolrenderer_tpu_torch.models import hair
+
+    rng = np.random.default_rng(31)
+    n = HAIR_LANES
+    v = rng.normal(size=(n, 3))
+    host = dict(wo=(v / np.linalg.norm(v, axis=1, keepdims=True)),
+                h=rng.uniform(-1, 1, n), u=rng.random((n, 4)))
+    host = {k: x.astype(np.float32) for k, x in host.items()}
+    prm = hair.HairParams(beta_m=0.4, beta_n=0.4)
+
+    def run(d, m):
+        a = {k: torch.as_tensor(x[:m], device=d) for k, x in host.items()}
+        return hair.hair_sample(a["wo"], a["h"], torch.zeros((m, 3),
+                                                               device=d),
+                                prm, a["u"])
+
+    wi, f, pdf = item1_leg(f"item1 hair_sample {n} lanes",
+                           lambda: run(dev, n), dev, card, n, "lanes")
+    ok = pdf > 1e-7
+    alb = float((f[:, 0] * wi[:, 2].abs() / pdf.clamp(min=1e-9))[ok].mean())
+    ms = time_ms(lambda: run(dev, n), 3)
+    print(f"item1 hair: {ms:.3f} ms per hair_sample of {n} lanes, white "
+          f"furnace albedo {alb:.5f} (gate 0.85-1.15) on {card}", flush=True)
+    if not 0.85 < alb < 1.15:
+        raise AssertionError("item1 hair: white furnace albedo off")
+    m = HAIR_CHECK_LANES
+    got = [x[:m].cpu().numpy() for x in (wi, f, pdf)]
+    want = [x.numpy() for x in run(torch.device("cpu"), m)]
+    close = np.ones(m, bool)
+    for a, b in zip(got, want):
+        close &= np.isclose(a, b, rtol=1e-5, atol=1e-6).reshape(m, -1).all(-1)
+    # every lane: the card's f and pdf are the CPU's hair_f and hair_pdf at
+    # the card's own direction (scripts/card_ulp_diag.py shows where the
+    # rest part: ulps of the card's transcendentals)
+    a = {k: torch.as_tensor(x[:m]) for k, x in host.items()}
+    args = (a["wo"], torch.as_tensor(got[0]), a["h"], torch.zeros((m, 3)),
+            prm)
+    worst = max(float(np.max(np.abs(g - e.numpy()) / (
+        1e-6 + 1e-3 * np.abs(e.numpy())))) for g, e in (
+            (got[1], hair.hair_f(*args)), (got[2], hair.hair_pdf(*args))))
+    print(f"item1 hair: card vs cpu on {m} lanes, {close.mean():.5f} of the "
+          f"lanes close (rtol 1e-5 / atol 1e-6); the card's f and pdf "
+          f"against the CPU's at the card's directions, over every lane: "
+          f"largest |diff| / (1e-6 + 1e-3 |cpu|) {worst:.3e} (gate 1)",
+          flush=True)
+    if close.mean() < 0.99 or worst > 1:
+        raise AssertionError("item1 hair: the card and the CPU disagree")
+
+
+def item1_tools(dev, work, ball_exrs, card):
+    """(g): imgtool diff of (b)'s two frames, convert to PNG and
+    falsecolor; plytool info on the room's mesh; cyhair2pbrt parsed back;
+    rgb2spec_opt at RGB2SPEC_RES on the card, RGB2SPEC_CHECKS lattice
+    points held to the CPU fit."""
+    import contextlib
+    import io
+
+    from acceleratedvolrenderer_tpu_torch.cli import (cyhair2pbrt, imgtool,
+                                                      plytool, rgb2spec_opt)
+    from acceleratedvolrenderer_tpu_torch.models import shapes
+    from acceleratedvolrenderer_tpu_torch.scene.parser import load_scene
+    from acceleratedvolrenderer_tpu_torch.utils import image, ply
+    from acceleratedvolrenderer_tpu_torch.utils import spectrum as sp
+
+    def tool(main, argv):
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        if rc != 0:
+            raise AssertionError(f"{argv[0]}: exit code {rc}")
+        return buf.getvalue(), time.time() - t0
+
+    out, secs = tool(imgtool.main, ["diff", *ball_exrs])
+    print(f"item1 imgtool diff tabulated vs burley {FULL[0]}x{FULL[1]}: "
+          f"{out.strip()} in {secs:.3f} s", flush=True)
+    if not set(json.loads(out)) >= {"MSE", "MRSE", "L1", "FLIP"}:
+        raise AssertionError("item1 imgtool diff: missing metrics")
+    for cmd in ("convert", "falsecolor"):
+        png = str(work / f"{cmd}.png")
+        _, secs = tool(imgtool.main, [cmd, ball_exrs[0], png])
+        shape = image.read_png(png).shape
+        print(f"item1 imgtool {cmd} -> PNG {shape} in {secs:.3f} s",
+              flush=True)
+        if shape != (FULL[1], FULL[0], 3):
+            raise AssertionError(f"item1 imgtool {cmd}: PNG {shape}")
+    mesh = [p for p in cornell_room(8, 8, 1, "cpu").primitives
+            if isinstance(p, shapes.TriangleMesh)][0]
+    ply.write_ply(str(work / "mesh.ply"), mesh.vertices, mesh.indices)
+    out, secs = tool(plytool.main, ["info", str(work / "mesh.ply")])
+    print(f"item1 plytool info: {out.strip()} ({secs:.3f} s)", flush=True)
+    if f"{len(mesh.indices)} triangles" not in out:
+        raise AssertionError("item1 plytool info: wrong triangle count")
+    write_cyhair(work / "t.hair")
+    with contextlib.redirect_stderr(io.StringIO()):
+        tool(cyhair2pbrt.main, [str(work / "t.hair"), str(work / "hair.pbrt")])
+    (work / "hairs.pbrt").write_text(
+        'Camera "perspective" "float fov" [45]\n'
+        'Film "rgb" "integer xresolution" [8] "integer yresolution" [8]\n'
+        'WorldBegin\nLightSource "point" "rgb I" [5 5 5]\n'
+        + (work / "hair.pbrt").read_text())
+    curves = [p for p in load_scene(str(work / "hairs.pbrt"),
+                                    device=dev).primitives
+              if isinstance(p, shapes.Curve)]
+    print(f"item1 cyhair2pbrt: {len(curves)} curves parsed back", flush=True)
+    if len(curves) != 4:
+        raise AssertionError("item1 cyhair2pbrt: expected 4 curves")
+    res = RGB2SPEC_RES
+    npz = str(work / "rgb2spec.npz")
+    coeffs = item1_leg(f"item1 rgb2spec_opt {res} ({3 * res ** 3} fits)",
+                       lambda: (tool(rgb2spec_opt.main, [str(res), npz]),
+                                np.load(npz)["coeffs"])[1],
+                       dev, card, 3 * res ** 3, "fits")
+    rng = np.random.default_rng(32)
+    idx = np.stack([rng.integers(0, n, RGB2SPEC_CHECKS)
+                    for n in (3, res, res, res)], -1)    # (l, z, y, x)
+    zs = (np.arange(res) + 0.5) / res
+    rgb = np.zeros((RGB2SPEC_CHECKS, 3), np.float32)
+    for i, (l, z, y, x) in enumerate(idx):
+        rgb[i, l] = zs[z]
+        rgb[i, (l + 1) % 3] = zs[x] * zs[z]
+        rgb[i, (l + 2) % 3] = zs[y] * zs[z]
+    want = sp.fit_sigmoid_polynomial(rgb, device="cpu").numpy()
+    got = coeffs[idx[:, 0], idx[:, 1], idx[:, 2], idx[:, 3]]
+    rel = float((np.abs(got - want) / np.abs(want)).max())
+    print(f"item1 rgb2spec: {RGB2SPEC_CHECKS} lattice points card vs cpu "
+          f"fit, max rel diff {rel:.3e} (rtol 1e-4)", flush=True)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0,
+                               err_msg="item1 rgb2spec")
+
+
+def phase_item1(dev, card):
+    """Phase 30 (see the module docstring).  Returns the (march, gather,
+    dma) launches of its legs, summed, and the captured march call's max
+    |diff| against plain."""
+    import tempfile
+
+    ITEM1_COUNTS.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        bsdf = item1_frame(dev, work, card)
+        ball_exrs = item1_burley(dev, work, card)
+        item1_integrators(dev, work, bsdf, card)
+        err = item1_fused(dev, card)
+        item1_mipmap(dev, card)
+        item1_hair(dev, card)
+        item1_tools(dev, work, ball_exrs, card)
+    return tuple(int(sum(c)) for c in zip(*ITEM1_COUNTS)), err
+
+
+def write_cyhair(path):
+    """tests/test_hair.py's synthetic CyHair file: two strands of 3 points
+    (2 segments each), with a segments and a thickness array."""
+    import struct
+
+    pts = np.array([[0, 0, 0], [0, 1, 0], [0, 2, 0.3],
+                    [1, 0, 0], [1, 1, 0.2], [1, 2, 0]], np.float32)
+    with open(path, "wb") as f:
+        f.write(b"HAIR")
+        f.write(struct.pack("<IIII", 2, 6, 0b111, 0))
+        f.write(struct.pack("<ff", 0.1, 0.0))
+        f.write(struct.pack("<fff", 0.2, 0.1, 0.05))
+        f.write(b"\0" * 88)
+        f.write(struct.pack("<2H", 2, 2))
+        f.write(pts.tobytes())
+        f.write(np.full(6, 0.05, np.float32).tobytes())
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -2916,6 +3456,8 @@ def main():
     gather_rec["scene_file_launches"] = gather_n
     integ_counts, march_rec["integrators_depth4_render_launches"] = timed(
         "other integrators", phase_integrators, dev, scene, card)
+    item1_counts, march_rec["item1_max_abs_err"] = timed(
+        "item1", phase_item1, dev, card)
 
     src = "acceleratedvolrenderer_tpu_torch/csrc/"
     print(f"chip_smoke: {time.time() - T0:.1f} s wall")
@@ -2924,16 +3466,19 @@ def main():
         dict(name="march_block", route="cuda", source=src + "march.cu",
              replaces="acceleratedvolrenderer_tpu/ops/pallas_march.py:105",
              launches=launches, graph_launches=graph_launches[0],
-             integrators_launches=integ_counts[0], **march_rec),
+             integrators_launches=integ_counts[0],
+             item1_launches=item1_counts[0], **march_rec),
         dict(name="table_gather", route="cuda", source=src + "gather.cu",
              replaces="acceleratedvolrenderer_tpu/ops/pallas_gather.py:33",
              launches=g_launches, graph_launches=graph_launches[1],
-             integrators_launches=integ_counts[1], **gather_rec),
+             integrators_launches=integ_counts[1],
+             item1_launches=item1_counts[1], **gather_rec),
         dict(name="dma_gather", route="cuda", source=src + "dma_gather.cu",
              replaces="scripts/measure_gather_designs.py:44",
              launches=dma_runs, wrapper_calls=dma_calls,
              graph_launches=graph_launches[2],
-             integrators_launches=integ_counts[2], **dma_rec)]}))
+             integrators_launches=integ_counts[2],
+             item1_launches=item1_counts[2], **dma_rec)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -271,3 +271,27 @@ def test_write_strategy_films_names(tmp_path):
         "no_weights_L/bdpt_d04_s01_t02.exr",
         "no_weights_L/bdpt_d04_s03_t01.exr",
         "weights/bdpt_d04_s01_t02.exr", "weights/bdpt_d04_s03_t01.exr"]
+
+
+def test_render_bdpt_measured_matches_jax(tmp_path):
+    """The floor as a measured BRDF: both subpaths sample it, and the
+    connections evaluate it, through the measured dispatch as in the JAX
+    package (under jax.disable_jit), at test_render_bdpt_matches_jax's
+    tolerances."""
+    import dataclasses
+
+    from torch_surface_util import measured_pair
+
+    jb, _ = measured_pair(tmp_path / "ggx.bsdf")
+    jscene = _scene(True)
+    prims = list(jscene.primitives)
+    prims[0] = dataclasses.replace(prims[0],
+                                   material=jm.MeasuredMaterial(brdf=jb))
+    jscene = dataclasses.replace(jscene, primitives=prims)
+    with jax.disable_jit():
+        ref, _, _ = jbdpt.render_bdpt(jscene, max_depth=2, spp=1,
+                                      keep_strategies=False)
+    img, _, _ = tbdpt.render_bdpt(_port(jscene), max_depth=2, spp=1,
+                                  keep_strategies=False, device="cpu")
+    assert img.mean() > 0
+    _close_images(img, ref)

@@ -282,3 +282,23 @@ def test_render_lightpath_paths_per_wave():
     img, st = trender.render_lightpath(_port(jscene), spp=1,
                                        n_paths_per_wave=64, device="cpu")
     assert st["n_paths"] == 64 and img.shape == (12, 12, 3)
+
+
+def test_render_lightpath_measured_matches_jax(tmp_path):
+    """The floor as a measured BRDF (the .bsdf of measured.synthesize_ggx):
+    the light path's camera connection and bounce go through the measured
+    dispatch as in the JAX package; its jitted wave against the port, at
+    the tolerances of test_render_lightpath_matches_jax."""
+    from torch_surface_util import measured_pair
+
+    jb, _ = measured_pair(tmp_path / "ggx.bsdf")
+    prims = _prims()
+    prims[0] = dataclasses.replace(prims[0],
+                                   material=jm.MeasuredMaterial(brdf=jb))
+    jscene = _scene(prims, [_lights()[0]])
+    ref, _ = jrender.render_lightpath(jscene)
+    img, _ = trender.render_lightpath(_port(jscene), device="cpu")
+    assert np.isfinite(img).all() and ref.mean() > 0
+    assert abs(img.mean() - ref.mean()) / ref.mean() < 1e-3
+    close = np.isclose(img, ref, rtol=1e-3, atol=1e-5).all(-1)
+    assert close.mean() >= 0.97, close.mean()

@@ -472,10 +472,24 @@ def test_unknown_texture_class_warns():
     assert "p" in ps.named_textures
 
 
-def test_measured_material_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        tparser.PbrtParser(device="cpu").parse_string(
-            'WorldBegin\nMaterial "measured" "string filename" "x.bsdf"\n')
+def test_measured_material_raises(tmp_path):
+    """A measured material whose .bsdf file is missing raises, as the
+    reference's does (the port no longer refuses measured materials); one
+    whose file exists is built from it."""
+    text = 'WorldBegin\nMaterial "measured" "string filename" "{}"\n'
+    missing = str(tmp_path / "x.bsdf")
+    for ps in (tparser.PbrtParser(device="cpu"), jparser.PbrtParser()):
+        with pytest.raises(FileNotFoundError):
+            ps.parse_string(text.format(missing))
+    from acceleratedvolrenderer_tpu_torch.models import materials, measured
+
+    measured.write_tensor_file(missing, measured.tensors_of(
+        measured.synthesize_ggx(res=8, n_theta=2)))
+    ps = tparser.PbrtParser(device="cpu")
+    ps.parse_string(text.format(missing) + 'Shape "sphere"\n')
+    mat = ps.primitives[0].material
+    assert isinstance(mat, materials.MeasuredMaterial)
+    assert mat.filename == missing
 
 
 def test_format_scene_matches_jax(tmp_path):

@@ -308,19 +308,38 @@ def test_light_sampling_matches_jax(strategy):
                jl._adaptive_pmfs(jlights, j[0]), rtol=1e-5, atol=1e-7)
 
 
-def test_filtered_texture_and_item_7_materials_raise():
-    """What the port still refuses: the filtered image texture (the MIP
-    map) and the subsurface and measured materials (ROADMAP Queue 1 item
-    1).  Every sampler and light of the reference is ported."""
+def test_filtered_texture_and_item_7_materials_raise(tmp_path):
+    """What the port refused before it was ported (name kept): the
+    filtered image texture (the MIP map) and the subsurface and measured
+    materials now construct and equal the JAX objects.  Every sampler and
+    light of the reference is ported."""
+    from acceleratedvolrenderer_tpu.models import measured as jms
+    from acceleratedvolrenderer_tpu_torch.models import measured as tms
+
     for kind in tsamplers.KINDS:
         tsamplers.film_sample(kind, torch.zeros(4, dtype=torch.int64),
                               torch.zeros(4, dtype=torch.int64), 4)
     tl.ImageInfiniteLight(np.ones((2, 4, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        tt.ImageTexture(np.ones((2, 2, 3), np.float32), filtered=True)
-    for cls in (tm.SubsurfaceMaterial, tm.MeasuredMaterial):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            cls()
+    img = np.random.default_rng(0).random((6, 10, 3)).astype(np.float32)
+    tex = tt.ImageTexture(img, filtered=True, max_anisotropy=4.0)
+    jtex = jt.ImageTexture(img, filtered=True, max_anisotropy=4.0)
+    assert tex.mipmap.shapes == jtex.mipmap.shapes
+    np.testing.assert_array_equal(tex.mipmap.flat, np.asarray(jtex.mipmap.flat))
+    ss_kw = dict(reflectance_rgb=(0.8, 0.5, 0.3), mfp_rgb=(0.05, 0.1, 0.2),
+                 eta=1.4, profile="tabulated", g=0.1)
+    ss, jss = tm.SubsurfaceMaterial(**ss_kw), jm.SubsurfaceMaterial(**ss_kw)
+    assert (ss.kind, ss.reflectance, ss.emissive) == (
+        jss.kind, jss.reflectance, jss.emissive)
+    fn = str(tmp_path / "g.bsdf")
+    tms.write_tensor_file(fn, tms.tensors_of(tms.synthesize_ggx(res=8,
+                                                                n_theta=2)))
+    me = tm.MeasuredMaterial(brdf=tms.MeasuredBRDF.from_file(fn), filename=fn)
+    jme = jm.MeasuredMaterial(brdf=jms.MeasuredBRDF.from_file(fn),
+                              filename=fn)
+    assert (me.kind, me.roughness, me.eta, me.filename, me.emissive) == (
+        jme.kind, jme.roughness, jme.eta, jme.filename, jme.emissive)
+    np.testing.assert_array_equal(me.brdf.vndf.data.reshape(-1),
+                                  np.asarray(jme.brdf.vndf._vals).reshape(-1))
 
 
 def test_chip_smoke_cloud_surfaces_in_view():

@@ -31,6 +31,10 @@ def plain(obj):
         return obj
     if isinstance(obj, (np.ndarray, jnp.ndarray)):
         return np.asarray(obj)
+    if hasattr(obj, "port_brdf"):
+        # a JAX MeasuredBRDF made by measured_pair: the port's BRDF of the
+        # same file (object_from passes it through)
+        return obj.port_brdf
     if isinstance(obj, jtex.ImageTexture):
         return dict(kind="ImageTexture", image=np.asarray(obj.image),
                     scale=obj.scale, invert=obj.invert)
@@ -96,3 +100,65 @@ def surface_arrays_from_jax_scene(js):
         integrator=js.integrator, light_sampler=js.light_sampler,
         regularize=js.regularize)
     return arrays
+
+
+def measured_pair(path, alpha=0.3, res=16, n_theta=4):
+    """(JAX MeasuredBRDF, port MeasuredBRDF) read from one .bsdf file that
+    the port's synthesize_ggx writes at `path`; the JAX one knows its port
+    twin, so plain() of a JAX MeasuredMaterial carries the port's BRDF."""
+    from acceleratedvolrenderer_tpu.models import measured as jms
+    from acceleratedvolrenderer_tpu_torch.models import measured as tms
+
+    tms.write_tensor_file(str(path), tms.tensors_of(
+        tms.synthesize_ggx(alpha=alpha, res=res, n_theta=n_theta)))
+    jb = jms.MeasuredBRDF.from_file(str(path))
+    object.__setattr__(jb, "port_brdf", tms.MeasuredBRDF.from_file(str(path)))
+    return jb, jb.port_brdf
+
+
+def li_path_frames(prims, lights, width, height, spp, max_depth, fov=40.0,
+                   **kw):
+    """li_path of the JAX package (outside jit, under jax.disable_jit) and
+    of the port (CPU) on the same camera rays, wavelengths and PCG streams:
+    a pinhole at the origin looking down +z (y up) over width x height
+    pixels, spp numpy-jittered rays per pixel.  Returns (port frame, JAX
+    frame), each (height, width, 4): the spectral radiance's mean over
+    the pixel's rays."""
+    import jax
+    import torch
+
+    from acceleratedvolrenderer_tpu.models.integrators import path as jpath
+    from acceleratedvolrenderer_tpu.ops import dda as jdda
+    from acceleratedvolrenderer_tpu_torch.models.integrators import (
+        path as tpath)
+    from acceleratedvolrenderer_tpu_torch.ops import dda as tdda
+    from acceleratedvolrenderer_tpu_torch.scene import convert
+
+    rng = np.random.default_rng(7)
+    n = width * height * spp
+    yy, xx, _ = np.meshgrid(np.arange(height), np.arange(width),
+                            np.arange(spp), indexing="ij")
+    jit = rng.random((n, 2))
+    tan = np.tan(np.deg2rad(fov) / 2)
+    px = ((xx.reshape(-1) + jit[:, 0]) / width * 2 - 1) * tan
+    py = (1 - (yy.reshape(-1) + jit[:, 1]) / height * 2) * tan * height / width
+    d = np.stack([px, py, np.ones(n)], -1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = np.zeros((n, 3), np.float32)
+    lam = rng.uniform(380, 720, (n, 4)).astype(np.float32)
+    idx = np.arange(n)
+    with jax.disable_jit():
+        jL, _ = jpath.li_path(
+            tuple(prims), lights, jnp.asarray(o), jnp.asarray(d),
+            jnp.asarray(lam),
+            jdda.seed_stream(jnp.asarray(idx), jnp.zeros(n, jnp.int32)),
+            max_depth=max_depth, **kw)
+    tL, _ = tpath.li_path(
+        tuple(convert.object_from(plain(p), "cpu") for p in prims),
+        [convert.object_from(_plain_light(lt), "cpu") for lt in lights],
+        torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(lam),
+        tdda.seed_stream(torch.as_tensor(idx),
+                         torch.zeros(n, dtype=torch.int64)),
+        max_depth=max_depth, **kw)
+    frame = lambda L: np.asarray(L).reshape(height, width, spp, 4).mean(2)
+    return frame(tL.numpy()), frame(jL)
