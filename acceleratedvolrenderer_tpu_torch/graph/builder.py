@@ -68,6 +68,12 @@ def entry_rays(med_spec: MediumSpec, light_dir, dimension_steps: int):
     return origins.astype(np.float32), dirs.astype(np.float32)
 
 
+class TraceOutput(tuple):
+    """The reference's result type of trace_scatter_paths, an empty tuple
+    subclass that it declares and never returns; kept so every public name
+    of the reference has its counterpart."""
+
+
 def trace_scatter_paths(med: dda.MediumArrays, o, d, rng, maj_res,
                         homogeneous: bool, max_depth: int,
                         max_march_steps: int = 50000):

@@ -306,7 +306,11 @@ def li(
     the lane count, wavelength count and device.  `regen["loss_cotangent"]`,
     a flat (3 * (H*W + 1),) cotangent, makes the retire stage accumulate
     sum(cot . film) into the (1,) `regen["film_rgb"]` instead of the film
-    (parallel/diff.py); `regen["max_component"]` clamps each retired rgb."""
+    (parallel/diff.py); `regen["max_component"]` clamps each retired rgb.
+    `regen["work_base"]` (default 0) offsets the queue's work ids into a
+    global queue of `regen["global_total"]` (pixel, sample) items (default
+    total_work), whose items past the end are discarded: one shard of a
+    sharded render (parallel/mesh.py)."""
     has_samp_sigma = med.sigma_a_s is not None
     if has_samp_sigma and (rgb_mode or regen is not None
                            or event_groups > 1):
@@ -356,11 +360,19 @@ def li(
         R_stride = int(regen.get("work_stride", 1))
         R_cot = regen.get("loss_cotangent", None)
         R_maxc = float(regen.get("max_component", math.inf))
+        # sharded operation: this queue's work ids start at work_base in
+        # the global queue of global_total (pixel, sample) items; items
+        # past the global end splat to the discard slot
+        R_base = int(regen.get("work_base", 0))
+        R_gtotal = int(regen.get("global_total", R_total))
         if accum_spp:
             assert R_total % R_spp == 0, "accum_spp: total_work % spp != 0"
+            assert R_base % R_spp == 0, "accum_spp: work_base % spp != 0"
             R_items = R_total // R_spp   # a work item is one PIXEL
+            R_gitems, R_ibase = R_gtotal // R_spp, R_base // R_spp
         else:
             R_items = R_total            # a work item is one (pixel, sample)
+            R_gitems, R_ibase = R_gtotal, R_base
 
         def work_pixel(gw):
             p_raw = gw % R_HW
@@ -370,9 +382,11 @@ def li(
 
         def spawn(work, samp):
             """Camera ray, wavelengths and PCG stream for (pixel, sample):
-            the sample is `samp` with accum_spp, else work // (H*W)."""
-            p_idx = work_pixel(work)
-            s_idx = samp if accum_spp else work // R_HW
+            the sample is `samp` with accum_spp, else work // (H*W), of the
+            global work id."""
+            gw = work + R_ibase
+            p_idx = work_pixel(gw)
+            s_idx = samp if accum_spp else gw // R_HW
             pixxy = torch.stack([p_idx % R_W, p_idx // R_W],
                                 -1).to(torch.int32)
             ua, ub, rng_s = samplers.film_sample(R_kind, p_idx, s_idx,
@@ -1177,8 +1191,8 @@ def li(
         done = (c.pc == PC_DONE) & (c.work >= 0)
         if active is not None:
             done = done & active
-        tgt = torch.where(done & (c.work < R_total), work_pixel(c.work),
-                          R_HW)
+        gw = c.work + R_ibase
+        tgt = torch.where(done & (gw < R_gitems), work_pixel(gw), R_HW)
         film = splat(film, tgt,
                      torch.where(done[:, None], retired_rgb(c), 0.0), lo, hi)
         rank = torch.cumsum(done.to(i64), 0) - 1
@@ -1205,8 +1219,8 @@ def li(
         retire = (c.pc == PC_DONE) & (c.work >= 0) & (samp >= R_spp)
         if active is not None:
             retire = retire & active
-        tgt = torch.where(retire & (c.work < R_items), work_pixel(c.work),
-                          R_HW)
+        gw = c.work + R_ibase
+        tgt = torch.where(retire & (gw < R_gitems), work_pixel(gw), R_HW)
         film = splat(film, tgt, torch.where(retire[:, None], rgb_acc, 0.0),
                      lo, hi)
 

@@ -78,6 +78,16 @@ def library():
         return lib
 
 
+def is_available() -> bool:
+    """Whether kdtree.cpp builds with g++ and loads.  The graph layer does
+    not fall back when it does not: library() raises there."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 

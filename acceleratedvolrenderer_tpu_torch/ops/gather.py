@@ -21,6 +21,11 @@ from .. import kernels
 
 launches = 0
 
+# the reference kernel's tiling and table cap (V % LANES == 0, V <=
+# MAX_TABLE; pallas_gather.py l. 29-30); the CUDA kernel has neither limit
+LANES = 128
+MAX_TABLE = 32768
+
 
 def table_gather_plain(table, idx):
     """table[idx] for a (V,) table and integer indices of any shape; an

@@ -64,6 +64,21 @@ def trilerp_vec(grid, p_unit):
     return torch.sum(grid.reshape(-1, C)[flat] * w[..., None], dim=-2)
 
 
+def max_value_range(density: np.ndarray, lo: np.ndarray,
+                    hi: np.ndarray) -> float:
+    """Max over the density-sample index range covering the continuous
+    bounds [lo, hi] in [0,1]^3 (pbrt's SampledGrid::MaxValue), host-side."""
+    nz, ny, nx = density.shape
+    n = np.array([nx, ny, nz], np.float64)
+    p0 = np.maximum(np.floor(lo * n - 0.5).astype(np.int64), 0)
+    p1 = np.minimum(np.floor(hi * n - 0.5).astype(np.int64) + 1,
+                    n.astype(np.int64) - 1)
+    if np.any(p1 < p0):
+        return 0.0
+    return float(
+        density[p0[2]: p1[2] + 1, p0[1]: p1[1] + 1, p0[0]: p1[0] + 1].max())
+
+
 def _axis_ranges(r, nn):
     c = np.arange(r)
     lo = np.maximum(np.floor(c / r * nn - 0.5).astype(np.int64), 0)
@@ -72,26 +87,36 @@ def _axis_ranges(r, nn):
     return lo, hi
 
 
-def _extremum_grid(density: np.ndarray, res, op: str) -> np.ndarray:
-    """Per-cell extremum (op 'max' or 'min') of a (nz, ny, nx) grid over
-    each of the res = (rx, ry, rz) cells' continuous bounds, reduced along
-    x, then y, then z: an (rz, ry, rx) grid."""
+def _extremum_grid(density, res, op: str):
+    """Per-cell extremum (op 'amax' or 'amin') of a (nz, ny, nx) numpy
+    array or tensor over each of the res = (rx, ry, rz) cells' continuous
+    bounds, reduced along x, then y, then z: an (rz, ry, rx) grid of the
+    same kind (a tensor's stays on its device and carries its gradient)."""
+    xp = torch if torch.is_tensor(density) else np
     rx, ry, rz = res
     nz, ny, nx = density.shape
     lox, hix = _axis_ranges(rx, nx)
     loy, hiy = _axis_ranges(ry, ny)
     loz, hiz = _axis_ranges(rz, nz)
-    red = lambda a, l, h, ax: getattr(a[(slice(None),) * ax
-                                        + (slice(l, h + 1),)], op)(axis=ax)
-    mx = np.stack([red(density, l, h, 2) for l, h in zip(lox, hix)], axis=-1)
-    mxy = np.stack([red(mx, l, h, 1) for l, h in zip(loy, hiy)], axis=1)
-    return np.stack([red(mxy, l, h, 0) for l, h in zip(loz, hiz)], axis=0)
+    red = lambda a, l, h, ax: getattr(xp, op)(
+        a[(slice(None),) * ax + (slice(int(l), int(h) + 1),)], ax)
+    mx = xp.stack([red(density, l, h, 2) for l, h in zip(lox, hix)], -1)
+    mxy = xp.stack([red(mx, l, h, 1) for l, h in zip(loy, hiy)], 1)
+    return xp.stack([red(mxy, l, h, 0) for l, h in zip(loz, hiz)], 0)
 
 
 def build_majorant_grid(density: np.ndarray, res=(16, 16, 16)) -> np.ndarray:
     """Host-side (rz, ry, rx) per-cell max density over each cell's
     continuous bounds (pbrt media.cpp:240-246)."""
-    return _extremum_grid(np.asarray(density, np.float32), res, "max")
+    return _extremum_grid(np.asarray(density, np.float32), res, "amax")
+
+
+def build_majorant_grid_torch(density: torch.Tensor,
+                              res=(16, 16, 16)) -> torch.Tensor:
+    """build_majorant_grid of a density tensor on its own device (the
+    reference's build_majorant_grid_jax): rebuilt when an optimized density
+    changes, with the same index ranges."""
+    return _extremum_grid(density, res, "amax")
 
 
 def build_minorant_grid(density: np.ndarray, res=(16, 16, 16)) -> np.ndarray:
@@ -99,7 +124,7 @@ def build_minorant_grid(density: np.ndarray, res=(16, 16, 16)) -> np.ndarray:
     control grid of residual ratio tracking.  Every trilerp (or 1-tap)
     value inside a cell is a convex combination of the cell's samples, so
     it is a lower bound."""
-    return _extremum_grid(np.asarray(density, np.float32), res, "min")
+    return _extremum_grid(np.asarray(density, np.float32), res, "amin")
 
 
 def stochastic_corner(dims, p_unit, u3):

@@ -287,7 +287,7 @@ def _check_args(args, index, dev):
                 kernels.check_arg("march_block", name, u, want, shp, dev)
 
 
-_LANES = 128             # the TPU's lane width
+LANES = 128              # the TPU's lane width
 MAX_TABLE_ROWS = 2048    # the fused route's table cap, in 128-wide rows
 _ROW_SELECT_MAX = 32     # rows above which the TPU kernel gathers by MXU
 _MXU_CHUNK = 8           # sublane rows per MXU gather dispatch
@@ -299,7 +299,7 @@ def available(majorant_size: int, n: int) -> bool:
     pallas_march.available without its backend test, so the port routes a
     (table, lane count) as the reference routes it on the TPU.  Otherwise
     the window route (march_window) runs."""
-    lanes = _LANES
+    lanes = LANES
     if not (majorant_size % lanes == 0
             and 0 < majorant_size <= MAX_TABLE_ROWS * lanes
             and n % lanes == 0):

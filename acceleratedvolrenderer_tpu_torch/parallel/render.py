@@ -81,7 +81,7 @@ def _rgb_arrays(med_spec):
 
 
 def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
-                       device=None):
+                       device=None, pixels=None):
     """Single-wave renderer: one camera sample for every pixel, traced in
     chunks of `rays_per_wave` rays (default 262144; the last chunk is padded
     with pixel (-1, -1), whose samples the film drops).  PCG streams are
@@ -95,7 +95,10 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
     scene.integrator (path, simplepath, randomwalk, ao, or volpath over an
     empty medium, whose loop iterations are counted; the path integrators
     count 0), and a scene with no surface returns the infinite lights'
-    radiance.  The film may be a Film or a SpectralFilm."""
+    radiance.  The film may be a Film or a SpectralFilm.  `pixels`, a
+    (P, 2) int32 array of (x, y), renders those pixels in place of the
+    frame (rows of -1 render nothing): one shard of parallel/mesh.py's
+    sharded wave render."""
     device = resolve(device)
     scene = scene.to(device)
     cam = scene.camera
@@ -119,7 +122,8 @@ def make_wave_renderer(scene, *, rays_per_wave: Optional[int] = None,
             w2m=torch.eye(4, device=device),
             g=torch.zeros((), dtype=torch.float32, device=device))
 
-    pix_all = _wave_pixels(W, H, scene.pixel_bounds)
+    pix_all = (_wave_pixels(W, H, scene.pixel_bounds) if pixels is None
+               else np.asarray(pixels, np.int32))
     total = len(pix_all)
     chunk = min(rays_per_wave or 262144, total)
     n_chunks = (total + chunk - 1) // chunk
@@ -224,7 +228,9 @@ def make_regen_renderer(scene, *, device=None, n_lanes: int = 4096,
                         work_stride=1,
                         record_alive: bool = False,
                         count_events: bool = False,
-                        residual_shadow: bool = False):
+                        residual_shadow: bool = False,
+                        work_base: int = 0,
+                        local_total: Optional[int] = None):
     """Path-regeneration renderer on `device`: a retiring lane immediately
     pulls the next work item, so the whole frame x spp workload runs near
     full lane occupancy.  Returns (run, density, majorant), where
@@ -233,7 +239,10 @@ def make_regen_renderer(scene, *, device=None, n_lanes: int = 4096,
     alive_hist with record_alive and ev_counts with count_events.
     residual_shadow on a scalar grid builds the minorant grid of residual
     ratio tracking.  A scene's `max_component` attribute, when it has one,
-    clamps each retired rgb."""
+    clamps each retired rgb.  `work_base` and `local_total` render only
+    the local_total (pixel, sample) work items from work_base on of the
+    frame's H*W*spp (pixel-aligned with accum_spp), items past the frame's
+    end discarded: one shard of parallel/mesh.py's sharded render."""
     device = resolve(device)
     max_component = getattr(scene, "max_component", float("inf"))
     scene = scene.to(device)
@@ -251,7 +260,8 @@ def make_regen_renderer(scene, *, device=None, n_lanes: int = 4096,
         minorant = torch.as_tensor(gridops.build_minorant_grid(
             med_spec.density.cpu().numpy(), maj_res), device=device)
     rgb_kw = _rgb_arrays(med_spec)
-    total_work = H * W * spp
+    global_total = H * W * spp
+    total_work = global_total if local_total is None else int(local_total)
     N = int(min(n_lanes, total_work))
     refills = (total_work + N - 1) // N
     iter_cap = int(scene.max_march_steps) * (refills + 1)
@@ -275,6 +285,7 @@ def make_regen_renderer(scene, *, device=None, n_lanes: int = 4096,
         regen = dict(
             camera=cam, filter=scene.filter, sampler=scene.sampler,
             spp=spp, H=H, W=W, total_work=total_work, seed=scene.seed,
+            work_base=work_base, global_total=global_total,
             sigma_a_fn=sigma_a_fn, sigma_s_fn=sigma_s_fn, Le_fn=Le_fn,
             film_rgb=film_rgb,
             max_component=max_component,

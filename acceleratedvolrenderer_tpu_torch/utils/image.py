@@ -3,11 +3,13 @@ ImageMetadata, the ZIP-compressed scanline EXR writer write_exr, the
 scanline EXR reader read_exr (NONE, RLE, ZIPS, ZIP and PIZ chunks),
 read_image, write_png, mse / mrse / mae, PFM and QOI), numpy, struct and
 zlib only: PNG files are written and read here too (8-bit gray, gray +
-alpha, RGB and RGBA, non-interlaced).  EXR files are byte-identical to the
+alpha, RGB and RGBA, non-interlaced), and JPEG, BMP and TGA files read,
+which the reference reads through PIL.  EXR files are byte-identical to the
 reference writer's.
 """
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from dataclasses import dataclass, field
@@ -444,19 +446,586 @@ def mae(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.mean(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
 
 
+# ---------------------------------------------------------------------------
+# JPEG (Huffman: baseline, extended sequential, progressive), TGA and BMP,
+# decoded with numpy: the formats the reference reads through PIL.  The
+# JPEG decoder follows libjpeg-turbo's defaults, as PIL decodes: the islow
+# integer IDCT (jidctint.c), "fancy" triangular chroma upsampling
+# (jdsample.c) and its YCbCr -> RGB tables (jdcolor.c).
+# ---------------------------------------------------------------------------
+
+_JPEG_NATURAL = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+    36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
+    60, 61, 54, 47, 55, 62, 63], np.int64)
+_ZZ = _JPEG_NATURAL.tolist()
+_JPEG_UNREAD = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
+                0xC7: "hierarchical lossless", 0xC9: "arithmetic-coded",
+                0xCA: "arithmetic-coded progressive",
+                0xCB: "arithmetic-coded lossless",
+                0xCC: "arithmetic-coded (DAC)",
+                0xCD: "arithmetic-coded hierarchical",
+                0xCE: "arithmetic-coded hierarchical",
+                0xCF: "arithmetic-coded hierarchical lossless"}
+
+
+def _huffman_lookup(counts, symbols):
+    """(symbol, code length) of every 16-bit prefix of a canonical Huffman
+    table (lists; a prefix no code starts gives symbol 0, length 16)."""
+    sym = np.zeros(1 << 16, np.int64)
+    ln = np.full(1 << 16, 16, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            lo = code << (16 - length)
+            hi = (code + 1) << (16 - length)
+            sym[lo:hi] = symbols[k]
+            ln[lo:hi] = length
+            code += 1
+            k += 1
+        code <<= 1
+    return sym.tolist(), ln.tolist()
+
+
+def _bit_windows(segment: bytes):
+    """24-bit big-endian windows w[i] = bytes i..i+2 of an entropy-coded
+    segment (stuffing removed), zero past its end, as libjpeg reads."""
+    a = np.frombuffer(segment + b"\0" * 8, np.uint8).astype(np.int64)
+    return ((a[:-2] << 16) | (a[1:-1] << 8) | a[2:]).tolist()
+
+
+def _scan_segments(data: bytes, pos: int):
+    """The entropy-coded data from pos to the next marker other than RSTn:
+    (its restart segments with byte stuffing removed, the marker's
+    position)."""
+    end = pos
+    while True:
+        end = data.find(b"\xff", end)
+        if end < 0 or end + 1 >= len(data):
+            raise ValueError("JPEG: truncated file (entropy-coded data "
+                             "runs past the end)")
+        nxt = data[end + 1]
+        if nxt == 0 or 0xD0 <= nxt <= 0xD7:
+            end += 2
+            continue
+        break
+    parts = re.split(rb"\xff[\xd0-\xd7]", data[pos:end])
+    return [p.replace(b"\xff\x00", b"\xff") for p in parts], end
+
+
+def _decode_scan(frame, scan, segments, restart):
+    """Decode one scan's Huffman data into the frame's coefficient lists
+    (natural order, 64 per block, padded block grid per component)."""
+    comps = frame["comps"]
+    ss, se, ah, al = scan["ss"], scan["se"], scan["ah"], scan["al"]
+    sc = scan["comps"]                      # (component index, dc, ac)
+    progressive = frame["progressive"]
+    if len(sc) == 1:                        # non-interleaved: block order
+        ci = sc[0][0]
+        c = comps[ci]
+        units = [[(ci, (by * c["bw_pad"] + bx) * 64)]
+                 for by in range(c["bh"]) for bx in range(c["bw"])]
+    else:
+        units = []
+        for my in range(frame["mcuy"]):
+            for mx in range(frame["mcux"]):
+                u = []
+                for ci, _, _ in sc:
+                    c = comps[ci]
+                    for v in range(c["v"]):
+                        for h in range(c["h"]):
+                            u.append((ci, ((my * c["v"] + v) * c["bw_pad"]
+                                           + mx * c["h"] + h) * 64))
+                units.append(u)
+    tables = {ci: (dc, ac) for ci, dc, ac in sc}
+    per = restart if restart else len(units)
+    n_seg = -(-len(units) // per) if units else 0
+    if len(segments) < n_seg:
+        raise ValueError("JPEG: fewer restart intervals than the scan needs")
+    zz = _ZZ
+    for si in range(n_seg):
+        w = _bit_windows(segments[si])
+        pos = 0
+        pred = {ci: 0 for ci in tables}
+        eobrun = 0
+        for unit in units[si * per:(si + 1) * per]:
+            for ci, b in unit:
+                out = comps[ci]["coef"]
+                dsym, dlen = tables[ci][0] or (None, None)
+                asym, alen = tables[ci][1] or (None, None)
+                if not progressive:
+                    p = (w[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF
+                    s = dsym[p]
+                    pos += dlen[p]
+                    if s:
+                        v = (w[pos >> 3] >> (24 - (pos & 7) - s)) & ((1 << s) - 1)
+                        pos += s
+                        if v < (1 << (s - 1)):
+                            v -= (1 << s) - 1
+                        pred[ci] += v
+                    out[b] = pred[ci]
+                    k = 1
+                    while k < 64:
+                        p = (w[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF
+                        rs = asym[p]
+                        pos += alen[p]
+                        s = rs & 15
+                        if s:
+                            k += rs >> 4
+                            v = (w[pos >> 3] >> (24 - (pos & 7) - s)) & ((1 << s) - 1)
+                            pos += s
+                            if v < (1 << (s - 1)):
+                                v -= (1 << s) - 1
+                            out[b + zz[k]] = v
+                            k += 1
+                        elif rs == 0xF0:
+                            k += 16
+                        else:
+                            break
+                elif ss == 0 and ah == 0:       # DC, first scan
+                    p = (w[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF
+                    s = dsym[p]
+                    pos += dlen[p]
+                    if s:
+                        v = (w[pos >> 3] >> (24 - (pos & 7) - s)) & ((1 << s) - 1)
+                        pos += s
+                        if v < (1 << (s - 1)):
+                            v -= (1 << s) - 1
+                        pred[ci] += v
+                    out[b] = pred[ci] * (1 << al)
+                elif ss == 0:                   # DC, refinement
+                    if (w[pos >> 3] >> (23 - (pos & 7))) & 1:
+                        out[b] |= 1 << al
+                    pos += 1
+                elif ah == 0:                   # AC, first scan
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    k = ss
+                    while k <= se:
+                        p = (w[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF
+                        rs = asym[p]
+                        pos += alen[p]
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            k += r
+                            v = (w[pos >> 3] >> (24 - (pos & 7) - s)) & ((1 << s) - 1)
+                            pos += s
+                            if v < (1 << (s - 1)):
+                                v -= (1 << s) - 1
+                            out[b + zz[k]] = v * (1 << al)
+                            k += 1
+                        elif r == 15:
+                            k += 16
+                        else:
+                            eobrun = (1 << r) - 1
+                            if r:
+                                eobrun += (w[pos >> 3] >> (24 - (pos & 7) - r)) & ((1 << r) - 1)
+                                pos += r
+                            break
+                else:                           # AC, refinement
+                    p1, m1 = 1 << al, -1 << al
+                    k = ss
+                    if not eobrun:
+                        while k <= se:
+                            p = (w[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF
+                            rs = asym[p]
+                            pos += alen[p]
+                            r, s = rs >> 4, rs & 15
+                            if s:
+                                s = p1 if (w[pos >> 3] >> (23 - (pos & 7))) & 1 else m1
+                                pos += 1
+                            elif r != 15:
+                                eobrun = 1 << r
+                                if r:
+                                    eobrun += (w[pos >> 3] >> (24 - (pos & 7) - r)) & ((1 << r) - 1)
+                                    pos += r
+                                break
+                            while k <= se:
+                                z = b + zz[k]
+                                if out[z]:
+                                    if (w[pos >> 3] >> (23 - (pos & 7))) & 1:
+                                        if not out[z] & p1:
+                                            out[z] += p1 if out[z] >= 0 else m1
+                                    pos += 1
+                                else:
+                                    r -= 1
+                                    if r < 0:
+                                        break
+                                k += 1
+                            if s and k <= se:
+                                out[b + zz[k]] = s
+                            k += 1
+                    if eobrun:
+                        while k <= se:
+                            z = b + zz[k]
+                            if out[z]:
+                                if (w[pos >> 3] >> (23 - (pos & 7))) & 1:
+                                    if not out[z] & p1:
+                                        out[z] += p1 if out[z] >= 0 else m1
+                                pos += 1
+                            k += 1
+                        eobrun -= 1
+
+
+def _idct_pass(x, shift):
+    """One 1-D pass of libjpeg's jpeg_idct_islow over the last axis of
+    eight int64 arrays x[0..7] (CONST_BITS 13); outputs descaled by
+    `shift` bits."""
+    z2, z3 = x[2], x[6]
+    z1 = (z2 + z3) * 4433                       # FIX_0_541196100
+    tmp2 = z1 + z3 * -15137                     # FIX_1_847759065
+    tmp3 = z1 + z2 * 6270                       # FIX_0_765366865
+    tmp0 = (x[0] + x[4]) << 13
+    tmp1 = (x[0] - x[4]) << 13
+    t10, t13 = tmp0 + tmp3, tmp0 - tmp3
+    t11, t12 = tmp1 + tmp2, tmp1 - tmp2
+    tmp0, tmp1, tmp2, tmp3 = x[7], x[5], x[3], x[1]
+    z1, z2 = tmp0 + tmp3, tmp1 + tmp2
+    z3, z4 = tmp0 + tmp2, tmp1 + tmp3
+    z5 = (z3 + z4) * 9633                       # FIX_1_175875602
+    tmp0 = tmp0 * 2446                          # FIX_0_298631336
+    tmp1 = tmp1 * 16819                         # FIX_2_053119869
+    tmp2 = tmp2 * 25172                         # FIX_3_072711026
+    tmp3 = tmp3 * 12299                         # FIX_1_501321110
+    z1 = z1 * -7373                             # FIX_0_899976223
+    z2 = z2 * -20995                            # FIX_2_562915447
+    z3 = z3 * -16069 + z5                       # FIX_1_961570560
+    z4 = z4 * -3196 + z5                        # FIX_0_390180644
+    tmp0 += z1 + z3
+    tmp1 += z2 + z4
+    tmp2 += z2 + z3
+    tmp3 += z1 + z4
+    r = 1 << (shift - 1)
+    return [(t10 + tmp3 + r) >> shift, (t11 + tmp2 + r) >> shift,
+            (t12 + tmp1 + r) >> shift, (t13 + tmp0 + r) >> shift,
+            (t13 - tmp0 + r) >> shift, (t12 - tmp1 + r) >> shift,
+            (t11 - tmp2 + r) >> shift, (t10 - tmp3 + r) >> shift]
+
+
+def _idct_range_table():
+    """libjpeg's post-IDCT range limit (jdmaster.c), indexed by the
+    descaled value & 1023: clamp of v + 128 to 0..255 for v in
+    [-512, 511]."""
+    v = np.arange(1024)
+    v = np.where(v >= 512, v - 1024, v)
+    return np.clip(v + 128, 0, 255).astype(np.uint8)
+
+
+_IDCT_RANGE = _idct_range_table()
+
+
+def _idct_islow(coef, qt):
+    """(n, 64) natural-order coefficients and their quantization table ->
+    (n, 8, 8) uint8 samples, as jpeg_idct_islow computes them."""
+    c = (coef * qt).reshape(-1, 8, 8)
+    cols = _idct_pass([c[:, r, :] for r in range(8)], 11)   # pass 1
+    ws = np.stack(cols, 1)                                  # (n, 8, 8)
+    rows = _idct_pass([ws[:, :, u] for u in range(8)], 18)  # pass 2
+    return _IDCT_RANGE[np.stack(rows, -1) & 1023]
+
+
+def _upsample_fancy(x, h, v):
+    """libjpeg-turbo's fancy upsampling of a (rows, cols) uint8 plane by
+    (h, v) in {(1, 1), (2, 1), (2, 2)}, edge samples replicated; box
+    replication where the plane is at most 2 wide, as libjpeg-turbo
+    does."""
+    x = x.astype(np.int64)
+    if (h, v) == (1, 1):
+        return x
+    if x.shape[1] <= 2:
+        return np.repeat(np.repeat(x, v, 0), h, 1)
+    if v == 2:
+        up = np.concatenate([x[:1], x[:-1]], 0)
+        down = np.concatenate([x[1:], x[-1:]], 0)
+        sums = np.stack([3 * x + up, 3 * x + down], 1).reshape(-1, x.shape[1])
+        left = np.concatenate([sums[:, :1], sums[:, :-1]], 1)
+        right = np.concatenate([sums[:, 1:], sums[:, -1:]], 1)
+        out = np.stack([(3 * sums + left + 8) >> 4,
+                        (3 * sums + right + 7) >> 4], -1)
+        return out.reshape(sums.shape[0], -1)
+    left = np.concatenate([x[:, :1], x[:, :-1]], 1)
+    right = np.concatenate([x[:, 1:], x[:, -1:]], 1)
+    out = np.stack([(3 * x + left + 1) >> 2, (3 * x + right + 2) >> 2], -1)
+    return out.reshape(x.shape[0], -1)
+
+
+def _ycc_to_rgb(y, cb, cr):
+    """jdcolor.c's ycc_rgb_convert: its fixed-point tables (16 fraction
+    bits) and range limit."""
+    one_half = 1 << 15
+    fix = lambda f: int(f * (1 << 16) + 0.5)
+    x = np.arange(256, dtype=np.int64) - 128
+    cr_r = (fix(1.40200) * x + one_half) >> 16
+    cb_b = (fix(1.77200) * x + one_half) >> 16
+    cr_g = -fix(0.71414) * x
+    cb_g = -fix(0.34414) * x + one_half
+    r = y + cr_r[cr]
+    g = y + ((cb_g[cb] + cr_g[cr]) >> 16)
+    b = y + cb_b[cb]
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A JPEG file's 8-bit samples, (H, W, 3) RGB or (H, W, 1) gray: Huffman
+    baseline / extended sequential (SOF0 / SOF1) and progressive (SOF2),
+    gray or YCbCr, chroma sampled 1x1, 2x1 or 2x2 against luma, restart
+    intervals.  Raises ValueError naming the format on anything else
+    (lossless, hierarchical or arithmetic-coded, 12-bit, CMYK, Adobe RGB,
+    other sampling)."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError("not a JPEG file")
+    qts, dcs, acs = {}, {}, {}
+    restart, frame, adobe, scans = 0, None, None, 0
+    pos = 2
+    while True:
+        start = pos
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data) - 1 and scans:
+            break                   # no end-of-image marker: libjpeg warns
+        if pos >= len(data) - 1:
+            raise ValueError("JPEG: truncated file")
+        if pos == start:
+            raise ValueError("JPEG: marker expected")
+        m = data[pos]
+        pos += 1
+        if m == 0xD9:
+            break
+        if m == 0xD8 or 0xD0 <= m <= 0xD7 or m == 0x01:
+            continue
+        size = int.from_bytes(data[pos:pos + 2], "big")
+        if pos + size > len(data):
+            raise ValueError("JPEG: truncated file")
+        seg = data[pos + 2:pos + size]
+        pos += size
+        if m in _JPEG_UNREAD:
+            raise ValueError(f"{_JPEG_UNREAD[m]} JPEG (marker 0x{m:02X}) "
+                             "is not read")
+        if m == 0xDB:                               # DQT
+            i = 0
+            while i < len(seg):
+                prec, tq = seg[i] >> 4, seg[i] & 15
+                n = 128 if prec else 64
+                vals = np.frombuffer(seg[i + 1:i + 1 + n],
+                                     ">u2" if prec else np.uint8)
+                q = np.zeros(64, np.int64)
+                q[_JPEG_NATURAL] = vals
+                qts[tq] = q
+                i += 1 + n
+        elif m == 0xC4:                             # DHT
+            i = 0
+            while i < len(seg):
+                tc, th = seg[i] >> 4, seg[i] & 15
+                counts = list(seg[i + 1:i + 17])
+                n = sum(counts)
+                table = _huffman_lookup(counts, list(seg[i + 17:i + 17 + n]))
+                (acs if tc else dcs)[th] = table
+                i += 17 + n
+        elif m == 0xDD:                             # DRI
+            restart = int.from_bytes(seg[:2], "big")
+        elif m == 0xEE and seg[:5] == b"Adobe":
+            adobe = seg[11] if len(seg) > 11 else 0
+        elif m in (0xC0, 0xC1, 0xC2):               # SOF
+            if seg[0] != 8:
+                raise ValueError(f"{seg[0]}-bit JPEG is not read")
+            hgt, wid, nc = (int.from_bytes(seg[1:3], "big"),
+                            int.from_bytes(seg[3:5], "big"), seg[5])
+            if hgt == 0:
+                raise ValueError("JPEG with a DNL marker is not read")
+            if nc == 4:
+                raise ValueError("CMYK / YCCK JPEG is not read")
+            if nc not in (1, 3):
+                raise ValueError(f"JPEG with {nc} components is not read")
+            comps = [dict(h=seg[7 + 3 * i] >> 4, v=seg[7 + 3 * i] & 15,
+                          tq=seg[8 + 3 * i]) for i in range(nc)]
+            hmax = max(c["h"] for c in comps)
+            vmax = max(c["v"] for c in comps)
+            mcux, mcuy = -(-wid // (8 * hmax)), -(-hgt // (8 * vmax))
+            for c in comps:
+                c["dw"] = -(-wid * c["h"] // hmax)      # downsampled size
+                c["dh"] = -(-hgt * c["v"] // vmax)
+                c["bw"], c["bh"] = -(-c["dw"] // 8), -(-c["dh"] // 8)
+                c["bw_pad"], c["bh_pad"] = mcux * c["h"], mcuy * c["v"]
+                c["coef"] = [0] * (c["bw_pad"] * c["bh_pad"] * 64)
+                if (hmax // c["h"], vmax // c["v"]) not in (
+                        (1, 1), (2, 1), (2, 2)) or hmax % c["h"] \
+                        or vmax % c["v"]:
+                    raise ValueError(f"JPEG sampling {c['h']}x{c['v']} of "
+                                     f"{hmax}x{vmax} is not read")
+            ids = [seg[6 + 3 * i] for i in range(nc)]
+            frame = dict(w=wid, h=hgt, comps=comps, ids=ids, hmax=hmax,
+                         vmax=vmax, mcux=mcux, mcuy=mcuy,
+                         progressive=m == 0xC2)
+        elif m == 0xDA:                             # SOS
+            if frame is None:
+                raise ValueError("JPEG: scan before the frame header")
+            ns = seg[0]
+            sc = []
+            for i in range(ns):
+                ci = frame["ids"].index(seg[1 + 2 * i])
+                td, ta = seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15
+                sc.append((ci, dcs.get(td), acs.get(ta)))
+            ss, se = seg[1 + 2 * ns], seg[2 + 2 * ns]
+            ah, al = seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+            segments, pos = _scan_segments(data, pos)
+            _decode_scan(frame, dict(comps=sc, ss=ss, se=se, ah=ah, al=al),
+                         segments, restart)
+            scans += 1
+    if frame is None:
+        raise ValueError("JPEG: no frame header")
+    if len(frame["comps"]) == 3 and adobe == 0:
+        raise ValueError("Adobe RGB-coded JPEG is not read")
+    planes = []
+    for c in frame["comps"]:
+        if c["tq"] not in qts:
+            raise ValueError("JPEG: missing quantization table")
+        blocks = _idct_islow(np.asarray(c["coef"], np.int64).reshape(-1, 64),
+                             qts[c["tq"]])
+        img = blocks.reshape(c["bh_pad"], c["bw_pad"], 8, 8).transpose(
+            0, 2, 1, 3).reshape(c["bh_pad"] * 8, c["bw_pad"] * 8)
+        img = _upsample_fancy(img[:c["dh"], :c["dw"]],
+                              frame["hmax"] // c["h"], frame["vmax"] // c["v"])
+        planes.append(img[:frame["h"], :frame["w"]].astype(np.int64))
+    if len(planes) == 1:
+        return planes[0].astype(np.uint8)[:, :, None]
+    return _ycc_to_rgb(*planes)
+
+
+def decode_tga(data: bytes) -> np.ndarray:
+    """A Truevision TGA file's 8-bit samples, (H, W, C): true-color (24- and
+    32-bit, BGR(A) -> RGB(A)) and gray (8-bit, 16-bit with alpha),
+    uncompressed or RLE, either origin.  Raises ValueError naming the kind
+    on anything else (colour-mapped, 15/16-bit true color)."""
+    if len(data) < 18:
+        raise ValueError("TGA: truncated header")
+    idlen, cmtype, itype = data[0], data[1], data[2]
+    cm_len, cm_depth = struct.unpack_from("<H", data, 5)[0], data[7]
+    w, h = struct.unpack_from("<HH", data, 12)
+    depth, desc = data[16], data[17]
+    if itype in (1, 9):
+        raise ValueError("colour-mapped TGA is not read")
+    if itype not in (2, 3, 10, 11):
+        raise ValueError(f"TGA image type {itype} is not read")
+    gray = itype in (3, 11)
+    if (gray and depth not in (8, 16)) or (not gray and depth not in (24, 32)):
+        raise ValueError(f"{depth}-bit {'gray' if gray else 'true-color'} "
+                         "TGA is not read")
+    bpp = depth // 8
+    off = 18 + idlen + (cm_len * ((cm_depth + 7) // 8) if cmtype else 0)
+    n = w * h
+    if itype in (2, 3):
+        px = np.frombuffer(data, np.uint8, n * bpp, off)
+    else:                                           # RLE packets
+        src = np.frombuffer(data, np.uint8, offset=off)
+        out = np.empty((n, bpp), np.uint8)
+        i = j = 0
+        while j < n:
+            head = int(src[i])
+            count = (head & 0x7F) + 1
+            if head & 0x80:
+                out[j:j + count] = src[i + 1:i + 1 + bpp]
+                i += 1 + bpp
+            else:
+                out[j:j + count] = src[i + 1:i + 1 + count * bpp].reshape(
+                    -1, bpp)
+                i += 1 + count * bpp
+            j += count
+        px = out
+    px = px.reshape(h, w, bpp)
+    if not gray:
+        px = px[:, :, [2, 1, 0, 3][:bpp]]
+    if not desc & 0x20:                             # bottom-left origin
+        px = px[::-1]
+    if desc & 0x10:                                 # right-to-left
+        px = px[:, ::-1]
+    return np.ascontiguousarray(px)
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """A Windows BMP's 8-bit RGB samples, (H, W, 3): 24- and 32-bit (BI_RGB
+    or 8-bit BI_BITFIELDS masks), and 1/4/8-bit palette images expanded
+    through their palette; bottom-up or top-down.  Raises ValueError
+    naming the kind on anything else (RLE, 16-bit, other masks)."""
+    if data[:2] != b"BM":
+        raise ValueError("not a BMP file")
+    off, hsize = struct.unpack_from("<II", data, 10)
+    if hsize == 12:                                 # OS/2 core header
+        w, h, _, bpp = struct.unpack_from("<HhHH", data, 18)
+        comp, n_pal, pal_bytes = 0, 0, 3
+    else:
+        w, h, _, bpp, comp = struct.unpack_from("<iiHHI", data, 18)
+        n_pal = struct.unpack_from("<I", data, 46)[0]
+        pal_bytes = 4
+    top_down = h < 0
+    h = abs(h)
+    if comp not in (0, 3) or (comp == 3 and bpp != 32):
+        raise ValueError(f"BMP compression {comp} at {bpp} bits is not read")
+    stride = ((w * bpp + 31) // 32) * 4
+    rows = np.frombuffer(data, np.uint8, stride * h, off).reshape(h, stride)
+    if bpp == 24:
+        px = rows[:, :w * 3].reshape(h, w, 3)[:, :, ::-1]
+    elif bpp == 32:
+        v = rows[:, :w * 4].copy().view("<u4").reshape(h, w)
+        masks = (struct.unpack_from("<III", data, 14 + 40) if comp == 3
+                 else (0xFF0000, 0xFF00, 0xFF))
+        chans = []
+        for mask in masks:
+            shift = (mask & -mask).bit_length() - 1
+            if mask >> shift != 0xFF:
+                raise ValueError(f"BMP bit mask 0x{mask:08X} is not read")
+            chans.append((v >> shift) & 0xFF)
+        px = np.stack(chans, -1).astype(np.uint8)
+    elif bpp in (1, 4, 8):
+        n_pal = n_pal or (1 << bpp)
+        pal = np.frombuffer(data, np.uint8, n_pal * pal_bytes,
+                            14 + hsize).reshape(n_pal, pal_bytes)[:, 2::-1]
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, bpp)
+        idx = (bits * (1 << np.arange(bpp - 1, -1, -1))).sum(-1)[:, :w]
+        px = pal[np.minimum(idx, n_pal - 1)]
+    else:
+        raise ValueError(f"{bpp}-bit BMP is not read")
+    if not top_down:
+        px = px[::-1]
+    return np.ascontiguousarray(px)
+
+
+_UNREAD_MAGIC = ((b"GIF8", "GIF"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"))
+
+
+def _decode_image(path: str, data: bytes) -> np.ndarray:
+    """8-bit (or PNG's 16-bit) samples (H, W, C) of a PNG, JPEG, BMP or
+    (by its extension) TGA file; raises ValueError naming any other
+    format."""
+    if data[:8] == _PNG_MAGIC:
+        return decode_png(data)
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data)
+    if data[:2] == b"BM":
+        return decode_bmp(data)
+    if path.lower().endswith(".tga"):
+        return decode_tga(data)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        raise ValueError(f"{path}: WebP images are not read")
+    for magic, name in _UNREAD_MAGIC:
+        if data.startswith(magic):
+            raise ValueError(f"{path}: {name} images are not read")
+    raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP or TGA image")
+
+
 def read_image(path: str):
     """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
-    reader above; PNG decoded here, sRGB -> linear (Image::Read's
-    LinearColorEncoding handling, util/image.cpp).  Other formats (JPEG
-    among them) raise."""
+    reader above; PNG, JPEG, BMP and TGA decoded here (by their magic
+    bytes, TGA by its extension), sRGB
+    -> linear (Image::Read's LinearColorEncoding handling,
+    util/image.cpp).  Other formats raise, naming the format."""
     if path.endswith(".exr"):
         img, _names, attrs = read_exr(path)
         return np.asarray(img[:, :, :3], np.float32), attrs
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] != _PNG_MAGIC:
-        raise ValueError(f"{path}: only EXR and PNG images are read")
-    x = png_unit(decode_png(data))
+    x = png_unit(_decode_image(path, data))
     if x.shape[2] < 3:                  # gray (+ alpha)
         x = np.repeat(x[:, :, :1], 3, axis=2)
     x = x[:, :, :3]

@@ -10,6 +10,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .device import resolve
+
 N_SPECTRUM_SAMPLES = 4
 LAMBDA_MIN = 360.0
 LAMBDA_MAX = 830.0
@@ -45,6 +47,28 @@ class SampledWavelengths(NamedTuple):
     lam: torch.Tensor   # (..., N_SPECTRUM_SAMPLES)
     pdf: torch.Tensor
 
+    def terminate_secondary(self):
+        """Keep the hero wavelength only (pbrt's TerminateSecondary,
+        spectrum.h:185): the other lanes' pdf goes to 0 and lane 0's is
+        divided by N; idempotent."""
+        already = torch.all(self.pdf[..., 1:] == 0.0, dim=-1, keepdim=True)
+        new_pdf = torch.cat([self.pdf[..., :1] / N_SPECTRUM_SAMPLES,
+                             torch.zeros_like(self.pdf[..., 1:])], -1)
+        return SampledWavelengths(self.lam,
+                                  torch.where(already, self.pdf, new_pdf))
+
+
+def sample_wavelengths_uniform(u):
+    """Stratified uniform wavelengths (pbrt SampledWavelengths::
+    SampleUniform, spectrum.h:155); u: (...,) in [0, 1)."""
+    lam0 = LAMBDA_MIN + u[..., None] * (LAMBDA_MAX - LAMBDA_MIN)
+    delta = (LAMBDA_MAX - LAMBDA_MIN) / N_SPECTRUM_SAMPLES
+    lam = lam0 + torch.arange(N_SPECTRUM_SAMPLES, dtype=lam0.dtype,
+                              device=u.device) * delta
+    lam = torch.where(lam > LAMBDA_MAX, LAMBDA_MIN + (lam - LAMBDA_MAX), lam)
+    return SampledWavelengths(
+        lam, torch.full_like(lam, 1.0 / (LAMBDA_MAX - LAMBDA_MIN)))
+
 
 def _visible_pdf(lam):
     c = torch.cosh(0.0072 * (lam - 538.0))
@@ -61,6 +85,31 @@ def sample_wavelengths_visible(u):
     lam = 538.0 - 138.888889 * torch.atanh(0.85691062 - 1.82750197 * up)
     lam = torch.clamp(lam, LAMBDA_MIN, LAMBDA_MAX)
     return SampledWavelengths(lam, _visible_pdf(lam))
+
+
+class DenselySampledSpectrum:
+    """A spectrum sampled every 1 nm over [LAMBDA_MIN, LAMBDA_MAX], its 471
+    values a tensor; evaluation reads the nearest sample (pbrt's
+    DenselySampledSpectrum).  The table lives on `device` (the card unless
+    given), put there once; `lam` must be on the same device."""
+
+    def __init__(self, values, device=None):
+        self.values = torch.as_tensor(values, dtype=torch.float32,
+                                      device=resolve(device))
+
+    def __call__(self, lam):
+        idx = torch.clamp(torch.round(lam - LAMBDA_MIN).to(torch.int64), 0,
+                          self.values.shape[0] - 1)
+        return self.values[idx]
+
+
+def spectrum_to_photometric(spec_fn):
+    """Luminous scale K with K * sum(spec * V) = 1 photometric unit (pbrt
+    SpectrumToPhotometric), over 1 nm steps, on the host."""
+    lam = torch.arange(LAMBDA_MIN, LAMBDA_MAX + 1.0, 1.0,
+                       dtype=torch.float32)
+    integ = float(torch.sum(spec_fn(lam) * cie_y(lam)))
+    return 683.0 * integ / CIE_Y_INTEGRAL if integ > 0 else 0.0
 
 
 def constant_spectrum(c):
@@ -341,8 +390,6 @@ def fit_sigmoid_polynomial(rgb, iters: int = 60, device=None):
     or an array (fitted on `device`, the CUDA card by default).  Returns
     (N, 3) float32 coefficients in the nanometre domain of
     sigmoid_polynomial_eval."""
-    from .device import resolve
-
     if not isinstance(rgb, torch.Tensor):
         rgb = torch.as_tensor(np.asarray(rgb, np.float32),
                               device=resolve(device))

@@ -19,6 +19,10 @@ def dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def absdot(a, b):
+    return torch.abs(dot(a, b))
+
+
 def cross(a, b):
     return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
                         a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
@@ -35,6 +39,10 @@ def length(v):
 
 def normalize(v):
     return v / torch.clamp(length(v)[..., None], min=1e-24)
+
+
+def distance(a, b):
+    return length(a - b)
 
 
 def face_forward(n, v):
@@ -60,6 +68,15 @@ def spherical_direction(sin_theta, cos_theta, phi):
     return torch.stack(
         [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta],
         dim=-1)
+
+
+def spherical_theta(v):
+    return torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + 2.0 * np.pi, p)
 
 
 def frame_from_z(z):
@@ -89,6 +106,9 @@ class Transform(NamedTuple):
     def to(self, device):
         return Transform(self.m.to(device), self.m_inv.to(device))
 
+    def __matmul__(self, other: "Transform") -> "Transform":
+        return Transform(self.m @ other.m, other.m_inv @ self.m_inv)
+
     def inverse(self) -> "Transform":
         return Transform(self.m_inv, self.m)
 
@@ -104,6 +124,59 @@ class Transform(NamedTuple):
 
     def apply_vector(self, v):
         return self._mat3_vec(self.m, v)
+
+    def apply_normal(self, n):
+        """Normals transform by the inverse transpose."""
+        m = self.m_inv
+        return (n[..., 0:1] * m[0, :3] + n[..., 1:2] * m[1, :3]
+                + n[..., 2:3] * m[2, :3])
+
+    def apply_ray(self, o, d):
+        return self.apply_point(o), self.apply_vector(d)
+
+
+def identity_transform(device) -> Transform:
+    return Transform.from_numpy(np.eye(4), np.eye(4), device)
+
+
+def translate(delta, device) -> Transform:
+    delta = np.asarray(delta, np.float32)
+    m, mi = np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32)
+    m[:3, 3] = delta
+    mi[:3, 3] = -delta
+    return Transform.from_numpy(m, mi, device)
+
+
+def scale(s, device) -> Transform:
+    s = np.broadcast_to(np.asarray(s, np.float32), (3,))
+    m = np.diag(np.concatenate([s, [1.0]]).astype(np.float32))
+    mi = np.diag(np.concatenate([1.0 / s, [1.0]]).astype(np.float32))
+    return Transform.from_numpy(m, mi, device)
+
+
+def rotate(angle_deg: float, axis, device) -> Transform:
+    """Rotation by angle_deg about `axis` (pbrt Rotate)."""
+    m = rotate_matrix(angle_deg, axis)
+    return Transform.from_numpy(m, m.T, device)
+
+
+def perspective(fov_deg: float, device, z_near: float = 1e-2,
+                z_far: float = 1000.0) -> Transform:
+    """Camera-to-NDC projective transform (pbrt Perspective,
+    cameras.cpp)."""
+    persp = np.zeros((4, 4))
+    persp[0, 0] = persp[1, 1] = 1.0
+    persp[2, 2] = z_far / (z_far - z_near)
+    persp[2, 3] = -z_far * z_near / (z_far - z_near)
+    persp[3, 2] = 1.0
+    inv_tan = 1.0 / np.tan(np.deg2rad(fov_deg) / 2.0)
+    m = np.diag([inv_tan, inv_tan, 1.0, 1.0]) @ persp
+    return Transform.from_numpy(m, np.linalg.inv(m), device)
+
+
+def transform_from_matrix(m, device) -> Transform:
+    m = np.asarray(m, np.float64).reshape(4, 4)
+    return Transform.from_numpy(m, np.linalg.inv(m), device)
 
 
 def look_at_matrix(eye, look, up) -> np.ndarray:
@@ -150,6 +223,30 @@ def rotate_matrix(angle_deg: float, axis) -> np.ndarray:
     m[2, 1] = y * z * (1 - c) + x * s
     m[2, 2] = z * z + (1 - z * z) * c
     return m
+
+
+class Bounds3(NamedTuple):
+    """Axis-aligned bounds: (..., 3) lower and upper corners."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+    @property
+    def diagonal(self):
+        return self.hi - self.lo
+
+    def offset(self, p):
+        """Continuous [0,1]^3 coordinates of p inside the bounds."""
+        return (p - self.lo) / torch.clamp(self.hi - self.lo, min=1e-24)
+
+    def lerp_point(self, t):
+        return self.lo + t * (self.hi - self.lo)
+
+    def contains(self, p):
+        return torch.all((p >= self.lo) & (p <= self.hi), dim=-1)
+
+
+def bounds_union(a: Bounds3, b: Bounds3) -> Bounds3:
+    return Bounds3(torch.minimum(a.lo, b.lo), torch.maximum(a.hi, b.hi))
 
 
 def intersect_aabb(o, d, t_max, lo, hi):

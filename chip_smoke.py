@@ -46,17 +46,18 @@ Phases (any failure raises, and the script exits non-zero):
      grid, spp 2, max_depth 4) at 96 lanes (window route) and 128 lanes
      (fused route); central differences on the 3 largest-gradient voxels
      equal the gradient to 1%;
-  8. slice: the 1280x720 cloud over the 256^3 grid, 16384 lanes, the bench
-     knobs, spp SPP 2 (16 before phase 28, 8 before phase 29 came): one
+  8. slice: the 1280x720 cloud over the 256^3 grid, WIDE_LANES lanes
+     (16384 before phase 31 came), the bench knobs, spp SPP 1 (16 before
+     phase 28, 8 before phase 29, 2 before phase 31 came): one
      timed render (the earlier phases have run every
      kernel and code path of it).  The film must be finite with a positive
      mean, and the march kernel must have launched exactly once per loop
      iteration;
   9. full-frame gradient: the same scene at spp GRAD_SPP 1 (bench.py's
-     backward leg takes spp 4): a record_alive forward gives the
-     iterations, then the gradient
-     over int(1.12 * iterations) + 16 checkpointed steps in windows of
-     max(sqrt(steps), 16).  Loss finite and positive, gradient finite with
+     backward leg takes spp 4): diff.size_fixed_steps (a record_alive
+     forward under the gradient's own majorant) gives the iterations, then
+     the gradient over int(1.12 * iterations) + 16 checkpointed steps in
+     windows of max(sqrt(steps), 16).  Loss finite and positive, gradient finite with
      a nonzero maximum, and the march kernel launched twice per step run
      (forward sweep and recompute); prints the seconds, Mrays/s and peak
      device memory;
@@ -101,9 +102,11 @@ Phases (any failure raises, and the script exits non-zero):
      launch per loop iteration and no march launch; seconds and Mrays/s;
  16. emissive volume (96^3 grid, blackbody emission): a 24x24 frame on the
      GPU and the CPU at phase 5's tolerances; 256x256 through render() at
-     spp 32 and regen at spp 8, means within 2%, one march launch per
+     spp 16 (32 before phase 31 came) and regen at spp 8, means within
+     2%, one march launch per
      iteration (fused route);
- 17. explosion (RGB grids), 256x256: render() at spp 16 and regen at spp 4,
+ 17. explosion (RGB grids), 256x256: render() at spp 8 (16 before phase
+     31) and regen at spp 4,
      means within 2%, one march launch per iteration; and a 12x12 frame on
      the GPU and the CPU at phase 5's tolerances;
  18. residual shadow: phase 8's scene by regen at spp RESIDUAL_SPP 1
@@ -252,6 +255,29 @@ Phases (any failure raises, and the script exits non-zero):
      plytool info on the room's mesh, cyhair2pbrt parsed back (4 curves),
      rgb2spec_opt at resolution 64 (786,432 fits) with 64 lattice points
      held to the CPU fit at rtol 1e-4.
+ 31. sharding (parallel/mesh.py, parallel/diff.py over torch.distributed):
+     (a) a world of one over NCCL in this process: render_sharded_regen of
+     phase 8's scene with phase 8's knobs, its film within SHARD_REGEN_TOL
+     3e-5 of phase 8's, one march launch per iteration; then SHARD_WORLD 2
+     ranks, this script with --shard-rank, in a gloo group on the one card
+     (NCCL refuses two ranks on one device), each building phase 8's scene
+     from the parent's grid: (b) render_sharded_regen, the all-reduced film
+     within 3e-5 of (a)'s, march launches in each rank (one per
+     iteration), rank 0's march call SHARD_CAPTURE_CALL equal to plain,
+     each rank's render and all-reduce seconds; (c) render_sharded at spp
+     1, within rtol / atol 1e-5 of phase 14's frame; (d)
+     make_sharded_regen_grad with overlap, phase 9's knobs and
+     SHARD_MICROBATCHES 2 per rank (fixed_steps from diff.size_fixed_steps
+     over each rank's microbatches): the loss within
+     rtol 1e-5 of phase 9's, the shards, joined and cut to the grid,
+     within rtol 1e-4 / atol 1e-8 of phase 9's gradient, each
+     microbatch's compute seconds and the seconds its reduce-scatter held
+     up the compute stream (CUDA events); and, in two
+     more gloo ranks beside those, tests/test_diff.py's sharded cases at
+     their 8x8 size on the card (make_sharded_loss,
+     make_sharded_regen_grad with overlap off) against the port's
+     single-device gradients on the CPU at that test's tolerances.  A
+     failed group, rank or collective fails the phase.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -267,9 +293,11 @@ times at V 1 (under `v1_`, and `v1_n65536_` at n 65536*8); the dma
 kernel's cold times, and its launches, which are its runs on the card in
 phase 11, beside its wrapper calls; `integrators_launches`, each kernel's
 launches in phase 29's full-size legs; `item1_launches`, in phase 30's
-legs) and the result JSON.
+legs; `sharding_world1_launches` and `sharding_rank_launches`, each rank's
+(regen, wave, gradient) launches in phase 31) and the result JSON.
 """
 import json
+import pickle
 import subprocess
 import sys
 import time
@@ -284,8 +312,11 @@ import torch
 # 80GB HBM3 at 700 W): the script took 821-825 s there before it; with it
 # and phases 8 and 9 at spp 4 and 1, 859 s on one host and 1,069 s on a
 # slower one.  Phase 8 cut from 16 to 8 (phase 28), 4 and 2; phase 9 from 2
-# to 1 (bench.py's backward leg takes 4); spp is traffic, not width
-SPP = 2
+# to 1 (bench.py's backward leg takes 4); spp is traffic, not width.
+# Phase 31 (sharding) is paid for by phase 8: spp 1 at WIDE_LANES lanes
+# since then (304 iterations against 2,112 at spp 2 and 16,384 lanes), the
+# film phase 31 (a) and (b) hold the sharded renders to
+SPP = 1
 GRAD_SPP = 1
 SMALL = dict(width=32, height=24, spp=4, max_depth=8, grid_res=32)
 SMALL_KNOBS = dict(n_lanes=256, k_substeps=8, stochastic_filter=True,
@@ -302,10 +333,12 @@ WAVE_GRAD_KW = dict(fixed_steps=96, spp=1)     # phase 13, cut from spp 2
 DMA_CHUNKS = (16, 100, 1000, 16384)
 MARCH_RAGGED = (1, 31, 127, 129, 16383, 16385)
 # phases 15-18: spp cut (spp is traffic, not width) to keep the script
-# within ~800 s on a slow host
+# within ~800 s on a slow host; phases 16 and 17's render() halved again
+# (from 32 and 16) with phase 8's cut to pay for phase 31 and phase 9's
+# longer loop.  Phase 15's stays: phase 29 holds the MLT fog box to it
 FOG_SPP, FOG_REGEN_SPP = 32, 8            # phase 15
-EMISSIVE_SPP, EMISSIVE_REGEN_SPP = 32, 8   # phase 16
-EXPLOSION_SPP, EXPLOSION_REGEN_SPP = 16, 4  # phase 17
+EMISSIVE_SPP, EMISSIVE_REGEN_SPP = 16, 8   # phase 16
+EXPLOSION_SPP, EXPLOSION_REGEN_SPP = 8, 4  # phase 17
 RESIDUAL_SPP = 1                           # phase 18, cut from spp 2
 # phase 19.  retire_every needs retire_groups coprime with it: a retire
 # group whose index the ticks n % retire_every == retire_every - 1 never
@@ -324,8 +357,9 @@ GRAPH_SPP = 16
 # phase 24's 32x24 frames on the GPU and the CPU at ROOM_SMALL_SPP 2 (was 4)
 SURF_REGEN_SPP = 1
 # phases 18, 23 and 25 run phase 8's scene and its variants (residual
-# shadow, surfaces, the sky map) by regen at WIDE_LANES lanes, phase 8 and
-# its gradient at bench.py's 16,384: with all at 16,384 the whole script
+# shadow, surfaces, the sky map) by regen at WIDE_LANES lanes (phase 8
+# too since phase 31), phase 9's gradient at bench.py's 16,384: with all
+# at 16,384 the whole script
 # took 1,198.7 s on one NVIDIA H100 80GB HBM3 host at 700 W (limit 1200
 # s).  A regen loop's iterations grow with the pixels over the lanes
 # (1,904-2,112 at 1280x720 and 16,384 lanes) and not with max_depth (a
@@ -805,7 +839,8 @@ def phase_slice(dev, card):
     print(f"scene built in {time.time() - t0:.1f} s", flush=True)
     march.launches = 0
     img, st = render.render_regen(scene, device=dev, record_alive=True,
-                                  **BENCH_KNOBS)
+                                  **WIDE_KNOBS)
+    FRAMES[("cloud", "regen")] = img
     launches = march.launches
     if img.shape != (720, 1280, 3) or not np.isfinite(img).all():
         raise AssertionError("slice: bad shape or non-finite film")
@@ -815,7 +850,7 @@ def phase_slice(dev, card):
         raise AssertionError(f"slice: {launches} march launches for "
                              f"{st['iterations']} loop iterations")
     mrays = 1280 * 720 * SPP / st["render_time"] / 1e6
-    print(f"slice 1280x720 spp {SPP} grid 256^3 lanes 16384: "
+    print(f"slice 1280x720 spp {SPP} grid 256^3 lanes {WIDE_LANES}: "
           f"{st['iterations']} iterations, occupancy {st['occupancy']:.4f}, "
           f"{st['render_time']:.3f} s, {mrays:.4f} Mrays/s, film mean "
           f"{img.mean():.6f} on {card}", flush=True)
@@ -824,19 +859,16 @@ def phase_slice(dev, card):
 
 def phase_grad_full(dev, scene, card):
     from acceleratedvolrenderer_tpu_torch.ops import gather, march
-    from acceleratedvolrenderer_tpu_torch.parallel import diff, render
+    from acceleratedvolrenderer_tpu_torch.parallel import diff
 
     H, W = scene.height, scene.width
     groups = min(32, 2 * GRAD_SPP)
     knobs = dict(n_lanes=16384, k_substeps=8, stochastic_filter=True,
                  accum_spp=True, retire_groups=groups, work_stride="auto")
-    run, density, majorant = render.make_regen_renderer(
-        scene, device=dev, spp=GRAD_SPP, record_alive=True, **knobs)
-    res = run(density, majorant,
-              torch.zeros((3 * (H * W + 1),), dtype=torch.float32,
-                          device=dev))
-    iters = int((res.alive_hist > 0).sum())
-    steps = int(iters * 1.12) + 16
+    steps, iters = diff.size_fixed_steps(scene, device=dev, spp=GRAD_SPP,
+                                         **knobs)
+    density = torch.as_tensor(scene.medium.density, dtype=torch.float32,
+                              device=dev)
     window = max(int(np.sqrt(steps)), 16)
     n_win = -(-steps // window)
     loss_fn, grad_fn = diff.make_diff_regen_renderer(
@@ -869,6 +901,8 @@ def phase_grad_full(dev, scene, card):
     if counts != (2 * n_win * window, 0):
         raise AssertionError(f"grad full frame: (march, gather) launches "
                              f"{counts}, expected ({2 * n_win * window}, 0)")
+    FRAMES[("cloud", "grad")] = dict(grad=g.cpu().numpy(), loss=loss,
+                                     knobs=knobs)
     return counts[0]
 
 
@@ -1016,10 +1050,10 @@ def phase_wave_small(dev):
         compare_frames(f"wave frame {route} gpu vs cpu", gpu, cpu)
 
 
-def diff_small_scene(dev):
-    """tests/test_diff.py's small_scene(sigma_a=0.6, sigma_s=0.9, le=1.5),
-    built through the port: a random 4^3 density in the unit cube, a 2^3
-    majorant, a 6x6 look_at camera, sun and sky, a box filter."""
+def diff_small_scene(dev, sigma_a=0.6, sigma_s=0.9, le=1.5, size=6):
+    """tests/test_diff.py's small_scene(sigma_a, sigma_s, le), built
+    through the port: a random 4^3 density in the unit cube, a 2^3
+    majorant, a size x size look_at camera, sun and sky, a box filter."""
     from acceleratedvolrenderer_tpu_torch.models import lights as lm
     from acceleratedvolrenderer_tpu_torch.models.cameras import (
         PerspectiveCamera)
@@ -1032,12 +1066,14 @@ def diff_small_scene(dev):
 
     rng = np.random.default_rng(0)
     dens = (0.5 + 0.5 * rng.random((4, 4, 4))).astype(np.float32)
-    med = MediumSpec(sigma_a_spec=flat(0.6), sigma_s_spec=flat(0.9), g=0.0,
-                     scale=1.0, density=torch.as_tensor(dens, device=dev),
-                     Le_spec=flat(1.5), majorant_res=(2, 2, 2))
+    med = MediumSpec(sigma_a_spec=flat(sigma_a), sigma_s_spec=flat(sigma_s),
+                     g=0.0, scale=1.0,
+                     density=torch.as_tensor(dens, device=dev),
+                     Le_spec=flat(le) if le else None,
+                     majorant_res=(2, 2, 2))
     cam = PerspectiveCamera(
         c2w=look_at((0.5, 0.5, -2.5), (0.5, 0.5, 0.5), (0, 1, 0), dev),
-        fov_deg=30.0, width=6, height=6)
+        fov_deg=30.0, width=size, height=size)
     lights = [lm.DistantLight(direction=torch.tensor([0.0, -1.0, 0.0],
                                                      device=dev),
                               spectrum=flat(5.0), scene_radius=10.0),
@@ -1132,6 +1168,7 @@ def phase_wave_full(dev, scene, regen_mean, card):
     march.launches = 0
     img, st = render.render(scene, spp=1, device=dev)
     launches = march.launches
+    FRAMES[("cloud", "render")] = img
     rel = abs(float(img.mean()) - regen_mean) / regen_mean
     mrays = scene.width * scene.height / st["render_time"] / 1e6
     print(f"wave frame {scene.width}x{scene.height} spp 1 grid 256^3, "
@@ -2114,7 +2151,7 @@ def phase_sky(dev, scene, slice_rec, card):
     print(f"sky: render() (pmj02bn) mean vs regen (zsobol) mean rel diff "
           f"{rel:.4e}; regen {per_it:.3f} ms per iteration at {WIDE_LANES} "
           f"lanes against phase 8's {1e3 * secs8 / it8:.3f} at "
-          f"{BENCH_KNOBS['n_lanes']} (independent sampler, uniform sky)",
+          f"{WIDE_LANES} (independent sampler, uniform sky)",
           flush=True)
     if rel > FULL_MEAN_TOL:
         raise AssertionError("sky: render() and regen means differ by more "
@@ -3390,6 +3427,362 @@ def write_cyhair(path):
         f.write(np.full(6, 0.05, np.float32).tobytes())
 
 
+SHARD_WORLD = 2                  # phase 31's ranks, gloo, on the one card
+SHARD_CAPTURE_CALL = 50          # rank 0's regen march call held to plain
+SHARD_MICROBATCHES = 2
+SHARD_TIMEOUT = 300              # seconds the ranks may take in all
+SHARD_REGEN_TOL = 3e-5           # tests/test_multichip.py's
+# tests/test_diff.py's sharded cases at their sizes (8x8 film)
+SHARD_LOSS_KW = dict(fixed_steps=96, spp=2)
+SHARD_REGEN_KW = dict(fixed_steps=192, n_lanes=16, spp=2, accum_spp=True,
+                      microbatches=2, remat_window=48)
+SHARD_SINGLE_KW = dict(fixed_steps=448, n_lanes=16, spp=2, accum_spp=True,
+                       remat_window=48)
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def shard_cloud(work, dev):
+    """Phase 8's scene in a rank: presets.cloud at the parent's frame size
+    (work/frame.json) over the grid the parent baked (work/density.npy,
+    not baked again)."""
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    density = np.load(work / "density.npy")
+    width, height = json.loads((work / "frame.json").read_text())
+    with mock.patch.object(presets, "bake_cloud_density",
+                           return_value=density):
+        scene = presets.cloud(width, height, spp=SPP, max_depth=16,
+                              grid_res=density.shape[0], device=dev)
+    scene.max_march_steps = 4096
+    return scene
+
+
+def shard_small(mesh, dev):
+    """tests/test_diff.py's two sharded cases at their sizes on the card
+    (the 8x8 small scene): make_sharded_loss and make_sharded_regen_grad
+    with overlap off ((d) runs it with overlap at full size).  Returns
+    their losses and gradients (numpy)."""
+    from acceleratedvolrenderer_tpu_torch.parallel import diff
+
+    scene = diff_small_scene(dev, sigma_a=0.5, sigma_s=1.0, le=None, size=8)
+    loss_fn, grad_fn = diff.make_sharded_loss(scene, mesh, **SHARD_LOSS_KW)
+    params = {"density": scene.medium.density, "sigma_a": 1.0}
+    g = grad_fn(params)
+    out = {"loss": float(loss_fn(params)),
+           "loss_grad": {k: v.cpu().numpy() for k, v in g.items()}}
+    lg = diff.make_sharded_regen_grad(scene, mesh, overlap=False,
+                                      **SHARD_REGEN_KW)
+    loss, grad = lg(scene.medium.density)
+    out["regen"] = (float(loss), grad.cpu().numpy())
+    return out
+
+
+def shard_rank(rank, world, port, work, device, part):
+    """One rank of phase 31 in a gloo group of `world` ranks on the
+    parent's device (the one card).  part "main": (b)-(d), its numbers to
+    work/rank{rank}.json and its frames and gradient shard to work/*.npy;
+    part "small": tests/test_diff.py's sharded cases (shard_small) to
+    work/small{rank}.pkl."""
+    import torch.distributed as dist
+
+    from acceleratedvolrenderer_tpu_torch import kernels
+    from acceleratedvolrenderer_tpu_torch.ops import march
+    from acceleratedvolrenderer_tpu_torch.parallel import diff, distributed
+    from acceleratedvolrenderer_tpu_torch.parallel import mesh as pmesh
+
+    work = Path(work)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    t0 = time.time()
+    distributed.initialize(f"tcp://127.0.0.1:{port}", world, rank,
+                           backend="gloo")
+    kernels.library()
+    mesh = pmesh.make_mesh(device=dev)
+    if part == "small":
+        small = shard_small(mesh, dev)
+        small["seconds"] = time.time() - t0
+        with open(work / f"small{rank}.pkl", "wb") as f:
+            pickle.dump(small, f)
+        dist.destroy_process_group()
+        return 0
+    scene = shard_cloud(work, dev)
+    rec = {"setup_s": time.time() - t0}
+
+    # (b) the sharded regen frame; rank 0 keeps one march call
+    captured, capture = march_capture(SHARD_CAPTURE_CALL)
+    march.launches = 0
+    with mock.patch.object(march, "march_block", capture):
+        img, st = pmesh.render_sharded_regen(scene, mesh, spp=SPP,
+                                             **WIDE_KNOBS)
+    rec["regen"] = dict(launches=march.launches, iterations=st["iterations"],
+                        render_s=st["render_time"],
+                        allreduce_s=st["allreduce_time"])
+    # the film's all-reduce alone: the one above waits for the slower rank
+    film = torch.zeros((3 * (scene.height * scene.width + 1),),
+                       dtype=torch.float32, device=dev)
+    dist.barrier()
+    rec["regen"]["allreduce_alone_s"] = pmesh.all_reduce(mesh, film)
+    if rank == 0:
+        np.save(work / "regen.npy", img)
+        rec["regen"]["max_abs_err"] = check_captured_march(
+            f"sharding rank 0", captured, SHARD_CAPTURE_CALL)
+
+    # (c) the sharded wave frame
+    march.launches = 0
+    img, st = pmesh.render_sharded(scene, mesh, spp=1)
+    rec["wave"] = dict(launches=march.launches, render_s=st["render_time"],
+                       allreduce_s=st["allreduce_time"])
+    if rank == 0:
+        np.save(work / "wave.npy", img)
+
+    # (d) the overlapped sharded gradient, phase 9's knobs
+    knobs = dict(n_lanes=16384, k_substeps=8, stochastic_filter=True,
+                 accum_spp=True, retire_groups=min(32, 2 * GRAD_SPP),
+                 work_stride="auto")
+    t1 = time.time()
+    steps, _ = diff.size_fixed_steps(scene, mesh, spp=GRAD_SPP,
+                                     microbatches=SHARD_MICROBATCHES, **knobs)
+    window = max(int(np.sqrt(steps)), 16)
+    rec["grad_sizing_s"] = time.time() - t1
+    lg = diff.make_sharded_regen_grad(
+        scene, mesh, fixed_steps=steps, spp=GRAD_SPP,
+        microbatches=SHARD_MICROBATCHES, remat_window=window, overlap=True,
+        **knobs)
+    march.launches = 0
+    _sync(dev)
+    t1 = time.time()
+    loss, shard = lg(scene.medium.density)
+    _sync(dev)
+    rec["grad"] = dict(launches=march.launches, seconds=time.time() - t1,
+                       loss=float(loss), steps=steps, window=window,
+                       microbatches=lg.timings[-1],
+                       shard_len=int(shard.numel()),
+                       peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    np.save(work / f"grad{rank}.npy", shard.cpu().numpy())
+    # one microbatch's reduce-scatter alone: the waits above include the
+    # other rank's compute
+    flat = torch.zeros(mesh.size * shard.numel(), device=dev)
+    dist.barrier()
+    _sync(dev)
+    t1 = time.time()
+    dist.reduce_scatter_tensor(torch.empty_like(shard), flat)
+    _sync(dev)
+    rec["grad"]["reduce_scatter_alone_s"] = time.time() - t1
+
+    (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    dist.destroy_process_group()
+    return 0
+
+
+def shard_small_reference():
+    """The port's single-device results of tests/test_diff.py's sharded
+    cases on the CPU: (loss, gradients) of make_diff_renderer_multi and
+    (loss, gradient) of make_diff_regen_renderer, numpy."""
+    from acceleratedvolrenderer_tpu_torch.parallel import diff
+
+    cpu = torch.device("cpu")
+    scene = diff_small_scene(cpu, sigma_a=0.5, sigma_s=1.0, le=None, size=8)
+    loss_fn, grad_fn = diff.make_diff_renderer_multi(scene, device=cpu,
+                                                     **SHARD_LOSS_KW)
+    params = {"density": scene.medium.density, "sigma_a": 1.0}
+    with torch.no_grad():
+        loss1 = float(loss_fn(params))
+    g1 = {k: v.numpy() for k, v in grad_fn(params).items()}
+    loss_fn, grad_fn = diff.make_diff_regen_renderer(scene, device=cpu,
+                                                     **SHARD_SINGLE_KW)
+    dens = scene.medium.density
+    with torch.no_grad():
+        l1 = float(loss_fn(dens))
+    return (loss1, g1), (l1, grad_fn(dens).numpy())
+
+
+def shard_check_small(work, reference):
+    """Phase 31's small-scene results of every rank against the port's
+    single-device ones on the CPU (shard_small_reference), at
+    tests/test_diff.py's tolerances."""
+    ranks = []
+    for r in range(SHARD_WORLD):
+        with open(work / f"small{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    (loss1, g1), (l1, gr) = reference
+    close = np.testing.assert_allclose
+    for r in ranks:
+        close(r["loss"], loss1, rtol=1e-5, err_msg="sharding: loss")
+        close(r["loss_grad"]["density"], g1["density"], rtol=1e-4,
+              atol=1e-7, err_msg="sharding: sharded loss density gradient")
+        close(r["loss_grad"]["sigma_a"], g1["sigma_a"], rtol=1e-4,
+              err_msg="sharding: sharded loss sigma_a gradient")
+        close(r["regen"][0], l1, rtol=1e-5, err_msg="sharding: regen loss")
+        close(r["regen"][1], gr, rtol=1e-4, atol=1e-8,
+              err_msg="sharding: regen gradient, one all-reduce")
+    print(f"sharding: tests/test_diff.py's sharded cases at 8x8 on the card "
+          f"at world {SHARD_WORLD} ({[round(r['seconds'], 2) for r in ranks]}"
+          f" s per rank): make_sharded_loss {ranks[0]['loss']:.6e} (CPU "
+          f"single device {loss1:.6e}), make_sharded_regen_grad overlap off "
+          f"{ranks[0]['regen'][0]:.6e} (CPU {l1:.6e}); gradients within "
+          f"rtol 1e-4 / atol 1e-7 and 1e-8", flush=True)
+
+
+def phase_sharding(dev, scene, card):
+    """Phase 31 (see the module docstring).  Returns the march launches of
+    (a) and of each rank's (b), (c), (d)."""
+    import subprocess
+    import tempfile
+
+    import torch.distributed as dist
+
+    from acceleratedvolrenderer_tpu_torch.ops import march
+    from acceleratedvolrenderer_tpu_torch.parallel import distributed
+    from acceleratedvolrenderer_tpu_torch.parallel import mesh as pmesh
+
+    H, W = scene.height, scene.width
+    ref = FRAMES[("cloud", "regen")]
+    # (a) a world of one over NCCL in this process
+    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                           backend="nccl")
+    try:
+        march.launches = 0
+        img_a, st = pmesh.render_sharded_regen(
+            scene, pmesh.make_mesh(device=dev), spp=SPP, **WIDE_KNOBS)
+        launches_a = march.launches
+    finally:
+        dist.destroy_process_group()
+    err_a = float(np.abs(img_a - ref).max())
+    print(f"sharding (a) world 1, nccl: {W}x{H} spp {SPP} at {WIDE_LANES} "
+          f"lanes, {st['iterations']} iterations, {launches_a} march "
+          f"launches, render {st['render_time']:.3f} s (all-reduce "
+          f"{st['allreduce_time']:.4f} s), max |diff| against phase 8's "
+          f"render_regen frame {err_a:.3e} (tol {SHARD_REGEN_TOL}) on "
+          f"{card}", flush=True)
+    if err_a > SHARD_REGEN_TOL:
+        raise AssertionError("sharding (a): world 1 differs from render_regen")
+    if launches_a != st["iterations"]:
+        raise AssertionError(f"sharding (a): {launches_a} march launches for "
+                             f"{st['iterations']} iterations")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        np.save(work / "density.npy", scene.medium.density.cpu().numpy())
+        (work / "frame.json").write_text(json.dumps([W, H]))
+        t0 = time.time()
+        # two groups at once: (b)-(d), and the small cases beside them
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--shard-rank",
+             str(r), str(SHARD_WORLD), str(port), tmp, str(dev), part])
+            for part, port in (("main", _free_port()),
+                               ("small", _free_port()))
+            for r in range(SHARD_WORLD)]
+        try:
+            t1 = time.time()
+            reference = shard_small_reference()     # while the ranks run
+            small_cpu = time.time() - t1
+            # a rank that fails leaves the others blocked in a collective:
+            # stop waiting at the first failure or at the time limit
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.time() - t0 < SHARD_TIMEOUT):
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rcs = [p.returncode for p in procs]
+        wall = time.time() - t0
+        if any(rcs):
+            raise AssertionError(f"sharding: rank exit codes {rcs}")
+        recs = [json.loads((work / f"rank{r}.json").read_text())
+                for r in range(SHARD_WORLD)]
+        img_b = np.load(work / "regen.npy")
+        img_c = np.load(work / "wave.npy")
+        grad = np.concatenate([np.load(work / f"grad{r}.npy")
+                               for r in range(SHARD_WORLD)])
+        shard_check_small(work, reference)
+
+    print(f"sharding: {SHARD_WORLD} ranks (gloo, one card) for (b)-(d) and "
+          f"{SHARD_WORLD} for the small cases, all at once, in {wall:.1f} s "
+          f"wall; (b)-(d) ranks' set-up after start (group, kernels, scene "
+          f"from the parent's grid) {[round(r['setup_s'], 2) for r in recs]}"
+          f" s; the small cases' CPU references {small_cpu:.1f} s", flush=True)
+    # (b)
+    err_b = float(np.abs(img_b - img_a).max())
+    for r, rec in enumerate(recs):
+        b = rec["regen"]
+        print(f"sharding (b) rank {r}: regen {b['iterations']} iterations, "
+              f"{b['launches']} march launches, render {b['render_s']:.3f} s "
+              f"of which all-reduce {b['allreduce_s']:.4f} s (waiting for "
+              f"the other rank included; after a barrier "
+              f"{b['allreduce_alone_s']:.4f} s for the film's "
+              f"{3 * (H * W + 1) * 4} B) on {card}", flush=True)
+        if not 0 < b["launches"] == b["iterations"]:
+            raise AssertionError(f"sharding (b) rank {r}: march launches "
+                                 f"{b['launches']} for {b['iterations']} "
+                                 "iterations")
+    print(f"sharding (b) world {SHARD_WORLD}: film max |diff| against (a)'s "
+          f"{err_b:.3e} (tol {SHARD_REGEN_TOL}); rank 0's march call "
+          f"{SHARD_CAPTURE_CALL} equal to plain (max |diff| "
+          f"{recs[0]['regen']['max_abs_err']:.3e})", flush=True)
+    if err_b > SHARD_REGEN_TOL or not np.isfinite(img_b).all():
+        raise AssertionError("sharding (b): world 2 differs from world 1")
+    # (c)
+    wave_ref = FRAMES[("cloud", "render")]
+    err_c = float(np.abs(img_c - wave_ref).max())
+    print(f"sharding (c) render_sharded world {SHARD_WORLD} spp 1: "
+          + "; ".join(f"rank {r} {x['wave']['launches']} march launches, "
+                      f"{x['wave']['render_s']:.3f} s (all-reduce "
+                      f"{x['wave']['allreduce_s']:.4f} s)"
+                      for r, x in enumerate(recs))
+          + f"; max |diff| against phase 14's frame {err_c:.3e}", flush=True)
+    np.testing.assert_allclose(img_c, wave_ref, rtol=1e-5, atol=1e-5,
+                               err_msg="sharding (c): sharded wave frame")
+    if not all(x["wave"]["launches"] > 0 for x in recs):
+        raise AssertionError("sharding (c): a rank launched no march")
+    # (d)
+    g9 = FRAMES[("cloud", "grad")]
+    g1 = g9["grad"]
+    got = grad[:g1.size].reshape(g1.shape)
+    err_d = float(np.abs(got - g1).max())
+    for r, x in enumerate(recs):
+        d = x["grad"]
+        mbs = ", ".join(f"compute {m['compute']:.3f} s / held up by its "
+                        f"reduce-scatter {m['wait']:.4f} s"
+                        for m in d["microbatches"])
+        print(f"sharding (d) rank {r}: make_sharded_regen_grad overlap "
+              f"{SHARD_MICROBATCHES} microbatches x fixed_steps {d['steps']} "
+              f"(window {d['window']}; sized in {x['grad_sizing_s']:.2f} s): "
+              f"{d['seconds']:.3f} s, {d['launches']} march launches, loss "
+              f"{d['loss']:.6e}, shard {d['shard_len']} voxels, peak "
+              f"{d['peak_gib']:.3f} GiB; per microbatch ({4 * g1.size} B "
+              f"reduce-scattered each; CUDA events on the rank's compute "
+              f"stream): {mbs}; one reduce-scatter alone "
+              f"after a barrier {d['reduce_scatter_alone_s']:.4f} s on "
+              f"{card}", flush=True)
+        np.testing.assert_allclose(d["loss"], g9["loss"], rtol=1e-5,
+                                   err_msg="sharding (d): loss")
+        if d["launches"] <= 0:
+            raise AssertionError(f"sharding (d) rank {r}: no march launch")
+    print(f"sharding (d): gradient max |diff| against phase 9's {err_d:.3e} "
+          f"(max |grad| {float(np.abs(g1).max()):.4e}), loss "
+          f"{recs[0]['grad']['loss']:.6e} against {g9['loss']:.6e}",
+          flush=True)
+    np.testing.assert_allclose(got, g1, rtol=1e-4, atol=1e-8,
+                               err_msg="sharding (d): gradient")
+    return dict(world1=launches_a,
+                ranks=[[x["regen"]["launches"], x["wave"]["launches"],
+                        x["grad"]["launches"]] for x in recs],
+                max_abs_err=recs[0]["regen"]["max_abs_err"])
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -3458,6 +3851,10 @@ def main():
         "other integrators", phase_integrators, dev, scene, card)
     item1_counts, march_rec["item1_max_abs_err"] = timed(
         "item1", phase_item1, dev, card)
+    shard = timed("sharding", phase_sharding, dev, scene, card)
+    march_rec["sharding_world1_launches"] = shard["world1"]
+    march_rec["sharding_rank_launches"] = shard["ranks"]
+    march_rec["sharding_max_abs_err"] = shard["max_abs_err"]
 
     src = "acceleratedvolrenderer_tpu_torch/csrc/"
     print(f"chip_smoke: {time.time() - T0:.1f} s wall")
@@ -3486,4 +3883,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank(int(sys.argv[2]), int(sys.argv[3]),
+                            int(sys.argv[4]), sys.argv[5], sys.argv[6],
+                            sys.argv[7]))
     sys.exit(main())

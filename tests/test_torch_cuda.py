@@ -967,3 +967,67 @@ def test_item1_room_file_matches_cpu(dev, tmp_path):
     assert abs(gpu.mean() - cpu.mean()) / cpu.mean() < cs.INTEG_MEAN_TOL
     close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-5).all(-1).mean()
     assert close >= cs.INTEG_PIXEL_SHARE
+
+
+@pytest.mark.parametrize("what", ["cloud", "fog_box"])
+def test_sharding_world1_nccl_matches_render_regen(dev, what):
+    """A world of one over NCCL: render_sharded_regen of a 32x24 cloud
+    (the march kernel, one launch per iteration) and of
+    tests/test_multichip.py's 16x16 fog box (its 1^3 table: the window
+    route, one gather launch per iteration) equals render_regen's frame
+    with the same knobs within 3e-5 (test_multichip.py's bound)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from acceleratedvolrenderer_tpu_torch.parallel import distributed
+    from acceleratedvolrenderer_tpu_torch.parallel import mesh as pmesh
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+
+    if what == "cloud":
+        scene = presets.cloud(32, 24, spp=2, max_depth=8, grid_res=32,
+                              device=dev)
+        knobs = dict(n_lanes=256, k_substeps=8, accum_spp=True,
+                     retire_groups=2)
+        counter = march
+    else:
+        scene = presets.fog_box(res=16, spp=4, device=dev)
+        knobs = dict(n_lanes=64)
+        counter = gather
+    ref, _ = render.render_regen(scene, device=dev, **knobs)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    assert distributed.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        mesh = pmesh.make_mesh(device=dev)
+        assert (mesh.rank, mesh.size) == (0, 1)
+        before = counter.launches
+        img, st = pmesh.render_sharded_regen(scene, mesh, **knobs)
+        assert counter.launches - before == st["iterations"] > 0
+    finally:
+        dist.destroy_process_group()
+    assert st["n_devices"] == 1
+    assert np.abs(img - ref).max() <= 3e-5
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2 ** 31 - 1])
+def test_threefry_keys_card_equals_cpu(dev, seed):
+    """utils/rng.py on the card: the keys, hashes and uniforms of 65,536
+    random (pixel, sample) pairs equal the CPU's bit for bit."""
+    from acceleratedvolrenderer_tpu_torch.utils import rng
+
+    g = np.random.default_rng(seed % 1000)
+    p = g.integers(-2 ** 31, 2 ** 31, 65536).astype(np.int32)
+    s = g.integers(0, 2 ** 31, 65536).astype(np.int32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        key = rng.base_key(seed, device=d)
+        k = rng.pixel_sample_key(key, torch.as_tensor(p, device=d),
+                                 torch.as_tensor(s, device=d))
+        h = rng.hash_uint32(k[:, 0])
+        out[d.type] = [x.cpu().numpy() for x in (k, h,
+                                                 rng.uniform_from_bits(h))]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(a, b)

@@ -64,7 +64,10 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax\b|"
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "acceleratedvolrenderer_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
-              ROOT / "scripts" / "measure_gather_designs_torch.py"]
+              ROOT / "scripts" / "measure_gather_designs_torch.py",
+              ROOT / "scripts" / "phase31_alone.py",
+              ROOT / "scripts" / "time_image_decode.py",
+              ROOT / "tests" / "torch_shard_worker.py"]
     assert len(files) > 20
     bad = [str(f.relative_to(ROOT)) for f in files
            if _IMPORT.search(f.read_text())]

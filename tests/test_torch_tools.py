@@ -375,7 +375,7 @@ def test_write_png_and_read_image_match_jax(tmp_path):
         np.testing.assert_array_equal(read_image(a)[0], read_image(b)[0])
         np.testing.assert_array_equal(read_image(a)[0],
                                       jimage.read_image(b)[0])
-    with pytest.raises(ValueError, match="EXR and PNG"):
+    with pytest.raises(ValueError, match="JPEG: truncated"):
         (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff")
         read_image(str(tmp_path / "x.jpg"))
 
