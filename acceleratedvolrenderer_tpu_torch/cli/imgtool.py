@@ -19,10 +19,13 @@ import numpy as np
 
 
 def _load(path):
-    """(rgb (H, W, 3), attrs) of an EXR, PFM, QOI or PNG file; a PNG's
-    values are scaled to [0, 1] and not linearized, as the reference's
-    loader does."""
-    from ..utils.image import png_unit, read_exr, read_pfm, read_png, read_qoi
+    """(rgb (H, W, 3), attrs) of an EXR, PFM or QOI file by its extension
+    (a .qoi linearized, as the reference's read_qoi does), else of any file
+    utils/image.py's read_image decodes (PNG, JPEG, BMP, TIFF, WebP, GIF,
+    netpbm, TGA): its colours scaled to [0, 1] (a float TIFF's values as
+    stored) and not linearized, as the reference's loader does."""
+    from ..utils.image import _decode_image, png_unit, read_exr, read_pfm, \
+        read_qoi
 
     if path.endswith(".exr"):
         img, _, attrs = read_exr(path)
@@ -34,7 +37,9 @@ def _load(path):
         return img[:, :, :3], {}
     if path.endswith(".qoi"):
         return read_qoi(path), {}
-    arr = png_unit(read_png(path))
+    with open(path, "rb") as f:
+        px = _decode_image(path, f.read())
+    arr = px if px.dtype == np.float32 else png_unit(px)
     if arr.shape[2] < 3:                # gray (+ alpha)
         arr = np.repeat(arr[:, :, :1], 3, axis=2)
     return arr[:, :, :3], {}

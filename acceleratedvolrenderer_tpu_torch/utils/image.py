@@ -2,10 +2,10 @@
 ImageMetadata, the ZIP-compressed scanline EXR writer write_exr, the
 scanline EXR reader read_exr (NONE, RLE, ZIPS, ZIP and PIZ chunks),
 read_image, write_png, mse / mrse / mae, PFM and QOI), numpy, struct and
-zlib only: PNG files are written and read here too (8-bit gray, gray +
-alpha, RGB and RGBA, non-interlaced), and JPEG, BMP and TGA files read,
-which the reference reads through PIL.  EXR files are byte-identical to the
-reference writer's.
+zlib only: PNG files are written and read here too (8- and 16-bit gray,
+gray + alpha, RGB and RGBA), and JPEG, BMP, TGA, GIF, QOI and netpbm
+files read, which the reference reads through PIL (TIFF in tiff.py, WebP
+in webp.py).  EXR files are byte-identical to the reference writer's.
 """
 from __future__ import annotations
 
@@ -277,17 +277,21 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def encode_png(pixels: np.ndarray) -> bytes:
-    """An 8-bit PNG of uint8 pixels (H, W) gray or (H, W, C) with C 1-4
-    (gray, gray + alpha, RGB, RGBA); every row unfiltered (type 0)."""
-    a = np.asarray(pixels, np.uint8)
+    """A PNG of uint8 (8-bit) or uint16 (16-bit) pixels (H, W) gray or
+    (H, W, C) with C 1-4 (gray, gray + alpha, RGB, RGBA); every row
+    unfiltered (type 0).  Other dtypes are cast to uint8."""
+    a = np.asarray(pixels)
+    if a.dtype != np.uint16:
+        a = a.astype(np.uint8)
     if a.ndim == 2:
         a = a[..., None]
     h, w, c = a.shape
     ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
-    raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          a.reshape(h, w * c)], axis=1)
+    depth = 8 * a.dtype.itemsize
+    rows = a.astype(a.dtype.newbyteorder(">")).reshape(h, -1).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
     return (_PNG_MAGIC
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype,
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
                                               0, 0, 0))
             + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _png_chunk(b"IEND", b""))
@@ -460,11 +464,9 @@ _JPEG_NATURAL = np.array([
     36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53,
     60, 61, 54, 47, 55, 62, 63], np.int64)
 _ZZ = _JPEG_NATURAL.tolist()
-_JPEG_UNREAD = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
-                0xC7: "hierarchical lossless", 0xC9: "arithmetic-coded",
-                0xCA: "arithmetic-coded progressive",
+_JPEG_UNREAD = {0xC5: "hierarchical", 0xC6: "hierarchical",
+                0xC7: "hierarchical lossless",
                 0xCB: "arithmetic-coded lossless",
-                0xCC: "arithmetic-coded (DAC)",
                 0xCD: "arithmetic-coded hierarchical",
                 0xCE: "arithmetic-coded hierarchical",
                 0xCF: "arithmetic-coded hierarchical lossless"}
@@ -514,6 +516,30 @@ def _scan_segments(data: bytes, pos: int):
     return [p.replace(b"\xff\x00", b"\xff") for p in parts], end
 
 
+def _scan_units(frame, sc):
+    """The scan's MCUs, each a list of (component index, offset of its
+    block's 64 coefficients): blocks in order for one component, else the
+    interleaved MCUs."""
+    comps = frame["comps"]
+    if len(sc) == 1:                        # non-interleaved: block order
+        ci = sc[0][0]
+        c = comps[ci]
+        return [[(ci, (by * c["bw_pad"] + bx) * 64)]
+                for by in range(c["bh"]) for bx in range(c["bw"])]
+    units = []
+    for my in range(frame["mcuy"]):
+        for mx in range(frame["mcux"]):
+            u = []
+            for ci, _, _ in sc:
+                c = comps[ci]
+                for v in range(c["v"]):
+                    for h in range(c["h"]):
+                        u.append((ci, ((my * c["v"] + v) * c["bw_pad"]
+                                       + mx * c["h"] + h) * 64))
+            units.append(u)
+    return units
+
+
 def _decode_scan(frame, scan, segments, restart):
     """Decode one scan's Huffman data into the frame's coefficient lists
     (natural order, 64 per block, padded block grid per component)."""
@@ -521,23 +547,7 @@ def _decode_scan(frame, scan, segments, restart):
     ss, se, ah, al = scan["ss"], scan["se"], scan["ah"], scan["al"]
     sc = scan["comps"]                      # (component index, dc, ac)
     progressive = frame["progressive"]
-    if len(sc) == 1:                        # non-interleaved: block order
-        ci = sc[0][0]
-        c = comps[ci]
-        units = [[(ci, (by * c["bw_pad"] + bx) * 64)]
-                 for by in range(c["bh"]) for bx in range(c["bw"])]
-    else:
-        units = []
-        for my in range(frame["mcuy"]):
-            for mx in range(frame["mcux"]):
-                u = []
-                for ci, _, _ in sc:
-                    c = comps[ci]
-                    for v in range(c["v"]):
-                        for h in range(c["h"]):
-                            u.append((ci, ((my * c["v"] + v) * c["bw_pad"]
-                                           + mx * c["h"] + h) * 64))
-                units.append(u)
+    units = _scan_units(frame, sc)
     tables = {ci: (dc, ac) for ci, dc, ac in sc}
     per = restart if restart else len(units)
     n_seg = -(-len(units) // per) if units else 0
@@ -669,6 +679,301 @@ def _decode_scan(frame, scan, segments, restart):
                         eobrun -= 1
 
 
+# libjpeg's jpeg_aritab (jaricom.c, T.81 Table D.2): per state, Qe << 16 |
+# next state after an MPS << 8 | MPS switch << 7 | next state after an LPS;
+# state 113 is the fixed (0.5) bin
+_ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+)
+
+
+class _BadArithCode(Exception):
+    """A magnitude or position past its range in an arithmetic-coded scan."""
+
+
+class _QMDecoder:
+    """libjpeg's arith_decode (jdarith.c, T.81 D.2) over one restart
+    interval's bytes, zeros past their end."""
+
+    def __init__(self, seg: bytes):
+        self.seg, self.n = seg, len(seg)
+        self.c, self.a, self.ct, self.pos = 0, 0, -16, 0
+
+    def decode(self, st, i):
+        """One binary decision with statistics bin st[i] (its state updated
+        in place)."""
+        c, a, ct = self.c, self.a, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                pos = self.pos
+                c = (c << 8) | (self.seg[pos] if pos < self.n else 0)
+                self.pos = pos + 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:                 # the 2 initial bytes are in
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = _ARITAB[sv & 0x7F]
+        nl = qe & 0xFF
+        nm = (qe >> 8) & 0xFF
+        qe >>= 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:                          # conditional LPS exchange
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:                        # conditional MPS exchange
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.c, self.a, self.ct = c, a, ct
+        return sv >> 7
+
+    def value(self, st, k, m):
+        """T.81 F.24: the bits below magnitude m's top bit from bin k + 14,
+        plus one."""
+        v = m
+        k += 14
+        m >>= 1
+        while m:
+            if self.decode(st, k):
+                v |= m
+            m >>= 1
+        return v + 1
+
+
+def _decode_arith_scan(frame, scan, segments, restart, dac):
+    """Decode one arithmetic-coded scan (SOF9 sequential, SOF10
+    progressive) into the frame's coefficient lists, as libjpeg's jdarith.c
+    does: per-table DC (64) and AC (256) statistics reset at the scan's
+    start and at each restart, DC conditioning (L, U) and the AC split
+    point K from a DAC marker (defaults 0, 1 and 5).  A code past its
+    range stops the restart interval, leaving its coefficients as they
+    are, as libjpeg does (it warns)."""
+    sc, tids = scan["comps"], scan["tids"]
+    units = _scan_units(frame, sc)
+    per = restart if restart else len(units)
+    n_seg = -(-len(units) // per) if units else 0
+    if len(segments) < n_seg:
+        raise ValueError("JPEG: fewer restart intervals than the scan needs")
+    dct = {ci: t for (ci, _, _), t in zip(sc, tids)}
+    for si in range(n_seg):
+        stats = ({t[0]: [0] * 64 for t in tids},
+                 {t[1]: [0] * 256 for t in tids})
+        try:
+            _arith_units(units[si * per:(si + 1) * per], frame, scan, dct,
+                         _QMDecoder(segments[si]), stats, dac)
+        except _BadArithCode:
+            pass
+
+
+def _arith_units(units, frame, scan, dct, q, stats, dac):
+    """The MCUs of one restart interval of an arithmetic-coded scan: T.81
+    F.1.4.4 (sequential; DC differences modulo 2^16), G.1.3 (progressive
+    first and refinement passes)."""
+    comps, prog = frame["comps"], frame["progressive"]
+    ss, se, ah, al = scan["ss"], scan["se"], scan["ah"], scan["al"]
+    do_dc = not prog or (ss == 0 and ah == 0)
+    do_ac = not prog or ss > 0
+    p1, m1 = 1 << al, -1 << al
+    zz = _ZZ
+    decode = q.decode
+    dc_stats, ac_stats = stats
+    fixed = [113]
+    last = {ci: 0 for ci in dct}
+    ctx = {ci: 0 for ci in dct}
+    for unit in units:
+        for ci, b in unit:
+            out = comps[ci]["coef"]
+            td, ta = dct[ci]
+            if prog and ah and ss == 0:             # DC refinement
+                if decode(fixed, 0):
+                    out[b] |= p1
+                continue
+            if do_dc:                               # F.1.4.4.1
+                st = dc_stats[td]
+                if not decode(st, ctx[ci]):
+                    ctx[ci] = 0
+                else:
+                    sign = decode(st, ctx[ci] + 1)
+                    k = ctx[ci] + 2 + sign
+                    m = decode(st, k)
+                    if m:
+                        k = 20
+                        while decode(st, k):
+                            m <<= 1
+                            if m == 0x8000:
+                                raise _BadArithCode
+                            k += 1
+                    cs = dac.get((0, td), 0x10)
+                    if m < (1 << (cs & 15)) >> 1:
+                        ctx[ci] = 0
+                    elif m > (1 << (cs >> 4)) >> 1:
+                        ctx[ci] = 12 + sign * 4
+                    else:
+                        ctx[ci] = 4 + sign * 4
+                    v = q.value(st, k, m)
+                    last[ci] += -v if sign else v
+                if prog:
+                    out[b] = last[ci] * (1 << al)
+                else:
+                    last[ci] &= 0xFFFF
+                    out[b] = ((last[ci] + 0x8000) & 0xFFFF) - 0x8000
+            if not do_ac:
+                continue
+            st = ac_stats[ta]
+            kk = dac.get((1, ta), 5)
+            k, end = (1, 63) if not prog else (ss, se)
+            if prog and ah:                         # AC refinement
+                kex = end
+                while kex > 0 and not out[b + zz[kex]]:
+                    kex -= 1
+                while k <= end:
+                    i = 3 * (k - 1)
+                    if k > kex and decode(st, i):
+                        break
+                    while True:
+                        z = b + zz[k]
+                        if out[z]:
+                            if decode(st, i + 2):
+                                out[z] += m1 if out[z] < 0 else p1
+                            break
+                        if decode(st, i + 1):
+                            out[z] = m1 if decode(fixed, 0) else p1
+                            break
+                        i += 3
+                        k += 1
+                        if k > end:
+                            raise _BadArithCode
+                    k += 1
+                continue
+            while k <= end:                         # F.1.4.4.2
+                i = 3 * (k - 1)
+                if decode(st, i):
+                    break                           # end of block
+                while not decode(st, i + 1):
+                    i += 3
+                    k += 1
+                    if k > end:
+                        raise _BadArithCode
+                sign = decode(fixed, 0)
+                i += 2
+                m = decode(st, i)
+                if m and decode(st, i):
+                    m <<= 1
+                    i = 189 if k <= kk else 217
+                    while decode(st, i):
+                        m <<= 1
+                        if m == 0x8000:
+                            raise _BadArithCode
+                        i += 1
+                v = q.value(st, i, m)
+                out[b + zz[k]] = (-v if sign else v) * (1 << al if prog
+                                                        else 1)
+                k += 1
+
+
+def _decode_lossless_scan(frame, scan, segments, restart):
+    """Decode one lossless (SOF3) scan: each sample's difference (a DC-like
+    category SSSS and its bits, 16 meaning 32768), then the samples of
+    each of the scan's components by predictor scan["ss"] (T.81 H.1.2.1,
+    libjpeg-turbo's jdpred.c), modulo 2^16: the first row of the image and
+    of each restart interval from 2^(7 - Pt) and the left sample, each
+    other row's first sample from the one above."""
+    psv, pt = scan["ss"], scan["al"]
+    if not 1 <= psv <= 7:
+        raise ValueError(f"JPEG: lossless predictor {psv} is not defined")
+    w, h = frame["w"], frame["h"]
+    sc = scan["comps"]
+    n, total = len(sc), w * h
+    if restart and restart % w:
+        raise ValueError("lossless JPEG whose restart interval is not whole "
+                         "rows is not read")
+    per = restart or total
+    if len(segments) < -(-total // per):
+        raise ValueError("JPEG: fewer restart intervals than the scan needs")
+    diffs = [0] * (total * n)
+    tables = [dc for _, dc, _ in sc]
+    for si in range(-(-total // per)):
+        win = _bit_windows(segments[si])
+        pos = 0
+        for i in range(si * per * n, min((si + 1) * per, total) * n):
+            sym, ln = tables[i % n]
+            p = (win[pos >> 3] >> (8 - (pos & 7))) & 0xFFFF
+            s = sym[p]
+            pos += ln[p]
+            if s == 16:
+                diffs[i] = 32768
+            elif s:
+                v = (win[pos >> 3] >> (24 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                diffs[i] = v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+    d_all = np.array(diffs, np.int64).reshape(h, w, n)
+    first = 1 << (7 - pt)
+    restart_rows = per // w
+    for k, (ci, _, _) in enumerate(sc):
+        d = d_all[:, :, k]
+        x = np.empty((h, w), np.int64)
+        for r in range(h):
+            if r % restart_rows == 0:
+                x[r] = (first + np.cumsum(d[r])) & 0xFFFF
+                continue
+            prev = x[r - 1]
+            if psv == 1:
+                x[r] = (prev[0] + np.cumsum(d[r])) & 0xFFFF
+            elif psv == 2:
+                x[r] = (prev + d[r]) & 0xFFFF
+            elif psv == 3:
+                x[r, 0] = (prev[0] + d[r, 0]) & 0xFFFF
+                x[r, 1:] = (prev[:-1] + d[r, 1:]) & 0xFFFF
+            else:
+                rb_row, dr = prev.tolist(), d[r].tolist()
+                ra = (rb_row[0] + dr[0]) & 0xFFFF
+                out = [ra]
+                for c in range(1, w):
+                    rb, rc = rb_row[c], rb_row[c - 1]
+                    if psv == 4:
+                        pred = ra + rb - rc
+                    elif psv == 5:
+                        pred = ra + ((rb - rc) >> 1)
+                    elif psv == 6:
+                        pred = rb + ((ra - rc) >> 1)
+                    else:
+                        pred = (ra + rb) >> 1
+                    ra = (pred + dr[c]) & 0xFFFF
+                    out.append(ra)
+                x[r] = out
+        frame["comps"][ci]["samples"] = x << pt
+
+
 def _idct_pass(x, shift):
     """One 1-D pass of libjpeg's jpeg_idct_islow over the last axis of
     eight int64 arrays x[0..7] (CONST_BITS 13); outputs descaled by
@@ -727,14 +1032,20 @@ def _idct_islow(coef, qt):
 
 
 def _upsample_fancy(x, h, v):
-    """libjpeg-turbo's fancy upsampling of a (rows, cols) uint8 plane by
-    (h, v) in {(1, 1), (2, 1), (2, 2)}, edge samples replicated; box
-    replication where the plane is at most 2 wide, as libjpeg-turbo
-    does."""
+    """libjpeg-turbo's upsampling of a (rows, cols) uint8 plane by integer
+    factors (h, v), edge samples replicated (jdsample.c): fancy (triangle)
+    for 2x1 and 2x2 where the plane is more than 2 wide, fancy for 1x2,
+    and box replication (h2v1_upsample, h2v2_upsample, int_upsample) for
+    every other ratio and width."""
     x = x.astype(np.int64)
     if (h, v) == (1, 1):
         return x
-    if x.shape[1] <= 2:
+    if (h, v) == (1, 2):                        # h1v2_fancy_upsample
+        up = np.concatenate([x[:1], x[:-1]], 0)
+        down = np.concatenate([x[1:], x[-1:]], 0)
+        return np.stack([(3 * x + up + 1) >> 2, (3 * x + down + 2) >> 2],
+                        1).reshape(-1, x.shape[1])
+    if (h, v) not in ((2, 1), (2, 2)) or x.shape[1] <= 2:
         return np.repeat(np.repeat(x, v, 0), h, 1)
     if v == 2:
         up = np.concatenate([x[:1], x[:-1]], 0)
@@ -769,15 +1080,20 @@ def _ycc_to_rgb(y, cb, cr):
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """A JPEG file's 8-bit samples, (H, W, 3) RGB or (H, W, 1) gray: Huffman
-    baseline / extended sequential (SOF0 / SOF1) and progressive (SOF2),
-    gray or YCbCr, chroma sampled 1x1, 2x1 or 2x2 against luma, restart
-    intervals.  Raises ValueError naming the format on anything else
-    (lossless, hierarchical or arithmetic-coded, 12-bit, CMYK, Adobe RGB,
-    other sampling)."""
+    baseline / extended sequential (SOF0 / SOF1), progressive (SOF2) and
+    8-bit lossless (SOF3, unsubsampled, predictors 1-7), restart intervals, any sampling whose factors divide the largest
+    (libjpeg-turbo's upsampling for each ratio), and libjpeg-turbo's
+    choice of colour space: gray, YCbCr or RGB (JFIF; else an Adobe
+    marker's transform; else the component ids 'R', 'G', 'B'), CMYK or
+    YCCK (an Adobe marker's transform 0 or any other), whose inks come out
+    as PIL's convert("RGB") of its (Adobe-inverted) CMYK makes them.
+    Raises ValueError naming the format on anything else (hierarchical,
+    arithmetic-coded lossless, 12-bit, 2 components, other sampling)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     qts, dcs, acs = {}, {}, {}
-    restart, frame, adobe, scans = 0, None, None, 0
+    restart, frame, adobe, scans, jfif = 0, None, None, 0, False
+    dac = {}                    # arithmetic conditioning: (class, table)
     pos = 2
     while True:
         start = pos
@@ -825,18 +1141,22 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 i += 17 + n
         elif m == 0xDD:                             # DRI
             restart = int.from_bytes(seg[:2], "big")
+        elif m == 0xE0 and seg[:5] == b"JFIF\0":
+            jfif = True
         elif m == 0xEE and seg[:5] == b"Adobe":
             adobe = seg[11] if len(seg) > 11 else 0
-        elif m in (0xC0, 0xC1, 0xC2):               # SOF
+        elif m == 0xCC:                             # DAC
+            for i in range(0, len(seg) - 1, 2):
+                tc, tb, cs = seg[i] >> 4, seg[i] & 15, seg[i + 1]
+                dac[(tc, tb)] = cs
+        elif m in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):  # SOF
             if seg[0] != 8:
                 raise ValueError(f"{seg[0]}-bit JPEG is not read")
             hgt, wid, nc = (int.from_bytes(seg[1:3], "big"),
                             int.from_bytes(seg[3:5], "big"), seg[5])
             if hgt == 0:
                 raise ValueError("JPEG with a DNL marker is not read")
-            if nc == 4:
-                raise ValueError("CMYK / YCCK JPEG is not read")
-            if nc not in (1, 3):
+            if nc not in (1, 3, 4):
                 raise ValueError(f"JPEG with {nc} components is not read")
             comps = [dict(h=seg[7 + 3 * i] >> 4, v=seg[7 + 3 * i] & 15,
                           tq=seg[8 + 3 * i]) for i in range(nc)]
@@ -849,36 +1169,52 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 c["bw"], c["bh"] = -(-c["dw"] // 8), -(-c["dh"] // 8)
                 c["bw_pad"], c["bh_pad"] = mcux * c["h"], mcuy * c["v"]
                 c["coef"] = [0] * (c["bw_pad"] * c["bh_pad"] * 64)
-                if (hmax // c["h"], vmax // c["v"]) not in (
-                        (1, 1), (2, 1), (2, 2)) or hmax % c["h"] \
-                        or vmax % c["v"]:
+                if hmax % c["h"] or vmax % c["v"]:
                     raise ValueError(f"JPEG sampling {c['h']}x{c['v']} of "
                                      f"{hmax}x{vmax} is not read")
             ids = [seg[6 + 3 * i] for i in range(nc)]
+            if m == 0xC3 and (hmax, vmax) != (1, 1):
+                raise ValueError("subsampled lossless JPEG is not read")
             frame = dict(w=wid, h=hgt, comps=comps, ids=ids, hmax=hmax,
                          vmax=vmax, mcux=mcux, mcuy=mcuy,
-                         progressive=m == 0xC2)
+                         progressive=m in (0xC2, 0xCA), lossless=m == 0xC3,
+                         arithmetic=m in (0xC9, 0xCA))
         elif m == 0xDA:                             # SOS
             if frame is None:
                 raise ValueError("JPEG: scan before the frame header")
             ns = seg[0]
-            sc = []
+            sc, tids = [], []
             for i in range(ns):
                 ci = frame["ids"].index(seg[1 + 2 * i])
                 td, ta = seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15
                 sc.append((ci, dcs.get(td), acs.get(ta)))
+                tids.append((td, ta))
             ss, se = seg[1 + 2 * ns], seg[2 + 2 * ns]
             ah, al = seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+            if frame["progressive"] and (
+                    se < ss or se > 63 or (ss == 0) != (se == 0)
+                    or (ss and ns != 1) or al > 13
+                    or (ah and ah != al + 1)):    # jdphuff.c / jdarith.c
+                raise ValueError(f"JPEG: bad progressive scan (Ss {ss}, Se "
+                                 f"{se}, Ah {ah}, Al {al})")
             segments, pos = _scan_segments(data, pos)
-            _decode_scan(frame, dict(comps=sc, ss=ss, se=se, ah=ah, al=al),
-                         segments, restart)
+            scan = dict(comps=sc, ss=ss, se=se, ah=ah, al=al, tids=tids)
+            if frame["arithmetic"]:
+                _decode_arith_scan(frame, scan, segments, restart, dac)
+            elif frame["lossless"]:
+                _decode_lossless_scan(frame, scan, segments, restart)
+            else:
+                _decode_scan(frame, scan, segments, restart)
             scans += 1
     if frame is None:
         raise ValueError("JPEG: no frame header")
-    if len(frame["comps"]) == 3 and adobe == 0:
-        raise ValueError("Adobe RGB-coded JPEG is not read")
     planes = []
     for c in frame["comps"]:
+        if frame["lossless"]:
+            if "samples" not in c:
+                raise ValueError("JPEG: a component no scan carried")
+            planes.append(np.clip(c["samples"], 0, 255))
+            continue
         if c["tq"] not in qts:
             raise ValueError("JPEG: missing quantization table")
         blocks = _idct_islow(np.asarray(c["coef"], np.int64).reshape(-1, 64),
@@ -890,32 +1226,86 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         planes.append(img[:frame["h"], :frame["w"]].astype(np.int64))
     if len(planes) == 1:
         return planes[0].astype(np.uint8)[:, :, None]
-    return _ycc_to_rgb(*planes)
+    if len(planes) == 3:
+        # jdapimin.c default_decompress_parms: JFIF, else Adobe, else ids
+        # (1, 2, 3 or unknown: YCbCr, but RGB in a lossless frame)
+        rgb = (not jfif and (adobe == 0 if adobe is not None
+                             else frame["ids"] == [82, 71, 66]
+                             or frame["lossless"]))
+        if rgb:
+            return np.stack(planes, -1).astype(np.uint8)
+        if frame["lossless"]:                   # libjpeg-turbo refuses too
+            raise ValueError("lossless JPEG in YCbCr is not read")
+        return _ycc_to_rgb(*planes)
+    if adobe is not None and adobe != 0:        # YCCK -> CMYK (jdcolor.c)
+        if frame["lossless"]:
+            raise ValueError("lossless JPEG in YCCK is not read")
+        planes[:3] = np.moveaxis(255 - _ycc_to_rgb(*planes[:3]).astype(
+            np.int64), -1, 0)
+    # PIL reads libjpeg's CMYK inverted ("CMYK;I") before converting it
+    return cmyk_to_rgb(255 - np.stack(planes, -1))
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's CMYK -> RGB (Convert.c cmyk2rgb): MULDIV255(255 - c, 255 - k),
+    rounded as its integer macro rounds; (..., 4) -> (..., 3) uint8."""
+    c = cmyk.astype(np.int64)
+    t = (255 - c[..., :3]) * (255 - c[..., 3:4]) + 128
+    return (((t >> 8) + t) >> 8).astype(np.uint8)
+
+
+def _bgr_words(v, masks=((0x7C00, 10), (0x3E0, 5), (0x1F, 0))):
+    """16-bit pixels -> 8-bit RGB by their bit masks (5-5-5 by default), each
+    field scaled as PIL's unpackers scale it: value * 255 // field max."""
+    out = []
+    for mask, shift in masks:
+        top = mask >> shift
+        out.append(((v & mask) >> shift) * 255 // top)
+    return np.stack(out, -1).astype(np.uint8)
 
 
 def decode_tga(data: bytes) -> np.ndarray:
-    """A Truevision TGA file's 8-bit samples, (H, W, C): true-color (24- and
-    32-bit, BGR(A) -> RGB(A)) and gray (8-bit, 16-bit with alpha),
+    """A Truevision TGA file's 8-bit samples, (H, W, C): true-color (16-bit
+    5-5-5 as RGB, 24- and 32-bit BGR(A) -> RGB(A)), gray (8-bit, 16-bit
+    with alpha) and colour-mapped (8-bit indices into a 16- or 24-bit map,
+    expanded to RGB as PIL's convert expands its palette),
     uncompressed or RLE, either origin.  Raises ValueError naming the kind
-    on anything else (colour-mapped, 15/16-bit true color)."""
+    on anything else (15-bit or other depths, which PIL refuses too)."""
     if len(data) < 18:
         raise ValueError("TGA: truncated header")
     idlen, cmtype, itype = data[0], data[1], data[2]
-    cm_len, cm_depth = struct.unpack_from("<H", data, 5)[0], data[7]
+    cm_first, cm_len = struct.unpack_from("<HH", data, 3)
+    cm_depth = data[7]
     w, h = struct.unpack_from("<HH", data, 12)
     depth, desc = data[16], data[17]
-    if itype in (1, 9):
-        raise ValueError("colour-mapped TGA is not read")
-    if itype not in (2, 3, 10, 11):
+    if itype not in (1, 2, 3, 9, 10, 11):
         raise ValueError(f"TGA image type {itype} is not read")
-    gray = itype in (3, 11)
-    if (gray and depth not in (8, 16)) or (not gray and depth not in (24, 32)):
-        raise ValueError(f"{depth}-bit {'gray' if gray else 'true-color'} "
-                         "TGA is not read")
+    kind = {1: "colour-mapped", 2: "true-color", 3: "gray"}[itype & 7]
+    ok = {1: (8,), 2: (16, 24, 32), 3: (8, 16)}[itype & 7]
+    if depth not in ok:
+        raise ValueError(f"{depth}-bit {kind} TGA is not read")
+    # PIL refuses maps of other entry sizes, and fails to load a
+    # colour-mapped image through a 32-bit map
+    if cmtype and (cm_depth not in (16, 24, 32) or (
+            itype & 7 == 1 and cm_depth == 32)):
+        raise ValueError(f"TGA colour map of {cm_depth}-bit entries is not "
+                         "read")
     bpp = depth // 8
-    off = 18 + idlen + (cm_len * ((cm_depth + 7) // 8) if cmtype else 0)
+    off = 18 + idlen
+    cmap = None
+    if cmtype:
+        eb = cm_depth // 8
+        raw = np.frombuffer(data, np.uint8, cm_len * eb, off).reshape(-1, eb)
+        off += cm_len * eb
+        if eb == 2:
+            v = raw[:, 0].astype(np.int64) | (raw[:, 1].astype(np.int64) << 8)
+            entries = _bgr_words(v)
+        else:
+            entries = raw[:, [2, 1, 0, 3][:eb]]
+        cmap = np.zeros((cm_first + cm_len, entries.shape[1]), np.uint8)
+        cmap[cm_first:] = entries               # indices count from 0
     n = w * h
-    if itype in (2, 3):
+    if not itype & 8:
         px = np.frombuffer(data, np.uint8, n * bpp, off)
     else:                                           # RLE packets
         src = np.frombuffer(data, np.uint8, offset=off)
@@ -923,7 +1313,7 @@ def decode_tga(data: bytes) -> np.ndarray:
         i = j = 0
         while j < n:
             head = int(src[i])
-            count = (head & 0x7F) + 1
+            count = min((head & 0x7F) + 1, n - j)
             if head & 0x80:
                 out[j:j + count] = src[i + 1:i + 1 + bpp]
                 i += 1 + bpp
@@ -934,8 +1324,16 @@ def decode_tga(data: bytes) -> np.ndarray:
             j += count
         px = out
     px = px.reshape(h, w, bpp)
-    if not gray:
-        px = px[:, :, [2, 1, 0, 3][:bpp]]
+    if itype & 7 == 1:
+        if cmap is not None:
+            px = cmap[np.minimum(px[:, :, 0], len(cmap) - 1)]
+    elif itype & 7 == 2:
+        if bpp == 2:
+            v = px[:, :, 0].astype(np.int64) | (px[:, :, 1].astype(
+                np.int64) << 8)
+            px = _bgr_words(v)
+        else:
+            px = px[:, :, [2, 1, 0, 3][:bpp]]
     if not desc & 0x20:                             # bottom-left origin
         px = px[::-1]
     if desc & 0x10:                                 # right-to-left
@@ -943,11 +1341,51 @@ def decode_tga(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px)
 
 
+def _bmp_rle(data: bytes, off: int, w: int, h: int, rle4: bool):
+    """RLE8 / RLE4 pixel indices (h, w), bottom row first as stored: runs,
+    absolute runs (padded to 16 bits), end of line, end of bitmap and
+    deltas; pixels not written stay 0."""
+    idx = np.zeros((h, w), np.uint8)
+    x = y = 0
+    i, n = off, len(data)
+    while i + 1 < n and y < h:
+        count, val = data[i], data[i + 1]
+        i += 2
+        if count:
+            k = min(count, max(w - x, 0))
+            if rle4:
+                idx[y, x:x + k] = np.where(np.arange(k) % 2 == 0, val >> 4,
+                                           val & 15)
+            else:
+                idx[y, x:x + k] = val
+            x += count
+        elif val == 0:                              # end of line
+            x, y = 0, y + 1
+        elif val == 1:                              # end of bitmap
+            break
+        elif val == 2:                              # delta
+            x += data[i]
+            y += data[i + 1]
+            i += 2
+        else:                                       # absolute run
+            nbytes = (val + 1) // 2 if rle4 else val
+            raw = np.frombuffer(data, np.uint8, min(nbytes, n - i), i)
+            if rle4:
+                raw = np.stack([raw >> 4, raw & 15], -1).reshape(-1)
+            k = min(val, len(raw), max(w - x, 0))
+            idx[y, x:x + k] = raw[:k]
+            x += val
+            i += nbytes + (nbytes & 1)
+    return idx
+
+
 def decode_bmp(data: bytes) -> np.ndarray:
-    """A Windows BMP's 8-bit RGB samples, (H, W, 3): 24- and 32-bit (BI_RGB
-    or 8-bit BI_BITFIELDS masks), and 1/4/8-bit palette images expanded
-    through their palette; bottom-up or top-down.  Raises ValueError
-    naming the kind on anything else (RLE, 16-bit, other masks)."""
+    """A Windows BMP's 8-bit RGB samples, (H, W, 3): 16-bit (5-5-5, or
+    BI_BITFIELDS 5-6-5 / 5-5-5 masks, scaled as PIL scales them), 24- and
+    32-bit (BI_RGB or 8-bit BI_BITFIELDS masks), and 1/4/8-bit palette
+    images, raw or RLE4 / RLE8, expanded through their palette; bottom-up
+    or top-down.  Raises ValueError naming the kind on anything else
+    (JPEG / PNG payloads, other masks)."""
     if data[:2] != b"BM":
         raise ValueError("not a BMP file")
     off, hsize = struct.unpack_from("<II", data, 10)
@@ -960,12 +1398,25 @@ def decode_bmp(data: bytes) -> np.ndarray:
         pal_bytes = 4
     top_down = h < 0
     h = abs(h)
-    if comp not in (0, 3) or (comp == 3 and bpp != 32):
+    if not (comp in (0, 3) or (comp, bpp) in ((1, 8), (2, 4))) or (
+            comp == 3 and bpp not in (16, 32)):
         raise ValueError(f"BMP compression {comp} at {bpp} bits is not read")
     stride = ((w * bpp + 31) // 32) * 4
-    rows = np.frombuffer(data, np.uint8, stride * h, off).reshape(h, stride)
+    if comp in (1, 2):
+        rows = None
+    else:
+        rows = np.frombuffer(data, np.uint8, stride * h, off).reshape(h,
+                                                                      stride)
     if bpp == 24:
         px = rows[:, :w * 3].reshape(h, w, 3)[:, :, ::-1]
+    elif bpp == 16:
+        v = rows[:, :w * 2].copy().view("<u2").reshape(h, w).astype(np.int64)
+        masks = (struct.unpack_from("<III", data, 14 + 40) if comp == 3
+                 else (0x7C00, 0x3E0, 0x1F))
+        if masks not in ((0x7C00, 0x3E0, 0x1F), (0xF800, 0x7E0, 0x1F)):
+            raise ValueError("BMP 16-bit masks "
+                             f"{tuple(hex(m) for m in masks)} are not read")
+        px = _bgr_words(v, [(m, (m & -m).bit_length() - 1) for m in masks])
     elif bpp == 32:
         v = rows[:, :w * 4].copy().view("<u4").reshape(h, w)
         masks = (struct.unpack_from("<III", data, 14 + 40) if comp == 3
@@ -981,8 +1432,11 @@ def decode_bmp(data: bytes) -> np.ndarray:
         n_pal = n_pal or (1 << bpp)
         pal = np.frombuffer(data, np.uint8, n_pal * pal_bytes,
                             14 + hsize).reshape(n_pal, pal_bytes)[:, 2::-1]
-        bits = np.unpackbits(rows, axis=1).reshape(h, -1, bpp)
-        idx = (bits * (1 << np.arange(bpp - 1, -1, -1))).sum(-1)[:, :w]
+        if rows is None:
+            idx = _bmp_rle(data, off, w, h, comp == 2)
+        else:
+            bits = np.unpackbits(rows, axis=1).reshape(h, -1, bpp)
+            idx = (bits * (1 << np.arange(bpp - 1, -1, -1))).sum(-1)[:, :w]
         px = pal[np.minimum(idx, n_pal - 1)]
     else:
         raise ValueError(f"{bpp}-bit BMP is not read")
@@ -991,44 +1445,275 @@ def decode_bmp(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(px)
 
 
-_UNREAD_MAGIC = ((b"GIF8", "GIF"), (b"II*\0", "TIFF"), (b"MM\0*", "TIFF"))
+def decode_gif(data: bytes) -> np.ndarray:
+    """A GIF's first frame as colours, (H, W, 3) RGB or (H, W, 4) RGBA where
+    it names a transparent index (alpha 0 there): the logical screen,
+    filled with the transparent index (else 0) as PIL fills it, the frame
+    decoded (LZW, variable code width) at its offset through its local or
+    the global colour table (no table: the indices as gray), interlaced
+    rows put back in order."""
+    from .tiff import lzw_decode
+
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF file")
+    sw, sh, flags = struct.unpack_from("<HHB", data, 6)
+    pos = 13
+    gct = None
+    if flags & 0x80:
+        n = 2 << (flags & 7)
+        gct = np.frombuffer(data, np.uint8, 3 * n, pos).reshape(n, 3)
+        pos += 3 * n
+    transparent = None
+    while pos < len(data):
+        block = data[pos]
+        if block == 0x21:                           # extension
+            label = data[pos + 1]
+            pos += 2
+            first = True
+            while data[pos]:
+                size = data[pos]
+                if label == 0xF9 and first and size >= 4 and \
+                        data[pos + 1] & 1:
+                    transparent = data[pos + 4]
+                first = False
+                pos += 1 + size
+            pos += 1
+        elif block == 0x2C:                         # image descriptor
+            x0, y0, fw, fh, fflags = struct.unpack_from("<HHHHB", data,
+                                                        pos + 1)
+            pos += 10
+            table = gct
+            if fflags & 0x80:
+                n = 2 << (fflags & 7)
+                table = np.frombuffer(data, np.uint8, 3 * n, pos).reshape(n,
+                                                                          3)
+                pos += 3 * n
+            min_bits = data[pos]
+            pos += 1
+            parts = []
+            while pos < len(data) and data[pos]:
+                parts.append(data[pos + 1:pos + 1 + data[pos]])
+                pos += 1 + data[pos]
+            raw = lzw_decode(b"".join(parts), min_bits, msb=False, early=0,
+                             limit=fw * fh)
+            idx = np.zeros(fw * fh, np.uint8)
+            got = np.frombuffer(raw[:fw * fh], np.uint8)
+            idx[:len(got)] = got
+            idx = idx.reshape(fh, fw)
+            if fflags & 0x40:                       # interlaced
+                order = np.concatenate([np.arange(0, fh, 8),
+                                        np.arange(4, fh, 8),
+                                        np.arange(2, fh, 4),
+                                        np.arange(1, fh, 2)])
+                deint = np.empty_like(idx)
+                deint[order] = idx
+                idx = deint
+            screen = np.full((sh, sw), transparent or 0, np.uint8)
+            x1, y1 = min(x0 + fw, sw), min(y0 + fh, sh)
+            screen[y0:y1, x0:x1] = idx[:y1 - y0, :x1 - x0]
+            if table is None:
+                px = np.repeat(screen[:, :, None], 3, 2)
+            else:
+                px = table[np.minimum(screen, len(table) - 1)]
+            if transparent is None:
+                return np.ascontiguousarray(px)
+            alpha = np.where(screen == transparent, 0, 255).astype(np.uint8)
+            return np.concatenate([px, alpha[:, :, None]], -1)
+        elif block == 0x3B:
+            break
+        else:
+            raise ValueError(f"GIF: unknown block 0x{block:02X}")
+    raise ValueError("GIF: no image")
+
+
+_NETPBM = {b"P1": (1, True, False), b"P2": (1, False, False),
+           b"P3": (3, False, False), b"P4": (1, True, True),
+           b"P5": (1, False, True), b"P6": (3, False, True)}
+
+
+def decode_netpbm(data: bytes) -> np.ndarray:
+    """A PBM / PGM / PPM file (P1-P6, ASCII or binary), (H, W, C): bilevel
+    as 0 / 255 uint8 (1 is black); maxval 255 as stored; a lower maxval
+    scaled to 0..255 and a higher one to 0..65535 (uint16), each as PIL
+    rounds, round(v / maxval * top).  PAM (P7) raises, as PIL refuses it."""
+    magic = data[:2]
+    if magic == b"P7":
+        raise ValueError("PAM (P7) images are not read")
+    if magic not in _NETPBM:
+        raise ValueError("not a netpbm file")
+    chans, bilevel, binary = _NETPBM[magic]
+    pos, toks = 2, []
+    need = 2 if bilevel else 3
+    while len(toks) < need:
+        m = re.compile(rb"(?:\s|#[^\n\r]*)*(\d+)").match(data, pos)
+        if not m:
+            raise ValueError("netpbm: bad header")
+        toks.append(int(m.group(1)))
+        pos = m.end()
+    w, h = toks[:2]
+    maxval = 1 if bilevel else toks[2]
+    if not 0 < maxval < 65536:
+        raise ValueError(f"netpbm: maxval {maxval} out of range")
+    n = w * h * chans
+    if binary:
+        pos += 1                                    # one whitespace byte
+        if bilevel:
+            stride = (w + 7) // 8
+            rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(
+                h, stride)
+            v = np.unpackbits(rows, axis=1)[:, :w].reshape(-1)
+        else:
+            dt = np.uint8 if maxval < 256 else np.dtype(">u2")
+            v = np.frombuffer(data, dt, n, pos)
+    else:
+        body = re.sub(rb"#[^\n\r]*", b" ", data[pos:])
+        if bilevel:
+            v = np.frombuffer(re.sub(rb"[^01]", b"", body)[:n],
+                              np.uint8) - ord("0")
+        else:
+            v = np.array(body.split()[:n], np.int64)
+        if len(v) < n:
+            raise ValueError("netpbm: truncated data")
+    v = np.asarray(v, np.int64)
+    if bilevel:
+        return ((1 - v) * 255).astype(np.uint8).reshape(h, w, 1)
+    if (v > maxval).any():
+        raise ValueError("netpbm: sample above maxval")
+    if maxval in (255, 65535):
+        out = v
+    else:
+        top = 255 if maxval < 256 else 65535
+        out = np.round(v / maxval * top)
+    dt = np.uint8 if maxval < 256 else np.uint16
+    return out.astype(dt).reshape(h, w, chans)
+
+
+def decode_qoi(data: bytes, index_start: int = 0) -> np.ndarray:
+    """A QOI file's samples, (H, W, 3) or (H, W, 4) uint8 by its header's
+    channel count.  The 64-entry index takes every decoded pixel and
+    starts with every entry the packed RGBA word index_start: 0 (all
+    zero) as qoi.h and PIL start it, 0xFF (opaque black) as write_qoi and
+    the reference's read_qoi do."""
+    if data[:4] != b"qoif":
+        raise ValueError("not a QOI file")
+    w, h = struct.unpack_from(">II", data, 4)
+    channels = data[12]
+    if channels not in (3, 4):
+        raise ValueError(f"QOI with {channels} channels is not read")
+    n = w * h
+    px = [0] * n                                    # packed RGBA words
+    index = [index_start] * 64
+    r = g = b = 0
+    a = 255
+    pos, i, end = 14, 0, len(data)
+    while i < n:
+        if pos >= end:
+            raise ValueError("QOI: truncated data")
+        b0 = data[pos]
+        pos += 1
+        if b0 == 0xFE:                              # RGB
+            r, g, b = data[pos], data[pos + 1], data[pos + 2]
+            pos += 3
+        elif b0 == 0xFF:                            # RGBA
+            r, g, b, a = data[pos], data[pos + 1], data[pos + 2], data[pos + 3]
+            pos += 4
+        elif b0 < 0x40:                             # index
+            v = index[b0]
+            r, g, b, a = v >> 24, (v >> 16) & 255, (v >> 8) & 255, v & 255
+        elif b0 < 0x80:                             # diff
+            r = (r + ((b0 >> 4) & 3) - 2) & 255
+            g = (g + ((b0 >> 2) & 3) - 2) & 255
+            b = (b + (b0 & 3) - 2) & 255
+        elif b0 < 0xC0:                             # luma
+            dg = (b0 & 0x3F) - 32
+            b1 = data[pos]
+            pos += 1
+            r = (r + dg + (b1 >> 4) - 8) & 255
+            g = (g + dg) & 255
+            b = (b + dg + (b1 & 15) - 8) & 255
+        else:                                       # run
+            run = min((b0 & 0x3F) + 1, n - i)
+            px[i:i + run] = [(r << 24) | (g << 16) | (b << 8) | a] * run
+            i += run
+            continue
+        v = (r << 24) | (g << 16) | (b << 8) | a
+        index[(r * 3 + g * 5 + b * 7 + a * 11) & 63] = v
+        px[i] = v
+        i += 1
+    p = np.array(px, np.uint32).reshape(h, w)
+    out = np.stack([p >> 24, (p >> 16) & 255, (p >> 8) & 255, p & 255],
+                   -1).astype(np.uint8)
+    return out[:, :, :channels]
+
+
+# formats read_image names but does not read (their magic bytes)
+_UNREAD_MAGIC = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
+                 (b"\xff\x4f\xff\x51", "JPEG 2000 codestream"),
+                 (b"DDS ", "DDS"), (b"8BPS", "PSD"),
+                 (b"\x01\xda", "SGI"), (b"\0\0\x01\0", "ICO"),
+                 (b"\0\0\x02\0", "CUR"), (b"Image type:", "IM"),
+                 (b"PF", "PFM"), (b"Pf", "PFM"))
+_NETPBM_EXT = (".pbm", ".pgm", ".ppm", ".pnm")
 
 
 def _decode_image(path: str, data: bytes) -> np.ndarray:
-    """8-bit (or PNG's 16-bit) samples (H, W, C) of a PNG, JPEG, BMP or
-    (by its extension) TGA file; raises ValueError naming any other
+    """Samples (H, W, C) of a PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm
+    or (by its extension) TGA file: uint8 colours, uint16 for 16-bit
+    samples, float32 for a float TIFF; raises ValueError naming any other
     format."""
+    ext = path.lower()
     if data[:8] == _PNG_MAGIC:
         return decode_png(data)
     if data[:2] == b"\xff\xd8":
         return decode_jpeg(data)
     if data[:2] == b"BM":
         return decode_bmp(data)
-    if path.lower().endswith(".tga"):
-        return decode_tga(data)
+    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        from .tiff import decode_tiff
+
+        return decode_tiff(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise ValueError(f"{path}: WebP images are not read")
+        from .webp import decode_webp
+
+        return decode_webp(data)
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return decode_gif(data)
+    if data[:4] == b"qoif":
+        return decode_qoi(data)
+    if ext.endswith(".tga"):
+        return decode_tga(data)
+    if data[:1] == b"P" and data[1:2] in b"1234567" and len(data) > 2 and (
+            data[2:3].isspace() or ext.endswith(_NETPBM_EXT)):
+        return decode_netpbm(data)
+    if data[:1] == b"\x0a" and len(data) > 2 and data[1] in (0, 2, 3, 4, 5):
+        raise ValueError(f"{path}: PCX images are not read")
     for magic, name in _UNREAD_MAGIC:
         if data.startswith(magic):
             raise ValueError(f"{path}: {name} images are not read")
-    raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP or TGA image")
+    raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, "
+                     "QOI, netpbm or TGA image")
 
 
 def read_image(path: str):
     """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
-    reader above; PNG, JPEG, BMP and TGA decoded here (by their magic
-    bytes, TGA by its extension), sRGB
-    -> linear (Image::Read's LinearColorEncoding handling,
-    util/image.cpp).  Other formats raise, naming the format."""
+    reader above; PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm and TGA
+    decoded here (by their magic bytes, TGA by its extension), their
+    colours (palettes expanded, gray repeated, alpha dropped) over 255 or
+    65535, sRGB -> linear (Image::Read's LinearColorEncoding handling,
+    util/image.cpp); a float TIFF is linear already and kept as stored, as
+    EXR and PFM are.  Other formats raise, naming the format."""
     if path.endswith(".exr"):
         img, _names, attrs = read_exr(path)
         return np.asarray(img[:, :, :3], np.float32), attrs
     with open(path, "rb") as f:
         data = f.read()
-    x = png_unit(_decode_image(path, data))
+    px = _decode_image(path, data)
+    x = px.astype(np.float32) if px.dtype == np.float32 else png_unit(px)
     if x.shape[2] < 3:                  # gray (+ alpha)
         x = np.repeat(x[:, :, :1], 3, axis=2)
     x = x[:, :, :3]
+    if px.dtype == np.float32:
+        return np.ascontiguousarray(x), {}
     lin = np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
     return lin.astype(np.float32), {}
 
@@ -1146,51 +1831,9 @@ def read_qoi(path: str, to_linear: bool = True):
         data = f.read()
     if data[:4] != b"qoif":
         raise ValueError(f"{path}: not a QOI file")
-    w = int.from_bytes(data[4:8], "big")
-    h = int.from_bytes(data[8:12], "big")
-    channels = data[12]
-    pos = 14
-    n = w * h
-    px = np.zeros((n, 4), np.uint8)
-    index = [(0, 0, 0, 255)] * 64
-    prev = (0, 0, 0, 255)
-    i = 0
-    while i < n:
-        b0 = data[pos]
-        pos += 1
-        if b0 == 0xFE:                       # RGB
-            prev = (data[pos], data[pos + 1], data[pos + 2], prev[3])
-            pos += 3
-        elif b0 == 0xFF:                     # RGBA
-            prev = tuple(data[pos:pos + 4])
-            pos += 4
-        elif b0 >> 6 == 0:                   # index
-            prev = index[b0]
-        elif b0 >> 6 == 1:                   # diff
-            dr = ((b0 >> 4) & 3) - 2
-            dg = ((b0 >> 2) & 3) - 2
-            db = (b0 & 3) - 2
-            prev = ((prev[0] + dr) & 0xFF, (prev[1] + dg) & 0xFF,
-                    (prev[2] + db) & 0xFF, prev[3])
-        elif b0 >> 6 == 2:                   # luma
-            dg = (b0 & 0x3F) - 32
-            b1 = data[pos]
-            pos += 1
-            dr = dg + ((b1 >> 4) & 0xF) - 8
-            db = dg + (b1 & 0xF) - 8
-            prev = ((prev[0] + dr) & 0xFF, (prev[1] + dg) & 0xFF,
-                    (prev[2] + db) & 0xFF, prev[3])
-        else:                                # run
-            runl = (b0 & 0x3F) + 1
-            px[i:i + runl] = prev
-            i += runl
-            continue
-        idx = (prev[0] * 3 + prev[1] * 5 + prev[2] * 7
-               + prev[3] * 11) % 64
-        index[idx] = prev
-        px[i] = prev
-        i += 1
-    x = px[:, :3].reshape(h, w, 3).astype(np.float32) / 255.0
+    # write_qoi's index starts opaque black: files it writes index black
+    # (slot 53) before any black pixel has been seen
+    x = decode_qoi(data, 0xFF)[:, :, :3].astype(np.float32) / 255.0
     if to_linear:
         x = np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
     return x.astype(np.float32)

@@ -278,6 +278,26 @@ Phases (any failure raises, and the script exits non-zero):
      make_sharded_regen_grad with overlap off) against the port's
      single-device gradients on the CPU at that test's tolerances.  A
      failed group, rank or collective fails the phase.
+ 32. image formats (utils/tiff.py, utils/webp.py, the GIF, QOI and netpbm
+     decoders of utils/image.py): a .pbrt file that Includes phase 28's
+     converted 256^3 cloud (image_formats_file_text), under an infinite
+     light whose map is a 2048x1024 16-bit RGB LZW TIFF with the
+     horizontal predictor (scripts/time_image_decode.py's sky and
+     writer), over a ground quad whose imagemap texture is the committed
+     1024x512 lossy WebP (tests/data/images/), rendered by the CLI at
+     1280x720 spp 1 with the parser's warnings made errors (no fallback
+     to a uniform sky).  (a) The frame equals, max |diff| 0, the same file
+     with both maps rewritten as PNG (16- and 8-bit) from the port's own
+     decoded samples, and its mean differs from the file's with the map's
+     filename removed (a uniform sky); (b) each render's march launches
+     (one per loop iteration, no gather or dma launch) and the map
+     frame's march call IMAGE_CAPTURE_CALL held equal to plain; (c) the
+     32x24 version on the card and the CPU within SURF_MEAN_TOL; (d) the
+     host seconds of three decodes each of the committed 2048x1024 lossy
+     WebP (held to its hash of PIL's samples, as the ground's is), an
+     8-bit and a 16-bit LZW TIFF, a GIF, a QOI and a binary PPM at
+     2048x1024 (and a 4:2:0 JPEG), each equal to its written samples, and
+     the parse and render seconds and peak device memory.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -294,12 +314,17 @@ kernel's cold times, and its launches, which are its runs on the card in
 phase 11, beside its wrapper calls; `integrators_launches`, each kernel's
 launches in phase 29's full-size legs; `item1_launches`, in phase 30's
 legs; `sharding_world1_launches` and `sharding_rank_launches`, each rank's
-(regen, wave, gradient) launches in phase 31) and the result JSON.
+(regen, wave, gradient) launches in phase 31; `image_formats_launches`,
+the march launches of phase 32's three CLI frames, and its captured
+call's `image_formats_max_abs_err`) and the result JSON.
 """
 import json
+import os
 import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -2529,12 +2554,13 @@ def checkpoint_leg(dev, work, card):
     return launches + counts[1]
 
 
-def phase_scene_file(dev, scene, wave_img, card):
+def phase_scene_file(dev, scene, wave_img, card, keep=None):
     """Phase 28: phase 8's density through a .nvdb, nanovdb2pbrt and a
     .pbrt file to the CLI's 1280x720 frame (see the module docstring);
-    scene is phase 8's, wave_img phase 14's frame.  Returns the march
-    launches of the CLI frame and the gather launches of the fog-box
-    leg."""
+    scene is phase 8's, wave_img phase 14's frame; nanovdb2pbrt's block
+    is kept as keep / "grid.txt" when keep (a directory) is given.
+    Returns the march launches of the CLI frame and the gather launches
+    of the fog-box leg."""
     import contextlib
     import tempfile
 
@@ -2642,6 +2668,8 @@ def phase_scene_file(dev, scene, wave_img, card):
     compare_frames("scene file 32x24 gpu vs cpu", *imgs)
     del parsed[:], sc, small
     gather_n = checkpoint_leg(dev, work, card)
+    if keep is not None:
+        shutil.move(str(work / "grid.txt"), str(Path(keep) / "grid.txt"))
     tmp.cleanup()
     return counts[0], gather_n
 
@@ -3783,6 +3811,225 @@ def phase_sharding(dev, scene, card):
                 max_abs_err=recs[0]["regen"]["max_abs_err"])
 
 
+IMAGE_SKY = (2048, 1024)           # phase 32's TIFF sky map
+IMAGE_SKY_SCALE = 0.05
+IMAGE_CAPTURE_CALL = 20            # the map frame's march call held to plain
+IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests/data/images"
+IMAGE_GROUND = "ground_1024x512_q90.webp"
+IMAGE_SKY_WEBP = "sky_2048x1024_q90.webp"
+
+
+def image_formats_file_text(width, height, medium, sky=None, ground=None):
+    """A .pbrt file of phase 8's cloud (the medium statement in the file
+    `medium`, Included), its sun, an infinite light (the map `sky`, else
+    uniform, both at IMAGE_SKY_SCALE) and phase 23's tilted ground quad
+    (cloud_with_surfaces), diffuse, its reflectance the imagemap `ground`
+    (else 0.4); volpath, max depth 16, spp 1."""
+    from acceleratedvolrenderer_tpu_torch.scene import presets
+
+    w2c = " ".join(repr(float(v)) for v in presets.CLOUD_W2C.T.reshape(-1))
+    sun = " ".join(repr(float(v)) for v in presets.CLOUD_SUN_DIR)
+    tilt = np.deg2rad(10.0)
+    across = np.array([0.0, 0.0, 1600.0])
+    slope = 1600.0 * np.array([-np.cos(tilt), np.sin(tilt), 0.0])
+    o = np.array([0.0, -100.0, 0.0]) - 0.5 * across - 0.25 * slope
+    quad = " ".join(repr(float(v)) for v in np.concatenate(
+        [o, o + across, o + slope, o + across + slope]))
+    sky_line = (f'LightSource "infinite" "string filename" "{sky}"'
+                if sky else 'LightSource "infinite" "rgb L" [1 1 1]')
+    if ground:
+        tex = (f'Texture "ground" "spectrum" "imagemap" "string filename" '
+               f'"{ground}"\n')
+        mat = 'Material "diffuse" "texture reflectance" "ground"\n'
+    else:
+        tex, mat = "", 'Material "diffuse" "rgb reflectance" [0.4 0.4 0.4]\n'
+    return (
+        "# presets.cloud over a textured ground under a sky map\n"
+        f"Transform [ {w2c} ]\n"
+        'Camera "perspective" "float fov" [31.07]\n'
+        f'Film "rgb" "integer xresolution" [{width}] '
+        f'"integer yresolution" [{height}] "string filename" "frame.exr"\n'
+        'PixelFilter "gaussian"\n'
+        'Sampler "independent" "integer pixelsamples" [1]\n'
+        'Integrator "volpath" "integer maxdepth" [16]\n'
+        "WorldBegin\n"
+        'LightSource "distant" "rgb L" [1 1 1] "float scale" [2.6]\n'
+        f'    "point3 from" [0 0 0] "point3 to" [{sun}]\n'
+        f'{sky_line} "float scale" [{IMAGE_SKY_SCALE}]\n'
+        + tex +
+        "AttributeBegin\n" + mat +
+        f'Shape "trianglemesh" "point3 P" [ {quad} ]\n'
+        '    "point2 uv" [0 0 1 0 0 1 1 1] "integer indices" [0 1 2 2 1 3]\n'
+        "AttributeEnd\n"
+        "AttributeBegin\n"
+        f'Include "{medium}"\n'
+        'MediumInterface "cloud" ""\n'
+        'Material ""\n'
+        'Shape "sphere" "float radius" [174]\n'
+        "AttributeEnd\n")
+
+
+def image_fixture_checks():
+    """The committed lossy WebP fixtures decoded by the port, each held to
+    the SHA-256 of PIL's samples in images.json; returns the decoded
+    ground texture."""
+    import hashlib
+
+    from acceleratedvolrenderer_tpu_torch.utils import webp
+
+    record = json.loads((IMAGE_FIXTURES / "images.json").read_text())
+    out = {}
+    for name, rec in sorted(record.items()):
+        px = webp.decode_webp((IMAGE_FIXTURES / name).read_bytes())
+        digest = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+        ok = list(px.shape) == rec["shape"] and \
+            digest == rec["sha256_of_pil_samples"]
+        print(f"image formats: {name} {px.shape} decoded, sha256 {digest} "
+              f"{'equals' if ok else 'DIFFERS FROM'} PIL's", flush=True)
+        if not ok:
+            raise AssertionError(f"image formats: {name} differs from PIL's "
+                                 "decode")
+        out[name] = px
+    return out[IMAGE_GROUND]
+
+
+def phase_image_formats(dev, keep, card):
+    """Phase 32 (see the module docstring); keep holds phase 28's grid
+    block.  Returns the march launches of the three CLI frames and the
+    captured call's max |diff|."""
+    import contextlib
+    import tempfile
+    import warnings
+
+    from acceleratedvolrenderer_tpu_torch.ops import march
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+    from acceleratedvolrenderer_tpu_torch.scene import parser
+    from acceleratedvolrenderer_tpu_torch.utils import image
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import time_image_decode as tid
+
+    tmp = tempfile.TemporaryDirectory()
+    work = Path(tmp.name)
+    t0 = time.time()
+    ground_px = image_fixture_checks()
+    t1 = time.time()
+    sky_data = tid.sky_tiff(*IMAGE_SKY)
+    sky_write = time.time() - t1
+    (work / "sky.tif").write_bytes(sky_data)
+    (work / "ground.webp").write_bytes(
+        (IMAGE_FIXTURES / IMAGE_GROUND).read_bytes())
+    sky_px = image._decode_image("sky.tif", sky_data)
+    if not np.array_equal(sky_px, tid.sky(*IMAGE_SKY)):
+        raise AssertionError("image formats: the TIFF sky does not decode "
+                             "to its written samples")
+    (work / "sky.png").write_bytes(image.encode_png(sky_px))
+    (work / "ground.png").write_bytes(image.encode_png(ground_px))
+    with open(work / "medium.pbrt", "w") as f:
+        f.write('MakeNamedMedium "cloud" "string type" "uniformgrid"\n')
+        with open(Path(keep) / "grid.txt") as g:
+            while True:
+                chunk = g.read(1 << 24)
+                if not chunk:
+                    break
+                f.write(chunk)
+        f.write('    "rgb sigma_a" [0 0 0] "rgb sigma_s" [1 1 1]\n'
+                '    "float scale" [0.2] "float g" [0.877]\n')
+    W, H = FULL
+    files = {
+        "maps": dict(sky=work / "sky.tif", ground="ground.webp"),
+        "png maps": dict(sky=work / "sky.png", ground="ground.png"),
+        "uniform sky": dict(ground="ground.webp")}
+    for name, kw in files.items():
+        (work / f"{name.replace(' ', '_')}.pbrt").write_text(
+            image_formats_file_text(W, H, work / "medium.pbrt", **kw))
+    print(f"image formats: fixtures checked and files written in "
+          f"{time.time() - t0:.2f} s (the sky TIFF, 16-bit LZW, "
+          f"{len(sky_data)} bytes, in {sky_write:.2f} s)", flush=True)
+
+    steps, parsed = {}, []
+    load_scene = parser.load_scene
+
+    def strict_load(*args, **kw):
+        t = time.time()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            parsed.append(load_scene(*args, **kw))
+        steps["parse"] = time.time() - t
+        return parsed[-1]
+
+    captured, capture = march_capture(IMAGE_CAPTURE_CALL)
+    frames, launches = {}, []
+    for name in files:
+        out = str(work / f"{name.replace(' ', '_')}.exr")
+        torch.cuda.reset_peak_memory_stats(dev)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(parser, "load_scene",
+                                                  strict_load))
+            if name == "maps":
+                stack.enter_context(mock.patch.object(march, "march_block",
+                                                      capture))
+            zero_kernel_counts()
+            t = time.time()
+            st = run_cli([str(work / f"{name.replace(' ', '_')}.pbrt"), "-o",
+                          out, "--spp", "1", "--stats"])
+            cli = time.time() - t
+            counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        img = image.read_exr(out)[0]
+        frames[name] = img
+        launches.append(counts[0])
+        print(f"image formats: {name}: pbrt {W}x{H} spp 1: parse "
+              f"{steps['parse']:.2f} s, render {st['render_time']:.3f} s "
+              f"({st['iterations']} iterations), the CLI call {cli:.2f} s; "
+              f"(march, gather, dma) launches {counts}; peak device memory "
+              f"{peak:.3f} GiB; film mean {img.mean():.6f} on {card}",
+              flush=True)
+        _check_frame(f"image formats {name}", img, (H, W, 3))
+        if counts != (st["iterations"], 0, 0):
+            raise AssertionError(f"image formats {name}: launches {counts} "
+                                 f"for {st['iterations']} iterations")
+        if name == "maps":
+            sc = parsed[-1]
+        parsed.clear()
+    diff = float(np.abs(frames["maps"] - frames["png maps"]).max())
+    rel = abs(float(frames["maps"].mean()) - float(
+        frames["uniform sky"].mean())) / float(frames["uniform sky"].mean())
+    print(f"image formats: (a) TIFF / WebP frame vs PNG twin max |diff| "
+          f"{diff:.3e}; mean vs the uniform sky's rel diff {rel:.4e}",
+          flush=True)
+    if diff != 0.0:
+        raise AssertionError("image formats: the TIFF / WebP frame differs "
+                             "from its PNG twin")
+    if rel < 1e-3:
+        raise AssertionError("image formats: the map frame's mean equals "
+                             "the uniform sky's (map dropped?)")
+    err = check_captured_march("image formats (b)", captured,
+                               IMAGE_CAPTURE_CALL)
+    small = replace(sc, camera=sc.camera._replace(width=32, height=24))
+    imgs = [render.render(small, device=dev)[0],
+            render.render(small.to("cpu"), device="cpu")[0]]
+    compare_frames("image formats (c) 32x24 gpu vs cpu", *imgs,
+                   mean_tol=SURF_MEAN_TOL)
+    del sc, small
+    tmp.cleanup()
+    print(f"image formats (d): host CPU {tid.cpu_line()}; {card}",
+          flush=True)
+    bad = []
+    for name, size, write, secs, ok in tid.time_formats(
+            *IMAGE_SKY, webp_path=IMAGE_FIXTURES / IMAGE_SKY_WEBP,
+            sky16=sky_data):
+        print(f"image formats (d): {name} {IMAGE_SKY[0]}x{IMAGE_SKY[1]}: "
+              f"{size} bytes, written in {write:.2f} s; decode "
+              f"{', '.join(f'{x:.3f}' for x in secs)} s; "
+              f"{'equal to the source' if ok else 'WRONG'}", flush=True)
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"image formats (d): wrong decodes {bad}")
+    return launches, err
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -3843,8 +4090,9 @@ def main():
     march_rec.update(sky_rec)
     timed("room samplers", phase_room_samplers, dev, room_means, card)
     timed("portal entries", phase_portal_entries, dev, sky, room_means, card)
+    keep = tempfile.TemporaryDirectory()
     march_n, gather_n = timed("scene file", phase_scene_file, dev, scene,
-                              wave_img, card)
+                              wave_img, card, keep.name)
     march_rec["scene_file_launches"] = march_n
     gather_rec["scene_file_launches"] = gather_n
     integ_counts, march_rec["integrators_depth4_render_launches"] = timed(
@@ -3855,6 +4103,10 @@ def main():
     march_rec["sharding_world1_launches"] = shard["world1"]
     march_rec["sharding_rank_launches"] = shard["ranks"]
     march_rec["sharding_max_abs_err"] = shard["max_abs_err"]
+    (march_rec["image_formats_launches"],
+     march_rec["image_formats_max_abs_err"]) = timed(
+        "image formats", phase_image_formats, dev, keep.name, card)
+    keep.cleanup()
 
     src = "acceleratedvolrenderer_tpu_torch/csrc/"
     print(f"chip_smoke: {time.time() - T0:.1f} s wall")

@@ -1,0 +1,71 @@
+"""Write the lossy WebP fixtures under tests/data/images/ and the SHA-256 of
+PIL's decode of each (images.json).  Needs PIL with WebP support (the
+machine that runs chip_smoke.py has no PIL, so phase 32 reads these files
+and holds the port's decode to the hashes).
+
+    python3 scripts/make_image_fixtures.py
+
+  - sky_2048x1024_q90.webp: a 2048x1024 sky of sinusoids
+    (time_image_decode.sky), quality 90: an environment map's size, timed
+    by chip_smoke.py phase 32 (d) and scripts/time_image_decode.py;
+  - ground_1024x512_q90.webp: a 1024x512 ground texture (tiles, grout and
+    noise), quality 90: the imagemap of phase 32's ground quad.
+
+Rerunning it rewrites both files; the CPU test
+tests/test_torch_image_formats_webp.py::test_committed_fixtures_hashes
+holds the committed files to the committed hashes.
+"""
+import hashlib
+import io
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+from PIL import Image
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "tests" / "data" / "images"
+sys.path.insert(0, str(ROOT / "scripts"))
+
+import time_image_decode as tid  # noqa: E402
+
+
+def ground(w, h, seed=7):
+    """Tiles of varying tone with grout lines and fine noise, uint8 RGB."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    tone = rng.uniform(0.55, 1.0, (h // 64 + 1, w // 64 + 1))[yy // 64,
+                                                              xx // 64]
+    grout = ((xx % 64) < 3) | ((yy % 64) < 3)
+    base = np.stack([170 * tone, 140 * tone, 100 * tone], -1)
+    base[grout] = 60
+    base += 18 * np.sin(xx / 5.0 + yy / 9.0)[..., None]
+    return np.clip(base + rng.normal(0, 6, base.shape), 0, 255).astype(
+        np.uint8)
+
+
+def decoded_hash(path):
+    a = np.ascontiguousarray(np.asarray(Image.open(path)))
+    return hashlib.sha256(a.tobytes()).hexdigest(), list(a.shape)
+
+
+def main():
+    OUT.mkdir(parents=True, exist_ok=True)
+    files = {"sky_2048x1024_q90.webp": tid.sky(2048, 1024, 255),
+             "ground_1024x512_q90.webp": ground(1024, 512)}
+    record = {}
+    for name, px in files.items():
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, "WEBP", quality=90)
+        (OUT / name).write_bytes(buf.getvalue())
+        digest, shape = decoded_hash(OUT / name)
+        record[name] = {"sha256_of_pil_samples": digest, "shape": shape,
+                        "bytes": len(buf.getvalue())}
+        print(f"{name}: {len(buf.getvalue())} bytes, PIL samples {shape} "
+              f"sha256 {digest}")
+    (OUT / "images.json").write_text(json.dumps(record, indent=1) + "\n")
+
+
+if __name__ == "__main__":
+    main()

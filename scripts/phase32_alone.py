@@ -1,0 +1,41 @@
+"""chip_smoke.py's phase 32 (image formats) alone on the CUDA card, with the
+phases it needs: 8 (the 1280x720 cloud over the 256^3 grid), 14 (its wave
+frame) and 28 (the grid through a .nvdb and nanovdb2pbrt into the block
+phase 32 Includes).
+
+    python3 scripts/phase32_alone.py
+
+Needs one CUDA card; it builds the kernels (nvcc).
+"""
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main():
+    from acceleratedvolrenderer_tpu_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    card = cs.card_line()
+    print(card, flush=True)
+    kernels.library()
+    _, scene, slice_rec = cs.timed("slice", cs.phase_slice, dev, card)
+    wave_img = cs.timed("wave full", cs.phase_wave_full, dev, scene,
+                        slice_rec[0], card)
+    with tempfile.TemporaryDirectory() as keep:
+        cs.timed("scene file", cs.phase_scene_file, dev, scene, wave_img,
+                 card, keep)
+        print(cs.timed("image formats", cs.phase_image_formats, dev, keep,
+                       card))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,8 +16,11 @@ and top-left origin) and BMP (24- and 32-bit, bottom-up and top-down,
 32-bit bit masks): read_image equals the reference's bit for bit.  Where
 the reference returns something else (a gray + alpha TGA gives it two
 channels, a palette BMP its indices), the port expands as pbrt does and
-is held to PIL's RGB conversion.  Every format left unread raises,
-naming itself.
+is held to PIL's RGB conversion.  The formats this file once held as
+unread (arithmetic-coded, lossless and CMYK JPEG, GIF, TIFF, WebP,
+colour-mapped TGA, RLE and 16-bit BMP) are read now and held to the same
+rule; every format left unread raises, naming itself.  The new readers' own tests are in
+tests/test_torch_image_formats_{tiff,webp,more,scene}.py.
 """
 import io
 import struct
@@ -28,6 +31,8 @@ from PIL import Image
 
 from acceleratedvolrenderer_tpu.utils import image as jimage
 from acceleratedvolrenderer_tpu_torch.utils import image as timage
+
+import torch_image_writers as tiw
 
 SHARE = 0.999
 
@@ -179,22 +184,6 @@ def test_bmp_written_by_pil(tmp_path, mode):
     assert np.array_equal(lin, _linear(want))
 
 
-def _jpeg_bytes(**kw):
-    b = io.BytesIO()
-    Image.fromarray(_scene(37, 23)).save(b, "JPEG", **kw)
-    return b.getvalue()
-
-
-def _patch_sof(data, marker=None, precision=None):
-    i = data.index(b"\xff\xc0")
-    data = bytearray(data)
-    if marker is not None:
-        data[i + 1] = marker
-    if precision is not None:
-        data[i + 4] = precision
-    return bytes(data)
-
-
 def _cmyk_jpeg():
     b = io.BytesIO()
     Image.fromarray(_scene(37, 23)).convert("CMYK").save(b, "JPEG")
@@ -213,24 +202,44 @@ def _palette_tga():
     return b.getvalue()
 
 
+def _jpeg_in_tiff():
+    """A PIL TIFF whose compression field says JPEG (7)."""
+    data = bytearray(_other("TIFF"))
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    for i in range(struct.unpack_from("<H", data, ifd)[0]):
+        e = ifd + 2 + 12 * i
+        if struct.unpack_from("<H", data, e)[0] == 259:
+            struct.pack_into("<H", data, e + 8, 7)
+    return bytes(data)
+
+
 UNREAD = {
-    "arithmetic_jpeg": (".jpg", lambda: _patch_sof(_jpeg_bytes(), 0xC9),
-                        "arithmetic-coded"),
-    "lossless_jpeg": (".jpg", lambda: _patch_sof(_jpeg_bytes(), 0xC3),
-                      "lossless"),
-    "12bit_jpeg": (".jpg", lambda: _patch_sof(_jpeg_bytes(), precision=12),
+    "jpeg_in_tiff": (".tif", _jpeg_in_tiff, "JPEG TIFF"),
+    "arithmetic_lossless_jpeg": (".jpg", lambda: tiw.patch_sof(
+        tiw.pil_jpeg(), 0xCB), "arithmetic-coded lossless"),
+    "hierarchical_jpeg": (".jpg", lambda: tiw.patch_sof(tiw.pil_jpeg(), 0xC5),
+                          "hierarchical"),
+    "lossless_ycbcr_jpeg": (".jpg", lambda: tiw.encode_jpeg_lossless(
+        _scene(37, 23), jfif=True), "lossless JPEG in YCbCr"),
+    "12bit_jpeg": (".jpg", lambda: tiw.patch_sof(tiw.pil_jpeg(), precision=12),
                    "12-bit"),
-    "cmyk_jpeg": (".jpg", _cmyk_jpeg, "CMYK"),
-    "gif": (".gif", lambda: _other("GIF"), "GIF"),
-    "tiff": (".tif", lambda: _other("TIFF"), "TIFF"),
-    "webp": (".webp", lambda: b"RIFF\x10\0\0\0WEBPVP8 " + b"\0" * 8, "WebP"),
-    "palette_tga": (".tga", _palette_tga, "colour-mapped TGA"),
-    "rle_bmp": (".bmp", lambda: _bmp(_scene(8, 4))[:30] + struct.pack(
-        "<I", 1) + _bmp(_scene(8, 4))[34:], "BMP compression 1"),
-    "16bit_bmp": (".bmp", lambda: _bmp(_scene(8, 4))[:28] + struct.pack(
-        "<H", 16) + _bmp(_scene(8, 4))[30:], "16-bit BMP"),
+    "jpeg2000": (".jp2", lambda: _other("JPEG2000"), "JPEG 2000"),
+    "jpeg2000_codestream": (".j2k", lambda: _other("JPEG2000",
+                                                   no_jp2=True),
+                            "JPEG 2000 codestream"),
+    "dds": (".dds", lambda: _other("DDS"), "DDS"),
+    "psd": (".psd", lambda: b"8BPS\0\1" + b"\0" * 40, "PSD"),
+    "pcx": (".pcx", lambda: _other("PCX"), "PCX"),
+    "sgi": (".sgi", lambda: _other("SGI"), "SGI"),
+    "ico": (".ico", lambda: _other("ICO"), "ICO"),
+    "im": (".im", lambda: _other("IM"), "IM"),
+    "pam": (".pam", lambda: b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 3\nMAXVAL 255\n"
+            b"ENDHDR\n" + bytes(6), "PAM"),
+    "pfm": (".pfm", lambda: b"PF\n2 1\n-1.0\n" + bytes(24), "PFM"),
+    "bigtiff": (".tif", lambda: b"II+\0\x08\0\0\0" + bytes(16), "BigTIFF"),
     "unknown": (".xyz", lambda: b"\x00\x01\x02\x03" * 8,
-                "not an EXR, PNG, JPEG, BMP or TGA image"),
+                "not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm "
+                "or TGA image"),
 }
 
 
@@ -241,3 +250,44 @@ def test_unread_formats_raise_naming_them(tmp_path, case):
     path.write_bytes(make())
     with pytest.raises(ValueError, match=words):
         timage.read_image(str(path))
+
+
+def _rle8_bmp():
+    idx = (_scene(37, 23)[..., 0] // 4).astype(np.uint8)
+    pal = np.concatenate([np.random.default_rng(6).integers(
+        0, 256, (64, 3), np.uint8), np.zeros((64, 1), np.uint8)], 1)
+    return tiw.bmp_file(tiw.rle8(idx), 37, 23, 8, 1, pal.tobytes())
+
+
+NOW_READ = {
+    # the cases test_unread_formats_raise_naming_them held until these
+    # formats were read: each now held to the reference bit for bit
+    # ("reference") or, where PIL returns something other than the
+    # colours, to PIL's convert("RGB") ("convert")
+    "arithmetic_jpeg": (".jpg", lambda: tiw.encode_jpeg_arith(
+        _scene(37, 23)), "reference"),
+    "lossless_jpeg": (".jpg", lambda: tiw.encode_jpeg_lossless(
+        _scene(37, 23)), "reference"),
+    "cmyk_jpeg": (".jpg", _cmyk_jpeg, "convert"),
+    "gif": (".gif", lambda: _other("GIF"), "convert"),
+    "tiff": (".tif", lambda: _other("TIFF"), "reference"),
+    "webp": (".webp", lambda: _other("WEBP", quality=80), "reference"),
+    "palette_tga": (".tga", _palette_tga, "convert"),
+    "rle_bmp": (".bmp", _rle8_bmp, "convert"),
+    "16bit_bmp": (".bmp", lambda: _bmp(_scene(8, 4))[:28] + struct.pack(
+        "<H", 16) + _bmp(_scene(8, 4))[30:], "reference"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NOW_READ))
+def test_formerly_unread_formats_now_read(tmp_path, case):
+    ext, make, rule = NOW_READ[case]
+    path = tmp_path / f"t{ext}"
+    path.write_bytes(make())
+    lin, attrs = timage.read_image(str(path))
+    assert attrs == {} and lin.dtype == np.float32
+    if rule == "reference":
+        assert np.array_equal(lin, jimage.read_image(str(path))[0])
+    else:
+        rgb = np.asarray(Image.open(path).convert("RGB"))
+        assert np.array_equal(lin, _linear(rgb))
