@@ -5,7 +5,8 @@ Subcommands: diff (MSE, MRSE, L1 and FLIP), convert, falsecolor, average,
 assemble, info, cat, whitebalance, bloom, splitn, error-report, makesky,
 makeequiarea, scalenormalmap, denoise.  Host work on numpy arrays, as in
 the reference; images are read and written by utils/image.py (EXR, PFM,
-QOI and PNG, no PIL).
+QOI, and through write_png the 8-bit formats the output's extension
+names, as the reference's PIL does; no PIL).
 
     python -m acceleratedvolrenderer_tpu_torch.cli.imgtool diff a.exr b.exr
 """
@@ -22,8 +23,11 @@ def _load(path):
     """(rgb (H, W, 3), attrs) of an EXR, PFM or QOI file by its extension
     (a .qoi linearized, as the reference's read_qoi does), else of any file
     utils/image.py's read_image decodes (PNG, JPEG, BMP, TIFF, WebP, GIF,
-    netpbm, TGA): its colours scaled to [0, 1] (a float TIFF's values as
-    stored) and not linearized, as the reference's loader does."""
+    netpbm, PCX, SGI, IM, uncompressed DDS, TGA): its colours scaled to
+    [0, 1] (a float TIFF's values as stored) and not linearized, as the
+    reference's loader does.  write_png's .qoi (PIL's QOI) is read back
+    linearized by the first rule and its .pfm (P6 bytes) refused by
+    read_pfm, as in the reference."""
     from ..utils.image import _decode_image, png_unit, read_exr, read_pfm, \
         read_qoi
 

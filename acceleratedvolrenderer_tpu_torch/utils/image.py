@@ -5,7 +5,9 @@ read_image, write_png, mse / mrse / mae, PFM and QOI), numpy, struct and
 zlib only: PNG files are written and read here too (8- and 16-bit gray,
 gray + alpha, RGB and RGBA), and JPEG, BMP, TGA, GIF, QOI and netpbm
 files read, which the reference reads through PIL (TIFF in tiff.py, WebP
-in webp.py).  EXR files are byte-identical to the reference writer's.
+in webp.py, PCX, SGI, IM and DDS in image_read.py).  write_png writes the
+format the path's extension names, as the reference's PIL does
+(image_write.py).  EXR files are byte-identical to the reference writer's.
 """
 from __future__ import annotations
 
@@ -422,16 +424,27 @@ def png_unit(pixels: np.ndarray) -> np.ndarray:
     return pixels.astype(np.float32) / np.iinfo(pixels.dtype).max
 
 
-def write_png(path: str, rgb: np.ndarray, tonemap: bool = True):
-    """An 8-bit PNG of a linear image: clipped to [0, 1], sRGB-encoded when
-    tonemap (else stored as is), rounded to 8 bits."""
-    rgb = np.asarray(rgb, np.float32)
-    x = np.clip(rgb, 0.0, 1.0)
+def to_8bit(rgb: np.ndarray, tonemap: bool = True) -> np.ndarray:
+    """write_png's samples of a linear image: clipped to [0, 1],
+    sRGB-encoded when tonemap (else stored as is), rounded to uint8."""
+    x = np.clip(np.asarray(rgb, np.float32), 0.0, 1.0)
     if tonemap:
         x = np.where(x <= 0.0031308, 12.92 * x,
                      1.055 * np.power(np.maximum(x, 1e-8), 1 / 2.4) - 0.055)
+    return (x * 255.0 + 0.5).astype(np.uint8)
+
+
+def write_png(path: str, rgb: np.ndarray, tonemap: bool = True):
+    """The 8-bit image to_8bit makes of a linear image (H, W, 3), in the
+    format PIL's Image.save picks by path's extension, as the reference
+    writes it: PNG (its pixels), JPEG, BMP, TGA, TIFF, PPM, PCX, SGI, IM,
+    DDS and QOI byte for byte the reference's files.  Other extensions
+    raise what PIL raises (image_write.encode); nothing is written then."""
+    from .image_write import encode
+
+    data = encode(path, to_8bit(rgb, tonemap))
     with open(path, "wb") as f:
-        f.write(encode_png((x * 255.0 + 0.5).astype(np.uint8)))
+        f.write(data)
 
 
 def mse(a: np.ndarray, b: np.ndarray) -> float:
@@ -1649,18 +1662,18 @@ def decode_qoi(data: bytes, index_start: int = 0) -> np.ndarray:
 # formats read_image names but does not read (their magic bytes)
 _UNREAD_MAGIC = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
                  (b"\xff\x4f\xff\x51", "JPEG 2000 codestream"),
-                 (b"DDS ", "DDS"), (b"8BPS", "PSD"),
-                 (b"\x01\xda", "SGI"), (b"\0\0\x01\0", "ICO"),
-                 (b"\0\0\x02\0", "CUR"), (b"Image type:", "IM"),
-                 (b"PF", "PFM"), (b"Pf", "PFM"))
+                 (b"8BPS", "PSD"), (b"\0\0\x01\0", "ICO"),
+                 (b"\0\0\x02\0", "CUR"), (b"PF", "PFM"), (b"Pf", "PFM"))
 _NETPBM_EXT = (".pbm", ".pgm", ".ppm", ".pnm")
 
 
 def _decode_image(path: str, data: bytes) -> np.ndarray:
-    """Samples (H, W, C) of a PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm
-    or (by its extension) TGA file: uint8 colours, uint16 for 16-bit
-    samples, float32 for a float TIFF; raises ValueError naming any other
-    format."""
+    """Samples (H, W, C) of a PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm,
+    PCX, SGI, IM, uncompressed DDS or (by its extension) TGA file: uint8
+    colours, uint16 for 16-bit samples, float32 for a float TIFF; raises
+    ValueError naming any other format (a block-compressed DDS too)."""
+    from . import image_read
+
     ext = path.lower()
     if data[:8] == _PNG_MAGIC:
         return decode_png(data)
@@ -1685,19 +1698,26 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
     if data[:1] == b"P" and data[1:2] in b"1234567" and len(data) > 2 and (
             data[2:3].isspace() or ext.endswith(_NETPBM_EXT)):
         return decode_netpbm(data)
-    if data[:1] == b"\x0a" and len(data) > 2 and data[1] in (0, 2, 3, 4, 5):
-        raise ValueError(f"{path}: PCX images are not read")
+    if image_read.is_pcx(data):
+        return image_read.decode_pcx(data)
+    if data[:2] == b"\x01\xda":
+        return image_read.decode_sgi(data)
+    if data[:4] == b"DDS ":
+        return image_read.decode_dds(data)
+    if image_read.is_im(data):
+        return image_read.decode_im(data)
     for magic, name in _UNREAD_MAGIC:
         if data.startswith(magic):
             raise ValueError(f"{path}: {name} images are not read")
     raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, "
-                     "QOI, netpbm or TGA image")
+                     "QOI, netpbm, PCX, SGI, IM, DDS or TGA image")
 
 
 def read_image(path: str):
     """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
-    reader above; PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm and TGA
-    decoded here (by their magic bytes, TGA by its extension), their
+    reader above; PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm, PCX, SGI,
+    IM, uncompressed DDS and TGA decoded here (by their magic bytes, TGA
+    by its extension), their
     colours (palettes expanded, gray repeated, alpha dropped) over 255 or
     65535, sRGB -> linear (Image::Read's LinearColorEncoding handling,
     util/image.cpp); a float TIFF is linear already and kept as stored, as

@@ -1,0 +1,334 @@
+"""Decoders of the formats utils/image_write.py writes that utils/image.py's
+other readers do not cover: PCX, SGI, IM and uncompressed DDS, numpy only.
+Each gives the samples PIL 12.1.0 gives for the file (the reference reads
+images through PIL), as colours where PIL gives palette indices; the
+dispatch by magic bytes is image.py::_decode_image's.
+
+  - PCX: 1-bit (0 / 255), 8-bit gray or palette (the 256-entry VGA palette
+    at the end, as PIL takes it: a linear gray one keeps the samples as
+    stored) and 24-bit in three planes, run-length coded (PcxDecode.c,
+    whose band shuffle for strides that do not divide the row is kept);
+  - SGI: verbatim and RLE, 8- and 16-bit (PIL keeps a 16-bit sample's high
+    byte), 1, 3 or 4 channels, rows bottom-up;
+  - IM: PIL's text header; 1-bit (0 / 255), L, LA, RGB, RGBA (planar
+    rows, bottom-up) and L with a colour lookup table (PIL's P: expanded
+    to colours; a gray table keeps the samples, as PIL ignores it);
+  - DDS: uncompressed, read by its bit masks (RGB, RGBA, BGR(A), any
+    widths), luminance (8-bit), luminance with alpha (16-bit), and a DX10
+    header naming R8G8B8A8.  Block-compressed files (DXT1-5, BC4-BC7)
+    raise, naming their format.
+"""
+from __future__ import annotations
+
+import re
+import struct
+
+import numpy as np
+
+# ---------------------------------------------------------------------------
+# PCX
+# ---------------------------------------------------------------------------
+
+
+def is_pcx(data: bytes) -> bool:
+    """PIL's test: byte 0 is 10 and the version is 0, 2, 3 or 5."""
+    return len(data) >= 2 and data[0] == 10 and data[1] in (0, 2, 3, 5)
+
+
+def _pcx_tokens(a: np.ndarray):
+    """(value, count) of each token of PCX run-length code a (uint8): a
+    byte with both high bits set counts (its low 6 bits) copies of the
+    next byte, any other byte is itself.  Which bytes start a token is
+    found at once: the first of each stretch of bytes >= 0xC0 does, the
+    next one of the stretch does not, and so on alternately; the byte
+    after the stretch starts one where the stretch's last byte did not.
+    A count in the last byte has no value and is dropped."""
+    ctrl = a >= 0xC0
+    prev = np.concatenate([[False], ctrl[:-1]])
+    idx = np.arange(len(a))
+    parity = (idx - np.maximum.accumulate(np.where(ctrl & ~prev, idx, 0))) & 1
+    prev_parity = np.concatenate([[0], parity[:-1]])
+    start = np.where(ctrl, parity == 0, ~prev | (prev_parity == 1))
+    pos = np.flatnonzero(start & (~ctrl | (idx + 1 < len(a))))
+    run = ctrl[pos]
+    value = np.where(run, a[np.minimum(pos + 1, len(a) - 1)], a[pos])
+    return value, np.where(run, a[pos] & 0x3F, 1)
+
+
+def decode_pcx(data: bytes) -> np.ndarray:
+    """A PCX file's samples (see the module docstring): (H, W, 1) for 1-bit
+    and gray, (H, W, 3) for 24-bit and palette files."""
+    if not is_pcx(data) or len(data) < 128:
+        raise ValueError("not a PCX file")
+    x0, y0, x1, y1 = struct.unpack_from("<4H", data, 4)
+    w, h = x1 + 1 - x0, y1 + 1 - y0
+    if w <= 0 or h <= 0:
+        raise ValueError("PCX: bad image size")
+    version, bits, planes = data[1], data[3], data[65]
+    (provided,) = struct.unpack_from("<H", data, 66)
+    palette = None
+    if bits == 1 and planes == 1:
+        kind = "1"
+    elif version == 5 and bits == 8 and planes == 1:
+        kind = "L"
+        tail = data[-769:]
+        if len(tail) == 769 and tail[0] == 12:
+            pal = np.frombuffer(tail, np.uint8, 768, 1).reshape(256, 3)
+            if not (pal == np.arange(256)[:, None]).all():
+                kind, palette = "P", pal
+    elif version == 5 and bits == 8 and planes == 3:
+        kind = "RGB"
+    else:
+        raise ValueError(f"PCX with {bits}-bit samples in {planes} planes "
+                         f"(version {version}) is not read")
+    stride = (w * bits + 7) // 8
+    if provided != stride:
+        stride += stride % 2
+    line = planes * stride
+    value, count = _pcx_tokens(np.frombuffer(data, np.uint8, offset=128))
+    ends = np.cumsum(count)
+    if not len(ends) or ends[-1] < h * line:
+        raise ValueError("PCX: truncated data")
+    k = int(np.searchsorted(ends, h * line)) + 1
+    value, count, ends = value[:k], count[:k], ends[:k]
+    if ((count > 1) & ((ends - count) // line != (ends - 1) // line)).any():
+        raise ValueError("PCX: a run crosses the end of a row")
+    rows = np.repeat(value, count)[:h * line].reshape(h, line)
+    if line % w and line > w:                   # PcxDecode.c's band move
+        bands = line // w
+        step = line // bands
+        for i in range(1, bands):
+            rows[:, i * w:(i + 1) * w] = rows[:, i * step:i * step + w].copy()
+    if kind == "1":
+        bits_ = np.unpackbits(rows, axis=1)[:, :w]
+        return (bits_ * 255).astype(np.uint8)[..., None]
+    if kind == "RGB":
+        return np.ascontiguousarray(
+            rows[:, :3 * w].reshape(h, 3, w).transpose(0, 2, 1))
+    idx = rows[:, :w]
+    return palette[idx] if palette is not None else idx[..., None]
+
+
+# ---------------------------------------------------------------------------
+# SGI
+# ---------------------------------------------------------------------------
+
+# (bytes per sample, dimension, channels) PIL reads
+_SGI_MODES = {(1, 1, 1), (1, 2, 1), (2, 1, 1), (2, 2, 1), (1, 3, 3),
+              (2, 3, 3), (1, 3, 4), (2, 3, 4)}
+
+
+def _sgi_rle_row(src: bytes, pos: int, n: int, w: int, bpc: int):
+    """One RLE row of an SGI channel from src at pos, as SgiRleDecode.c's
+    expandrow / expandrow2 read it: at most n packets (n the row's length
+    in the length table), each a control unit (a byte, or a big-endian
+    word whose low byte counts) whose low 7 bits count and whose high bit
+    copies that many units, else repeats the next one; 0 ends the row."""
+    dt = ">u2" if bpc == 2 else np.uint8
+    units = np.frombuffer(src, dt, (len(src) - pos) // bpc, pos)
+    out = np.zeros(w, np.int64)
+    x = i = 0
+    for k in range(n, 0, -1):
+        if i >= len(units):
+            raise ValueError("SGI: truncated RLE row")
+        ctrl = int(units[i]) & 0xFF
+        i += 1
+        if k == 1 and ctrl:
+            raise ValueError("SGI: an RLE row does not end")
+        count = ctrl & 0x7F
+        if not count:
+            break
+        if x + count > w:
+            raise ValueError("SGI: a run overruns its row")
+        if ctrl & 0x80:
+            if i + count > len(units):
+                raise ValueError("SGI: truncated RLE row")
+            out[x:x + count] = units[i:i + count]
+            i += count
+        else:
+            if i >= len(units):
+                raise ValueError("SGI: truncated RLE row")
+            out[x:x + count] = units[i]
+            i += 1
+        x += count
+    return out
+
+
+def decode_sgi(data: bytes) -> np.ndarray:
+    """An SGI file's samples, (H, W, Z) uint8 for Z 1, 3 or 4 channels
+    (see the module docstring)."""
+    if len(data) < 512 or struct.unpack_from(">h", data)[0] != 474:
+        raise ValueError("not an SGI file")
+    rle, bpc = data[2], data[3]
+    dim, w, h, z = struct.unpack_from(">4H", data, 4)
+    if (bpc, dim, z) not in _SGI_MODES:
+        raise ValueError(f"SGI with {bpc} bytes per sample, dimension {dim}, "
+                         f"{z} channels is not read")
+    if rle == 0:
+        dt = ">u2" if bpc == 2 else np.uint8
+        if len(data) < 512 + w * h * z * bpc:
+            raise ValueError("SGI: truncated data")
+        v = np.frombuffer(data, dt, w * h * z, 512).reshape(z, h, w)
+    elif rle == 1:
+        tabs = np.frombuffer(data, ">u4", 2 * h * z, 512).reshape(2, z, h)
+        v = np.stack([np.stack([
+            _sgi_rle_row(data, int(tabs[0, c, r]), int(tabs[1, c, r]), w, bpc)
+            for r in range(h)]) for c in range(z)])
+    else:
+        raise ValueError(f"SGI with compression {rle} is not read")
+    v = v.astype(np.int64) >> (8 * (bpc - 1))     # a word's high byte
+    return np.ascontiguousarray(v.astype(np.uint8).transpose(1, 2, 0)[::-1])
+
+
+# ---------------------------------------------------------------------------
+# IM (IFUNC Image Memory)
+# ---------------------------------------------------------------------------
+
+_IM_TAGS = ("Comment", "Date", "Digitalization equipment",
+            "File size (no of images)", "Lut", "Name", "Scale (x,y)",
+            "Image size (x*y)", "Image type")
+_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
+# image type -> channels, planar rows (0: one bit per sample)
+_IM_KINDS = {"0 1 image": 0, "L 1 image": 0, "B1 image": 0,
+             "Greyscale image": 1, "Grayscale image": 1, "LA image": 2,
+             "RGB image": 3, "RGBA image": 4}
+
+
+def is_im(data: bytes) -> bool:
+    """An IM header starts with one of its tags."""
+    return any(data.startswith(t.encode() + b":") for t in _IM_TAGS)
+
+
+def decode_im(data: bytes) -> np.ndarray:
+    """An IM file's first frame, (H, W, C) uint8 (see the module
+    docstring)."""
+    info, pos = {}, 0
+    while pos < len(data):
+        c = data[pos:pos + 1]
+        if c == b"\r":
+            pos += 1
+            continue
+        if c in (b"", b"\0", b"\x1a"):
+            break
+        end = data.find(b"\n", pos)
+        end = len(data) if end < 0 else end + 1
+        s = data[pos:end]
+        pos = end
+        if len(s) > 100:
+            raise ValueError("not an IM file")
+        s = s[:-2] if s.endswith(b"\r\n") else s.rstrip(b"\n")
+        m = _IM_LINE.match(s)
+        if not m:
+            raise ValueError(f"IM: syntax error in the header: {s!r}")
+        info[m.group(1).decode("latin-1")] = m.group(2).decode("latin-1")
+    if not any(t in info for t in _IM_TAGS):
+        raise ValueError("not an IM file")
+    kind = info.get("Image type", "Greyscale image")
+    if kind not in _IM_KINDS:
+        raise ValueError(f"IM images of type {kind!r} are not read")
+    w, h = (int(v) for v in info.get("Image size (x*y)", "512*512").split(
+        "*"))
+    start = data.find(b"\x1a", pos)
+    if start < 0:
+        raise ValueError("IM: truncated header")
+    pos = start + 1
+    palette = None
+    if "Lut" in info:
+        lut = np.frombuffer(data, np.uint8, 768, pos).reshape(3, 256).T
+        pos += 768
+        gray = (lut == lut[:, :1]).all()
+        if _IM_KINDS[kind] == 1 and not gray:
+            palette = lut
+    c = _IM_KINDS[kind]
+    if c == 0:
+        stride = (w + 7) // 8
+        if len(data) < pos + stride * h:
+            raise ValueError("IM: truncated data")
+        rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(h, -1)
+        bits = np.unpackbits(rows, axis=1)[::-1, :w]
+        return np.ascontiguousarray(bits * np.uint8(255))[..., None]
+    if len(data) < pos + w * h * c:
+        raise ValueError("IM: truncated data")
+    rows = np.frombuffer(data, np.uint8, w * h * c, pos).reshape(h, c, w)
+    px = np.ascontiguousarray(rows.transpose(0, 2, 1)[::-1])
+    return palette[px[..., 0]] if palette is not None else px
+
+
+# ---------------------------------------------------------------------------
+# DDS
+# ---------------------------------------------------------------------------
+
+_DDPF_ALPHA, _DDPF_FOURCC, _DDPF_PALETTE = 0x1, 0x4, 0x20
+_DDPF_RGB, _DDPF_LUMINANCE = 0x40, 0x20000
+_DXGI_RGBA8 = (27, 28, 29)
+_BLOCK_FOURCCS = ("DXT1", "DXT2", "DXT3", "DXT4", "DXT5", "ATI1", "ATI2",
+                  "BC4U", "BC4S", "BC5U", "BC5S")
+_DXGI_BLOCKS = {70: "BC1", 71: "BC1", 72: "BC2", 73: "BC2", 76: "BC3",
+               77: "BC3", 79: "BC4", 80: "BC4", 82: "BC5", 83: "BC5",
+               84: "BC5 signed", 95: "BC6H", 96: "BC6H signed", 97: "BC7",
+               98: "BC7", 99: "BC7 sRGB"}
+
+
+def _mask_channel(v: np.ndarray, mask: int) -> np.ndarray:
+    """A channel of packed pixels v by its bit mask, scaled to 8 bits as
+    PIL's DdsRgbDecoder scales it: int(value / mask_max * 255)."""
+    if not mask:
+        return np.zeros(v.shape, np.uint8)
+    shift = (mask & -mask).bit_length() - 1
+    top = mask >> shift
+    x = (v & mask) >> shift
+    return np.floor(x / top * 255).astype(np.uint8)
+
+
+def decode_dds(data: bytes) -> np.ndarray:
+    """An uncompressed DDS file's samples, (H, W, C) uint8 (see the module
+    docstring); a block-compressed one raises ValueError naming its
+    format."""
+    if data[:4] != b"DDS ":
+        raise ValueError("not a DDS file")
+    (size,) = struct.unpack_from("<I", data, 4)
+    if size != 124 or len(data) < 128:
+        raise ValueError(f"DDS: header size {size} is not read")
+    h, w = struct.unpack_from("<2I", data, 12)
+    pf_flags, fourcc, bitcount = struct.unpack_from("<3I", data, 80)
+    masks = struct.unpack_from("<4I", data, 92)
+    pos = 128
+    if pf_flags & _DDPF_RGB:
+        n = 4 if pf_flags & _DDPF_ALPHA else 3
+        step = bitcount // 8
+        if step < 1 or len(data) < pos + w * h * step:
+            raise ValueError("DDS: truncated data")
+        b = np.frombuffer(data, np.uint8, w * h * step, pos).reshape(
+            -1, step).astype(np.int64)
+        v = (b << (8 * np.arange(step))).sum(1)
+        px = np.stack([_mask_channel(v, m) for m in masks[:n]], -1)
+        return px.reshape(h, w, n)
+    if pf_flags & _DDPF_LUMINANCE:
+        if bitcount == 8:
+            c = 1
+        elif bitcount == 16 and pf_flags & _DDPF_ALPHA:
+            c = 2
+        else:
+            raise ValueError(f"DDS: {bitcount}-bit luminance is not read")
+    elif pf_flags & _DDPF_FOURCC:
+        name = struct.pack("<I", fourcc).decode("latin-1")
+        if name in _BLOCK_FOURCCS:
+            raise ValueError(f"block-compressed DDS ({name}) images are not "
+                             "read")
+        if name != "DX10":
+            raise ValueError(f"DDS of pixel format {name!r} is not read")
+        (dxgi,) = struct.unpack_from("<I", data, 128)
+        if dxgi in _DXGI_BLOCKS:
+            raise ValueError(f"block-compressed DDS ({_DXGI_BLOCKS[dxgi]}) "
+                             "images are not read")
+        if dxgi not in _DXGI_RGBA8:
+            raise ValueError(f"DDS of DXGI format {dxgi} is not read")
+        c, pos = 4, 148
+    elif pf_flags & _DDPF_PALETTE:
+        raise ValueError("palette-indexed DDS images are not read")
+    else:
+        raise ValueError(f"DDS: pixel format flags {pf_flags:#x} are not read")
+    if len(data) < pos + w * h * c:
+        raise ValueError("DDS: truncated data")
+    px = np.frombuffer(data, np.uint8, w * h * c, pos)
+    return px.reshape(h, w, c).copy()

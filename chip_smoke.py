@@ -298,6 +298,17 @@ Phases (any failure raises, and the script exits non-zero):
      8-bit and a 16-bit LZW TIFF, a GIF, a QOI and a binary PPM at
      2048x1024 (and a 4:2:0 JPEG), each equal to its written samples, and
      the parse and render seconds and peak device memory.
+ 33. image writers (utils/image_write.py, the PCX, SGI, IM and DDS readers
+     of utils/image_read.py): phase 32's map frame (1280x720, rendered
+     on the card; it launches no kernel here) through the port's
+     `imgtool convert --tonemap` to each of WRITER_EXTS and `imgtool
+     falsecolor` to .png and .jpg, each file read back through
+     read_image and imgtool's loader: the lossless ones equal the frame's
+     tonemapped 8-bit samples (max |diff| 0), the JPEGs' decodes reach
+     WRITER_MIN_PSNR against them (the falsecolor one against its PNG);
+     and the files of the committed ground fixture's first 128x96
+     pixels hash as PIL's do (images.json; this machine has no PIL).
+     Each file's bytes and seconds (the CLI call and the encode alone).
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -316,7 +327,9 @@ launches in phase 29's full-size legs; `item1_launches`, in phase 30's
 legs; `sharding_world1_launches` and `sharding_rank_launches`, each rank's
 (regen, wave, gradient) launches in phase 31; `image_formats_launches`,
 the march launches of phase 32's three CLI frames, and its captured
-call's `image_formats_max_abs_err`) and the result JSON.
+call's `image_formats_max_abs_err`; `image_writers_max_abs_err`, phase
+33's largest read-back |diff| of a lossless file, no kernel's) and the
+result JSON.
 """
 import json
 import os
@@ -3817,6 +3830,18 @@ IMAGE_CAPTURE_CALL = 20            # the map frame's march call held to plain
 IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests/data/images"
 IMAGE_GROUND = "ground_1024x512_q90.webp"
 IMAGE_SKY_WEBP = "sky_2048x1024_q90.webp"
+IMAGE_MAP_FRAME = "map_frame.exr"     # phase 32's map frame, for phase 33
+# phase 33: imgtool convert --tonemap writes the map frame to each of these
+# (PNG and JPEG, then the lossless formats write_png writes byte for byte)
+WRITER_EXTS = (".png", ".jpg", ".bmp", ".tga", ".tif", ".ppm", ".pcx",
+               ".sgi", ".im", ".dds", ".qoi")
+# dB, the JPEGs' decodes against their pixels: a floor against a broken
+# encode or decode, the files' bytes being held to PIL's by the fixture
+# hashes.  What a JPEG at PIL's quality 75 keeps depends on the frame's
+# noise: the spp-1 map frame rendered on an NVIDIA H100 80GB HBM3 at 700 W
+# comes out at 28.04 dB, its falsecolor at 47.74, and PIL's files of both
+# are the port's byte for byte (scripts/compare_frame_writers.py)
+WRITER_MIN_PSNR = 25.0
 
 
 def image_formats_file_text(width, height, medium, sky=None, ground=None):
@@ -4012,6 +4037,7 @@ def phase_image_formats(dev, keep, card):
     compare_frames("image formats (c) 32x24 gpu vs cpu", *imgs,
                    mean_tol=SURF_MEAN_TOL)
     del sc, small
+    shutil.copy(work / "maps.exr", Path(keep) / IMAGE_MAP_FRAME)
     tmp.cleanup()
     print(f"image formats (d): host CPU {tid.cpu_line()}; {card}",
           flush=True)
@@ -4028,6 +4054,119 @@ def phase_image_formats(dev, keep, card):
     if bad:
         raise AssertionError(f"image formats (d): wrong decodes {bad}")
     return launches, err
+
+
+def psnr(a, b):
+    """PSNR in dB of two uint8 images."""
+    err = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if err == 0 else float(10 * np.log10(255.0 ** 2 / err))
+
+
+def _srgb_to_linear(u8):
+    """read_image's linear values of uint8 sRGB samples."""
+    x = u8.astype(np.float32) / 255.0
+    return np.where(x <= 0.04045, x / 12.92,
+                    ((x + 0.055) / 1.055) ** 2.4).astype(np.float32)
+
+
+def phase_image_writers(keep, card):
+    """Phase 33 (see the module docstring); keep holds phase 32's map
+    frame.  Returns the largest |diff| of a lossless file's samples."""
+    import contextlib
+    import hashlib
+    import io
+
+    from acceleratedvolrenderer_tpu_torch.cli import imgtool
+    from acceleratedvolrenderer_tpu_torch.utils import image, image_write, webp
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import time_image_decode as tid
+
+    src = str(Path(keep) / IMAGE_MAP_FRAME)
+    frame = image.read_exr(src)[0][:, :, :3]
+    want = image.to_8bit(frame)
+    H, W = want.shape[:2]
+    print(f"image writers: host CPU {tid.cpu_line()}; {card}", flush=True)
+    work = Path(tempfile.mkdtemp())
+    err = 0
+    try:
+        for ext in WRITER_EXTS:
+            out = work / f"frame{ext}"
+            t = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = imgtool.main(["convert", "--tonemap", src, str(out)])
+            cli = time.time() - t
+            if rc != 0:
+                raise AssertionError(f"image writers: imgtool convert to "
+                                     f"{ext}: exit code {rc}")
+            t = time.time()
+            data = image_write.encode(str(out), want)
+            enc = time.time() - t
+            if data != out.read_bytes():
+                raise AssertionError(f"image writers: {ext}: imgtool's file "
+                                     "is not write_png's encoding")
+            px = image._decode_image(str(out), data)
+            # read_image linearises the samples; imgtool's loader keeps
+            # them, but reads a .qoi through read_qoi and linearises it, as
+            # the reference does
+            loaded = imgtool._load(str(out))[0]
+            ok = np.array_equal(image.read_image(str(out))[0],
+                                _srgb_to_linear(px)) and np.array_equal(
+                loaded, _srgb_to_linear(px) if ext == ".qoi"
+                else px.astype(np.float32) / 255)
+            if ext == ".jpg":
+                db = psnr(px, want)
+                ok &= db >= WRITER_MIN_PSNR
+                what = f"PSNR {db:.2f} dB (at least {WRITER_MIN_PSNR})"
+            else:
+                d = int(np.abs(px.astype(int) - want.astype(int)).max())
+                err = max(err, d)
+                ok &= d == 0
+                what = f"max |diff| {d}"
+            print(f"image writers: {ext} {W}x{H}: {len(data)} bytes, imgtool "
+                  f"convert {cli:.3f} s (encode {enc:.3f} s), read back "
+                  f"{what}{'' if ok else ' WRONG'}", flush=True)
+            if not ok:
+                raise AssertionError(f"image writers: {ext} read back wrong")
+        fc = {}
+        for ext in (".png", ".jpg"):
+            out = work / f"falsecolor{ext}"
+            t = time.time()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = imgtool.main(["falsecolor", src, str(out)])
+            if rc != 0:
+                raise AssertionError(f"image writers: imgtool falsecolor to "
+                                     f"{ext}: exit code {rc}")
+            fc[ext] = (image._decode_image(str(out), out.read_bytes()),
+                       time.time() - t, out.stat().st_size)
+        db = psnr(fc[".jpg"][0], fc[".png"][0])
+        print(f"image writers: falsecolor .jpg {fc['.jpg'][2]} bytes in "
+              f"{fc['.jpg'][1]:.3f} s, PSNR {db:.2f} dB against its .png",
+              flush=True)
+        if db < WRITER_MIN_PSNR:
+            raise AssertionError("image writers: the falsecolor JPEG's PSNR "
+                                 f"{db:.2f} dB")
+        record = json.loads((IMAGE_FIXTURES / "images.json").read_text())[
+            IMAGE_GROUND]
+        cw, ch = record["written_crop"]
+        crop = webp.decode_webp((IMAGE_FIXTURES / IMAGE_GROUND).read_bytes())[
+            :ch, :cw]
+        bad = []
+        for ext, digest in sorted(record["sha256_of_pil_files"].items()):
+            got = hashlib.sha256(image_write.encode(
+                f"fixture{ext}", crop)).hexdigest()
+            if got != digest:
+                bad.append(ext)
+        print(f"image writers: the ground fixture's {cw}x{ch} files "
+              f"({', '.join(sorted(record['sha256_of_pil_files']))}): "
+              f"{'all at' if not bad else 'NOT all at'} PIL's hashes",
+              flush=True)
+        if bad:
+            raise AssertionError(f"image writers: {bad} differ from PIL's "
+                                 "files")
+    finally:
+        shutil.rmtree(work)
+    return err
 
 
 def timed(name, fn, *args):
@@ -4106,6 +4245,8 @@ def main():
     (march_rec["image_formats_launches"],
      march_rec["image_formats_max_abs_err"]) = timed(
         "image formats", phase_image_formats, dev, keep.name, card)
+    march_rec["image_writers_max_abs_err"] = timed(
+        "image writers", phase_image_writers, keep.name, card)
     keep.cleanup()
 
     src = "acceleratedvolrenderer_tpu_torch/csrc/"

@@ -9,7 +9,11 @@ and holds the port's decode to the hashes).
     (time_image_decode.sky), quality 90: an environment map's size, timed
     by chip_smoke.py phase 32 (d) and scripts/time_image_decode.py;
   - ground_1024x512_q90.webp: a 1024x512 ground texture (tiles, grout and
-    noise), quality 90: the imagemap of phase 32's ground quad.
+    noise), quality 90: the imagemap of phase 32's ground quad.  Its
+    record also holds the SHA-256 of the files PIL writes of its first
+    128x96 decoded pixels, one per format the port writes byte for byte
+    (`sha256_of_pil_files`, named fixture.<ext>): chip_smoke.py phase 33
+    holds the port's files to them.
 
 Rerunning it rewrites both files; the CPU test
 tests/test_torch_image_formats_webp.py::test_committed_fixtures_hashes
@@ -19,6 +23,7 @@ import hashlib
 import io
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +55,23 @@ def decoded_hash(path):
     return hashlib.sha256(a.tobytes()).hexdigest(), list(a.shape)
 
 
+# the formats whose files phase 33 holds to PIL's, and the crop
+WRITTEN_EXTS = (".bmp", ".dds", ".im", ".jpg", ".pcx", ".ppm", ".qoi",
+                ".sgi", ".tga", ".tif")
+WRITTEN_CROP = (128, 96)
+
+
+def written_hashes(px, tmp):
+    """SHA-256 of PIL's file of px for each of WRITTEN_EXTS, written as
+    tmp/fixture.<ext> (SGI and IM files hold their name)."""
+    out = {}
+    for ext in WRITTEN_EXTS:
+        path = Path(tmp) / f"fixture{ext}"
+        Image.fromarray(px).save(path)
+        out[ext] = hashlib.sha256(path.read_bytes()).hexdigest()
+    return out
+
+
 def main():
     OUT.mkdir(parents=True, exist_ok=True)
     files = {"sky_2048x1024_q90.webp": tid.sky(2048, 1024, 255),
@@ -64,6 +86,13 @@ def main():
                         "bytes": len(buf.getvalue())}
         print(f"{name}: {len(buf.getvalue())} bytes, PIL samples {shape} "
               f"sha256 {digest}")
+        if name.startswith("ground"):
+            w, h = WRITTEN_CROP
+            crop = np.asarray(Image.open(OUT / name))[:h, :w]
+            with tempfile.TemporaryDirectory() as tmp:
+                record[name].update(
+                    written_crop=list(WRITTEN_CROP),
+                    sha256_of_pil_files=written_hashes(crop, tmp))
     (OUT / "images.json").write_text(json.dumps(record, indent=1) + "\n")
 
 

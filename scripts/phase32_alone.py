@@ -1,12 +1,16 @@
-"""chip_smoke.py's phase 32 (image formats) alone on the CUDA card, with the
-phases it needs: 8 (the 1280x720 cloud over the 256^3 grid), 14 (its wave
+"""chip_smoke.py's phases 32 (image formats) and 33 (image writers, which
+converts phase 32's map frame) alone on the CUDA card, with the phases
+they need: 8 (the 1280x720 cloud over the 256^3 grid), 14 (its wave
 frame) and 28 (the grid through a .nvdb and nanovdb2pbrt into the block
 phase 32 Includes).
 
-    python3 scripts/phase32_alone.py
+    python3 scripts/phase32_alone.py [--frame-out PATH]
 
-Needs one CUDA card; it builds the kernels (nvcc).
+--frame-out copies phase 32's map frame (the EXR phase 33 converts) to
+PATH.  Needs one CUDA card; it builds the kernels (nvcc).
 """
+import argparse
+import shutil
 import sys
 import tempfile
 from pathlib import Path
@@ -22,6 +26,10 @@ import chip_smoke as cs  # noqa: E402
 def main():
     from acceleratedvolrenderer_tpu_torch import kernels
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frame-out")
+    args = ap.parse_args()
+
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     print(card, flush=True)
@@ -34,6 +42,10 @@ def main():
                  card, keep)
         print(cs.timed("image formats", cs.phase_image_formats, dev, keep,
                        card))
+        if args.frame_out:
+            Path(args.frame_out).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copy(Path(keep) / cs.IMAGE_MAP_FRAME, args.frame_out)
+        print(cs.timed("image writers", cs.phase_image_writers, keep, card))
     return 0
 
 

@@ -18,9 +18,11 @@ the reference returns something else (a gray + alpha TGA gives it two
 channels, a palette BMP its indices), the port expands as pbrt does and
 is held to PIL's RGB conversion.  The formats this file once held as
 unread (arithmetic-coded, lossless and CMYK JPEG, GIF, TIFF, WebP,
-colour-mapped TGA, RLE and 16-bit BMP) are read now and held to the same
-rule; every format left unread raises, naming itself.  The new readers' own tests are in
-tests/test_torch_image_formats_{tiff,webp,more,scene}.py.
+colour-mapped TGA, RLE and 16-bit BMP; then PCX, SGI, IM and
+uncompressed DDS) are read now and held to the same rule; every format
+left unread raises, naming itself (a block-compressed DDS too).  The new
+readers' own tests are in
+tests/test_torch_image_formats_{tiff,webp,more,scene,readback}.py.
 """
 import io
 import struct
@@ -227,19 +229,17 @@ UNREAD = {
     "jpeg2000_codestream": (".j2k", lambda: _other("JPEG2000",
                                                    no_jp2=True),
                             "JPEG 2000 codestream"),
-    "dds": (".dds", lambda: _other("DDS"), "DDS"),
+    "dds_dxt1": (".dds", lambda: _other("DDS", pixel_format="DXT1"),
+                 r"block-compressed DDS \(DXT1\)"),
     "psd": (".psd", lambda: b"8BPS\0\1" + b"\0" * 40, "PSD"),
-    "pcx": (".pcx", lambda: _other("PCX"), "PCX"),
-    "sgi": (".sgi", lambda: _other("SGI"), "SGI"),
     "ico": (".ico", lambda: _other("ICO"), "ICO"),
-    "im": (".im", lambda: _other("IM"), "IM"),
     "pam": (".pam", lambda: b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 3\nMAXVAL 255\n"
             b"ENDHDR\n" + bytes(6), "PAM"),
     "pfm": (".pfm", lambda: b"PF\n2 1\n-1.0\n" + bytes(24), "PFM"),
     "bigtiff": (".tif", lambda: b"II+\0\x08\0\0\0" + bytes(16), "BigTIFF"),
     "unknown": (".xyz", lambda: b"\x00\x01\x02\x03" * 8,
-                "not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm "
-                "or TGA image"),
+                "not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm, "
+                "PCX, SGI, IM, DDS or TGA image"),
 }
 
 
@@ -276,6 +276,10 @@ NOW_READ = {
     "rle_bmp": (".bmp", _rle8_bmp, "convert"),
     "16bit_bmp": (".bmp", lambda: _bmp(_scene(8, 4))[:28] + struct.pack(
         "<H", 16) + _bmp(_scene(8, 4))[30:], "reference"),
+    "dds": (".dds", lambda: _other("DDS"), "reference"),
+    "pcx": (".pcx", lambda: _other("PCX"), "reference"),
+    "sgi": (".sgi", lambda: _other("SGI"), "reference"),
+    "im": (".im", lambda: _other("IM"), "reference"),
 }
 
 

@@ -2,7 +2,7 @@
 cannot write them: JPEG of any sampling, colour space and markers,
 arithmetic-coded (libjpeg's QM coder, jcarith.c) and lossless (SOF3)
 JPEG; TIFF of every compression, predictor, layout and byte order; RLE
-BMP.  Built on scripts/time_image_decode.py's writers, whose procedural
+BMP; RLE and 16-bit SGI; 1-bit PCX.  Built on scripts/time_image_decode.py's writers, whose procedural
 images and GIF, QOI, netpbm and LZW writers are imported here too, so
 that the tests take their files from this one module.
 """
@@ -562,6 +562,87 @@ def rle4(idx):
             i += k
         out += b"\0\0"
     return bytes(out + b"\0\1")
+
+
+# ---------------------------------------------------------------- SGI, PCX
+
+
+def sgi_file(px, rle=False, bpc=1, name=b""):
+    """An SGI file of samples px (H, W) or (H, W, Z), Z 1, 3 or 4, uint8 or
+    (bpc 2) uint16: verbatim, or RLE with each row's runs of 3+ equal
+    samples repeated and the rest copied (packets of at most 127), rows
+    bottom-up, channel by channel."""
+    a = np.asarray(px)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, z = a.shape
+    dim = 3 if z > 1 else (1 if h == 1 else 2)
+    dt = np.dtype(">u2") if bpc == 2 else np.dtype(np.uint8)
+    head = (struct.pack(">hBBHHHHll", 474, int(rle), bpc, dim, w, h, z, 0,
+                        65535 if bpc == 2 else 255) + b"\0" * 4
+            + name[:79].ljust(80, b"\0") + struct.pack(">l", 0)
+            + b"\0" * 404)
+    chans = a[::-1].transpose(2, 0, 1).astype(dt)
+    if not rle:
+        return head + chans.tobytes()
+    rows, starts, lengths = [], [], []
+    pos = 512 + 8 * h * z
+    for c in range(z):
+        for r in range(h):
+            row = chans[c, r]
+            out = []
+            i = 0
+            while i < w:
+                j = i + 1
+                while j < w and j - i < 127 and row[j] == row[i]:
+                    j += 1
+                if j - i >= 3:
+                    out.append(np.array([j - i, row[i]], dt))
+                    i = j
+                    continue
+                j = i
+                while j < w and j - i < 127 and not (
+                        j + 2 < w and row[j] == row[j + 1] == row[j + 2]):
+                    j += 1
+                out.append(np.concatenate([np.array([0x80 | (j - i)], dt),
+                                           row[i:j]]))
+                i = j
+            out.append(np.array([0], dt))
+            body = np.concatenate(out).astype(dt).tobytes()
+            starts.append(pos)
+            lengths.append(len(body))
+            rows.append(body)
+            pos += len(body)
+    tabs = np.array(starts, ">u4").tobytes() + np.array(lengths,
+                                                        ">u4").tobytes()
+    return head + tabs + b"".join(rows)
+
+
+def pcx_1bit(bits):
+    """A 1-bit, one-plane PCX (version 5) of bits (H, W) in {0, 1}, rows of
+    an even stride run-length coded as PIL codes them."""
+    h, w = bits.shape
+    stride = (w + 7) // 8
+    stride += stride % 2
+    rows = np.zeros((h, stride * 8), np.uint8)
+    rows[:, :w] = bits
+    packed = np.packbits(rows, axis=1)
+    body = bytearray()
+    for row in packed:
+        i = 0
+        while i < len(row):
+            j = i + 1
+            while j < len(row) and j - i < 63 and row[j] == row[i]:
+                j += 1
+            if j - i == 1 and row[i] < 0xC0:
+                body.append(int(row[i]))
+            else:
+                body += bytes([0xC0 | (j - i), int(row[i])])
+            i = j
+    head = (struct.pack("<BBBBHHHHHH", 10, 5, 1, 1, 0, 0, w - 1, h - 1, 100,
+                        100) + b"\0" * 24 + b"\xff" * 24
+            + struct.pack("<BBHHHH", 0, 1, stride, 1, w, h) + b"\0" * 54)
+    return head + bytes(body)
 
 
 # ---------------------------------------------------------------- PIL's
