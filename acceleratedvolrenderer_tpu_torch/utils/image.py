@@ -1662,16 +1662,16 @@ def decode_qoi(data: bytes, index_start: int = 0) -> np.ndarray:
 # formats read_image names but does not read (their magic bytes)
 _UNREAD_MAGIC = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
                  (b"\xff\x4f\xff\x51", "JPEG 2000 codestream"),
-                 (b"8BPS", "PSD"), (b"\0\0\x01\0", "ICO"),
-                 (b"\0\0\x02\0", "CUR"), (b"PF", "PFM"), (b"Pf", "PFM"))
+                 (b"PF", "PFM"), (b"Pf", "PFM"))
 _NETPBM_EXT = (".pbm", ".pgm", ".ppm", ".pnm")
 
 
 def _decode_image(path: str, data: bytes) -> np.ndarray:
-    """Samples (H, W, C) of a PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm,
-    PCX, SGI, IM, uncompressed DDS or (by its extension) TGA file: uint8
-    colours, uint16 for 16-bit samples, float32 for a float TIFF; raises
-    ValueError naming any other format (a block-compressed DDS too)."""
+    """Samples (H, W, C) of a PNG, JPEG, BMP, TIFF (also BigTIFF), WebP,
+    GIF, QOI, netpbm, PCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7),
+    PSD, ICO, CUR or (by its extension) TGA file: uint8 colours, uint16 for
+    16-bit samples, float32 for a float TIFF; raises ValueError naming any
+    other format."""
     from . import image_read
 
     ext = path.lower()
@@ -1706,22 +1706,30 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         return image_read.decode_dds(data)
     if image_read.is_im(data):
         return image_read.decode_im(data)
+    if data[:4] == b"8BPS":
+        return image_read.decode_psd(data)
+    if data[:4] == b"\0\0\1\0":
+        return image_read.decode_ico(data)
+    if data[:4] == b"\0\0\2\0":
+        return image_read.decode_cur(data)
     for magic, name in _UNREAD_MAGIC:
         if data.startswith(magic):
             raise ValueError(f"{path}: {name} images are not read")
     raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, "
-                     "QOI, netpbm, PCX, SGI, IM, DDS or TGA image")
+                     "QOI, netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR or TGA "
+                     "image")
 
 
 def read_image(path: str):
     """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
-    reader above; PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm, PCX, SGI,
-    IM, uncompressed DDS and TGA decoded here (by their magic bytes, TGA
-    by its extension), their
-    colours (palettes expanded, gray repeated, alpha dropped) over 255 or
-    65535, sRGB -> linear (Image::Read's LinearColorEncoding handling,
-    util/image.cpp); a float TIFF is linear already and kept as stored, as
-    EXR and PFM are.  Other formats raise, naming the format."""
+    reader above; PNG, JPEG, BMP, TIFF (also BigTIFF), WebP, GIF, QOI,
+    netpbm, PCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7), PSD,
+    ICO, CUR and TGA decoded here (by their magic bytes, TGA by its
+    extension), their colours (palettes expanded, gray repeated, alpha
+    dropped) over 255 or 65535, sRGB -> linear (Image::Read's
+    LinearColorEncoding handling, util/image.cpp); a float TIFF is linear
+    already and kept as stored, as EXR and PFM are.  Other formats raise,
+    naming the format."""
     if path.endswith(".exr"):
         img, _names, attrs = read_exr(path)
         return np.asarray(img[:, :, :3], np.float32), attrs

@@ -1,22 +1,31 @@
-"""Decoders of the formats utils/image_write.py writes that utils/image.py's
-other readers do not cover: PCX, SGI, IM and uncompressed DDS, numpy only.
-Each gives the samples PIL 12.1.0 gives for the file (the reference reads
-images through PIL), as colours where PIL gives palette indices; the
-dispatch by magic bytes is image.py::_decode_image's.
+"""Decoders of the formats utils/image.py's other readers do not cover:
+PCX, SGI, IM, DDS, PSD, ICO and CUR, numpy only.  Each gives the samples
+PIL 12.1.0 gives for the file (the reference reads images through PIL),
+as colours where PIL gives palette indices; the dispatch by magic bytes
+is image.py::_decode_image's.
 
-  - PCX: 1-bit (0 / 255), 8-bit gray or palette (the 256-entry VGA palette
-    at the end, as PIL takes it: a linear gray one keeps the samples as
-    stored) and 24-bit in three planes, run-length coded (PcxDecode.c,
-    whose band shuffle for strides that do not divide the row is kept);
+  - PCX: 1-bit (0 / 255), 1-bit in 2 or 4 planes (PIL's P;2L / P;4L
+    through the header's 16-colour palette), 8-bit gray or palette (the
+    256-entry VGA palette at the end, as PIL takes it: a linear gray one
+    keeps the samples as stored) and 24-bit in three planes, run-length
+    coded (PcxDecode.c, whose band shuffle for strides that do not divide
+    the row is kept);
   - SGI: verbatim and RLE, 8- and 16-bit (PIL keeps a 16-bit sample's high
     byte), 1, 3 or 4 channels, rows bottom-up;
   - IM: PIL's text header; 1-bit (0 / 255), L, LA, RGB, RGBA (planar
     rows, bottom-up) and L with a colour lookup table (PIL's P: expanded
     to colours; a gray table keeps the samples, as PIL ignores it);
   - DDS: uncompressed, read by its bit masks (RGB, RGBA, BGR(A), any
-    widths), luminance (8-bit), luminance with alpha (16-bit), and a DX10
-    header naming R8G8B8A8.  Block-compressed files (DXT1-5, BC4-BC7)
-    raise, naming their format.
+    widths), luminance (8-bit), luminance with alpha (16-bit), a DX10
+    header naming R8G8B8A8, 8-bit palette (RGBA colours) and the block
+    formats PIL decodes (DXT1, DXT3, DXT5, BC4, BC5 and signed BC5 by
+    FourCC; BC1-BC5, BC6H and BC7 by DX10 header) through utils/bcn.py.
+    Others (DXT2, DXT4, BC4S, sRGB BC1-BC3, BC4 SNORM) raise, naming
+    their format;
+  - PSD: the merged image of 8-bit files (and 1-bit bitmaps), raw or
+    PackBits, whatever their layers;
+  - ICO: the entry PIL loads, PNG or bitmap (the AND mask or the 32-bit
+    pixels' fourth byte as alpha); CUR: the entry PIL loads, its bitmap.
 """
 from __future__ import annotations
 
@@ -69,6 +78,9 @@ def decode_pcx(data: bytes) -> np.ndarray:
     palette = None
     if bits == 1 and planes == 1:
         kind = "1"
+    elif bits == 1 and planes in (2, 4):
+        kind = "planes"                 # PIL's P;2L / P;4L, 16 colours
+        palette = np.frombuffer(data, np.uint8, 48, 16).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         kind = "L"
         tail = data[-769:]
@@ -94,7 +106,9 @@ def decode_pcx(data: bytes) -> np.ndarray:
     if ((count > 1) & ((ends - count) // line != (ends - 1) // line)).any():
         raise ValueError("PCX: a run crosses the end of a row")
     rows = np.repeat(value, count)[:h * line].reshape(h, line)
-    if line % w and line > w:                   # PcxDecode.c's band move
+    # PcxDecode.c's band move (the planes of a P;2L / P;4L row move
+    # together, as the planes case below reads them)
+    if line % w and line > w and kind != "planes":
         bands = line // w
         step = line // bands
         for i in range(1, bands):
@@ -105,6 +119,12 @@ def decode_pcx(data: bytes) -> np.ndarray:
     if kind == "RGB":
         return np.ascontiguousarray(
             rows[:, :3 * w].reshape(h, 3, w).transpose(0, 2, 1))
+    if kind == "planes":
+        # PcxDecode.c moves each plane's first (w + 7) // 8 bytes together
+        # and Unpack.c's P;2L / P;4L read them: plane p, bit p
+        idx = sum(np.unpackbits(rows[:, p * stride:(p + 1) * stride],
+                                axis=1)[:, :w] << p for p in range(planes))
+        return palette[idx]
     idx = rows[:, :w]
     return palette[idx] if palette is not None else idx[..., None]
 
@@ -261,12 +281,16 @@ def decode_im(data: bytes) -> np.ndarray:
 _DDPF_ALPHA, _DDPF_FOURCC, _DDPF_PALETTE = 0x1, 0x4, 0x20
 _DDPF_RGB, _DDPF_LUMINANCE = 0x40, 0x20000
 _DXGI_RGBA8 = (27, 28, 29)
-_BLOCK_FOURCCS = ("DXT1", "DXT2", "DXT3", "DXT4", "DXT5", "ATI1", "ATI2",
-                  "BC4U", "BC4S", "BC5U", "BC5S")
-_DXGI_BLOCKS = {70: "BC1", 71: "BC1", 72: "BC2", 73: "BC2", 76: "BC3",
-               77: "BC3", 79: "BC4", 80: "BC4", 82: "BC5", 83: "BC5",
-               84: "BC5 signed", 95: "BC6H", 96: "BC6H signed", 97: "BC7",
-               98: "BC7", 99: "BC7 sRGB"}
+# the FourCCs and DXGI formats PIL decodes as blocks (utils/bcn.py's kinds)
+_BLOCK_FOURCCS = {"DXT1": "BC1", "DXT3": "BC2", "DXT5": "BC3", "BC4U": "BC4",
+                  "ATI1": "BC4", "BC5U": "BC5", "ATI2": "BC5", "BC5S": "BC5S"}
+_DXGI_BLOCKS = {70: "BC1", 71: "BC1", 73: "BC2", 74: "BC2", 76: "BC3",
+                77: "BC3", 79: "BC4", 80: "BC4", 82: "BC5", 83: "BC5",
+                84: "BC5S", 95: "BC6H", 96: "BC6HS", 97: "BC7", 98: "BC7",
+                99: "BC7"}
+# block formats PIL does not decode, named in the error
+_DXGI_UNREAD = {72: "BC1_UNORM_SRGB", 75: "BC2_UNORM_SRGB",
+                78: "BC3_UNORM_SRGB", 81: "BC4_SNORM", 94: "BC6H_TYPELESS"}
 
 
 def _mask_channel(v: np.ndarray, mask: int) -> np.ndarray:
@@ -281,9 +305,10 @@ def _mask_channel(v: np.ndarray, mask: int) -> np.ndarray:
 
 
 def decode_dds(data: bytes) -> np.ndarray:
-    """An uncompressed DDS file's samples, (H, W, C) uint8 (see the module
-    docstring); a block-compressed one raises ValueError naming its
-    format."""
+    """A DDS file's first surface, (H, W, C) uint8 (see the module
+    docstring); other pixel formats raise ValueError naming the format."""
+    from . import bcn
+
     if data[:4] != b"DDS ":
         raise ValueError("not a DDS file")
     (size,) = struct.unpack_from("<I", data, 4)
@@ -310,25 +335,198 @@ def decode_dds(data: bytes) -> np.ndarray:
             c = 2
         else:
             raise ValueError(f"DDS: {bitcount}-bit luminance is not read")
+    elif pf_flags & _DDPF_PALETTE:
+        if len(data) < pos + 1024 + w * h:
+            raise ValueError("DDS: truncated data")
+        pal = np.frombuffer(data, np.uint8, 1024, pos).reshape(256, 4)
+        idx = np.frombuffer(data, np.uint8, w * h, pos + 1024)
+        return pal[idx].reshape(h, w, 4)
     elif pf_flags & _DDPF_FOURCC:
         name = struct.pack("<I", fourcc).decode("latin-1")
         if name in _BLOCK_FOURCCS:
-            raise ValueError(f"block-compressed DDS ({name}) images are not "
-                             "read")
+            return bcn.decode(data, pos, w, h, _BLOCK_FOURCCS[name])
         if name != "DX10":
             raise ValueError(f"DDS of pixel format {name!r} is not read")
         (dxgi,) = struct.unpack_from("<I", data, 128)
         if dxgi in _DXGI_BLOCKS:
-            raise ValueError(f"block-compressed DDS ({_DXGI_BLOCKS[dxgi]}) "
-                             "images are not read")
+            return bcn.decode(data, 148, w, h, _DXGI_BLOCKS[dxgi])
         if dxgi not in _DXGI_RGBA8:
-            raise ValueError(f"DDS of DXGI format {dxgi} is not read")
+            name = _DXGI_UNREAD.get(dxgi, str(dxgi))
+            raise ValueError(f"DDS of DXGI format {name} is not read")
         c, pos = 4, 148
-    elif pf_flags & _DDPF_PALETTE:
-        raise ValueError("palette-indexed DDS images are not read")
     else:
         raise ValueError(f"DDS: pixel format flags {pf_flags:#x} are not read")
     if len(data) < pos + w * h * c:
         raise ValueError("DDS: truncated data")
     px = np.frombuffer(data, np.uint8, w * h * c, pos)
     return px.reshape(h, w, c).copy()
+
+
+# ---------------------------------------------------------------------------
+# PSD
+# ---------------------------------------------------------------------------
+
+# (colour mode, bits) -> PIL's mode and the channels it reads
+_PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1),
+              (2, 8): ("P", 1), (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4),
+              (7, 8): ("L", 1), (8, 8): ("L", 1)}
+_PSD_NAMES = {0: "bitmap", 1: "grayscale", 2: "indexed", 3: "RGB",
+              4: "CMYK", 7: "multichannel", 8: "duotone", 9: "LAB"}
+
+
+def decode_psd(data: bytes) -> np.ndarray:
+    """A PSD file's merged image, as PIL reads it: 8-bit gray (also
+    multichannel and duotone, their first channel), indexed (the palette's
+    colours, (H, W, 3)), RGB, RGBA (four channels), CMYK (converted as
+    PIL's convert("RGB") converts) and 1-bit bitmap (0 / 255); raw or
+    PackBits, the layers skipped.  LAB, 16- and 32-bit files raise."""
+    from .image import cmyk_to_rgb
+    from .tiff import packbits_decode
+
+    if len(data) < 26 or data[:4] != b"8BPS" or \
+            struct.unpack_from(">H", data, 4)[0] != 1:
+        raise ValueError("not a PSD file")
+    chans, h, w, bits, mode = struct.unpack_from(">HIIHH", data, 12)
+    if (mode, bits) not in _PSD_MODES:
+        raise ValueError(f"{bits}-bit {_PSD_NAMES.get(mode, mode)} PSD "
+                         "images are not read")
+    kind, n = _PSD_MODES[(mode, bits)]
+    if n > chans:
+        raise ValueError("PSD: not enough channels")
+    if kind == "RGB" and chans == 4:
+        kind, n = "RGBA", 4
+    pos = 26
+    (size,) = struct.unpack_from(">I", data, pos)
+    palette = None
+    if kind == "P":
+        if size != 768:
+            raise ValueError("PSD: indexed image without a 768-byte palette")
+        palette = np.frombuffer(data, np.uint8, 768, pos + 4).reshape(3, 256).T
+    pos += 4 + size
+    for _ in range(2):                  # image resources, layers and masks
+        pos += 4 + struct.unpack_from(">I", data, pos)[0]
+    (comp,) = struct.unpack_from(">H", data, pos)
+    pos += 2
+    stride = (w + 7) // 8 if kind == "1" else w
+    if comp == 0:
+        if len(data) < pos + n * h * stride:
+            raise ValueError("PSD: truncated data")
+        planes = [np.frombuffer(data, np.uint8, h * stride, pos + c * w * h)
+                  for c in range(n)]
+    elif comp == 1:
+        # PIL's table holds rows of the channels it reads, not of all the
+        # file's: the data it reads starts right after them
+        counts = np.frombuffer(data, ">u2", n * h, pos).astype(np.int64)
+        starts = pos + 2 * n * h + np.concatenate(
+            [[0], np.cumsum(counts.reshape(n, h).sum(1))])
+        planes = []
+        for c in range(n):
+            # the channel's bytes by the table, else on past them, as PIL
+            # reads them
+            p = packbits_decode(data[starts[c]:starts[c + 1]], h * stride,
+                                stride)
+            if len(p) < h * stride:
+                p = packbits_decode(data[starts[c]:], h * stride, stride)
+            if len(p) < h * stride:
+                raise ValueError("PSD: truncated data")
+            planes.append(p)
+    else:
+        raise ValueError(f"PSD compression {comp} (ZIP) is not read")
+    px = np.stack([p.reshape(h, stride) for p in planes], -1)
+    if kind == "1":
+        return np.unpackbits(px[..., 0], axis=1)[:, :w, None] * np.uint8(255)
+    if kind == "P":
+        return palette[px[..., 0]]
+    if kind == "CMYK":
+        return cmyk_to_rgb(255 - px)
+    return np.ascontiguousarray(px)
+
+
+# ---------------------------------------------------------------------------
+# ICO and CUR
+# ---------------------------------------------------------------------------
+
+
+def _dib(data: bytes, offset: int):
+    """The XOR image of the icon bitmap (a DIB, its height counting the
+    AND mask too) at offset -> (decode_bmp's RGB samples, width, height,
+    bits per pixel, the pixel data's offset)."""
+    from .image import decode_bmp
+
+    hsize, w, h2 = struct.unpack_from("<Iii", data, offset)
+    if hsize < 40:
+        raise ValueError(f"icon bitmap header of {hsize} bytes is not read")
+    bpp, comp, n_pal = struct.unpack_from("<HI12xI", data, offset + 14)
+    h = int(h2 / 2)
+    masks = 12 if comp == 3 and hsize == 40 else 0
+    pal = 4 * (n_pal or 1 << bpp) if bpp <= 8 else 0
+    off = 14 + hsize + masks + pal
+    dib = bytearray(data[offset:])
+    struct.pack_into("<i", dib, 8, h)
+    head = struct.pack("<2sIHHI", b"BM", 14 + len(dib), 0, 0, off)
+    return decode_bmp(head + bytes(dib)), w, h, bpp, offset + off - 14
+
+
+def decode_ico(data: bytes) -> np.ndarray:
+    """The entry PIL's ICO reader loads: the largest, of those the lowest
+    colour depth, the first of those.  A PNG entry decoded by decode_png;
+    a bitmap as RGBA, its alpha the 32-bit pixels' fourth byte, else the
+    AND mask's (0 where set), found where PIL finds it: at the end of the
+    entry's stated size."""
+    import math
+
+    from .image import _PNG_MAGIC, decode_png
+
+    (count,) = struct.unpack_from("<H", data, 4)
+    entries = []
+    for i in range(count):
+        s = data[6 + 16 * i:22 + 16 * i]
+        w, h, ncol = s[0] or 256, s[1] or 256, s[2]
+        bpp, size, offset = struct.unpack_from("<HII", s, 6)
+        depth = bpp or (ncol != 0 and math.ceil(math.log(ncol, 2))) or 256
+        entries.append((w * h, depth, bpp, size, offset))
+    if not entries:
+        raise ValueError("ICO: no images")
+    entries = sorted(entries, key=lambda e: e[1])
+    _, _, bpp, size, offset = sorted(entries, key=lambda e: e[0],
+                                     reverse=True)[0]
+    if data[offset:offset + 8] == _PNG_MAGIC:
+        return decode_png(data[offset:])
+    rgb, w, h, _, pix = _dib(data, offset)
+    if bpp == 32:                       # the directory's depth, as in PIL
+        raw = np.frombuffer(data, np.uint8, w * h * 4, pix)
+        alpha = raw[3::4].reshape(h, w)[::-1]
+    else:
+        wp = -(-w // 32) * 32
+        total = wp * h // 8
+        rows = np.frombuffer(data, np.uint8, total,
+                             offset + size - total).reshape(h, wp // 8)
+        alpha = (1 - np.unpackbits(rows, axis=1)[::-1, :w]) * np.uint8(255)
+    return np.concatenate([rgb, alpha[..., None]], -1)
+
+
+def decode_cur(data: bytes) -> np.ndarray:
+    """The cursor PIL's CUR reader loads: the first entry, or a later one
+    larger in both stated sizes (the bytes, 0 counting as 0); its bitmap's
+    XOR image as RGB, no alpha, but for a 32-bit bitmap at byte 22 (a
+    file of one cursor), whose fourth bytes PIL's BMP reader takes as
+    alpha.  A PNG entry raises, as in PIL."""
+    from .image import _PNG_MAGIC
+
+    (count,) = struct.unpack_from("<H", data, 4)
+    m = None
+    for i in range(count):
+        s = data[6 + 16 * i:22 + 16 * i]
+        if m is None or (s[0] > m[0] and s[1] > m[1]):
+            m = s
+    if m is None:
+        raise ValueError("CUR: no cursors")
+    (offset,) = struct.unpack_from("<I", m, 12)
+    if data[offset:offset + 8] == _PNG_MAGIC:
+        raise ValueError("CUR with a PNG image is not read")
+    rgb, w, h, bpp, pix = _dib(data, offset)
+    if offset != 22 or bpp != 32 or struct.unpack_from(
+            "<I", data, offset + 16)[0] != 0:
+        return rgb
+    raw = np.frombuffer(data, np.uint8, w * h * 4, pix)
+    return np.concatenate([rgb, raw[3::4].reshape(h, w)[::-1, :, None]], -1)

@@ -1,10 +1,10 @@
 """TIFF decoding in numpy (no libtiff): the first image (IFD) of a little- or
-big-endian file, in strips or tiles, uncompressed, LZW (libtiff's current
-codes and its old-style, bit-reversed ones), Deflate or PackBits, with the
-horizontal (8 and 16 bits) and floating-point predictors, planar
-configuration 1 or 2; bilevel and gray (either polarity), RGB, RGBA and
-other extra samples, palette, and CMYK.  JPEG-in-TIFF and every other
-compression raise, naming it.
+big-endian file, classic or BigTIFF, in strips or tiles, uncompressed, LZW
+(libtiff's current codes and its old-style, bit-reversed ones), Deflate or
+PackBits, with the horizontal (8 and 16 bits) and floating-point
+predictors, planar configuration 1 or 2; bilevel and gray (either
+polarity), RGB, RGBA and other extra samples, palette, and CMYK.
+JPEG-in-TIFF and every other compression raise, naming it.
 
 decode_tiff(data) -> samples (H, W, C): uint8 for 1/2/4/8-bit images
 (bilevel and sub-byte gray scaled to 0..255, palettes expanded to RGB as
@@ -22,9 +22,9 @@ from .image import cmyk_to_rgb
 
 # bytes per value of the IFD field types (1-13; 16-18 are BigTIFF's)
 _TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
-              11: 4, 12: 8, 13: 4}
+              11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
 _TYPE_CODE = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 11: "f",
-              12: "d", 13: "I"}
+              12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
 _COMPRESSION = {2: "CCITT modified Huffman", 3: "CCITT T.4 (fax)",
                 4: "CCITT T.6 (fax)", 6: "old-style JPEG", 7: "JPEG",
                 34712: "JPEG 2000", 34887: "LERC", 34925: "LZMA",
@@ -37,28 +37,36 @@ _COMPRESSION = {2: "CCITT modified Huffman", 3: "CCITT T.4 (fax)",
 
 
 def _ifd(data: bytes):
-    """The first IFD's fields -> {tag: tuple of values}."""
-    if data[:4] == b"II*\0":
+    """The first IFD's fields -> {tag: tuple of values}, of a classic TIFF
+    (4-byte offsets, 12-byte entries) or a BigTIFF (8-byte offsets and
+    counts, 20-byte entries, the 8-byte integer types 16-18)."""
+    if data[:4] in (b"II*\0", b"II+\0"):
         bo = "<"
-    elif data[:4] == b"MM\0*":
+    elif data[:4] in (b"MM\0*", b"MM\0+"):
         bo = ">"
-    elif data[:4] in (b"II+\0", b"MM\0+"):
-        raise ValueError("BigTIFF is not read")
     else:
         raise ValueError("not a TIFF file")
-    off = struct.unpack_from(bo + "I", data, 4)[0]
-    if off + 2 > len(data):
+    if data[2:4] in (b"+\0", b"\0+"):
+        if struct.unpack_from(bo + "HH", data, 4) != (8, 0):
+            raise ValueError("BigTIFF: bad header")
+        off_fmt, count_fmt, entry, inline = "Q", "Q", 20, 8
+        off = struct.unpack_from(bo + "Q", data, 8)[0]
+    else:
+        off_fmt, count_fmt, entry, inline = "I", "H", 12, 4
+        off = struct.unpack_from(bo + "I", data, 4)[0]
+    head = struct.calcsize(count_fmt)
+    if off + head > len(data):
         raise ValueError("TIFF: truncated header")
-    n = struct.unpack_from(bo + "H", data, off)[0]
+    n = struct.unpack_from(bo + count_fmt, data, off)[0]
     fields = {}
     for i in range(n):
-        tag, typ, count, value = struct.unpack_from(bo + "HHI4s", data,
-                                                    off + 2 + 12 * i)
+        tag, typ, count, value = struct.unpack_from(
+            f"{bo}HH{off_fmt}{inline}s", data, off + head + entry * i)
         size = _TYPE_SIZE.get(typ)
         if size is None:
             continue                            # a type this reader skips
-        raw = value if size * count <= 4 else data[
-            struct.unpack(bo + "I", value)[0]:][:size * count]
+        raw = value if size * count <= inline else data[
+            struct.unpack(bo + off_fmt, value)[0]:][:size * count]
         if len(raw) < size * count:
             raise ValueError(f"TIFF: field {tag} runs past the file")
         if typ in (2, 7):
@@ -164,24 +172,56 @@ def lzw_decode(data: bytes, min_bits: int = 8, msb: bool = True,
     return b"".join(out)
 
 
-def packbits_decode(data: bytes, limit: int) -> bytes:
+def _chain(nxt: np.ndarray) -> np.ndarray:
+    """The nodes reached from node 0 by following nxt (each node's
+    successor; the last node, the end, points to itself), found at once by
+    pointer doubling: after round j every node within 2^(j+1) steps of
+    node 0 is marked."""
+    mark = np.zeros(len(nxt), bool)
+    mark[0] = True
+    jump = nxt
+    while True:
+        grown = mark.copy()
+        grown[jump[mark]] = True
+        if (grown == mark).all():
+            return np.flatnonzero(mark[:-1])
+        mark, jump = grown, jump[jump]
+
+
+def packbits_decode(data: bytes, limit: int,
+                    line: int | None = None) -> np.ndarray:
     """PackBits (Apple / TIFF compression 32773): a header byte n, then
     n + 1 literal bytes (n < 128) or one byte repeated 257 - n times
-    (n > 128); 128 is a no-op."""
-    out = bytearray()
-    i, n = 0, len(data)
-    while i < n and len(out) < limit:
-        h = data[i]
-        if h < 128:
-            out += data[i + 1:i + 2 + h]
-            i += 2 + h
-        elif h > 128:
-            if i + 1 < n:
-                out += data[i + 1:i + 2] * (257 - h)
-            i += 2
-        else:
-            i += 1
-    return bytes(out)
+    (n > 128); 128 is a no-op.  Up to `limit` bytes out (fewer where the
+    data runs out), in lines of `line` bytes (default limit): a packet
+    that fills its line loses what it has beyond it and the next line
+    starts at the next packet, as PIL's PackbitsDecode.c (PSD) reads;
+    libtiff drops a strip's excess the same way.  The packet headers, and
+    the packets that start lines, each form a chain, found at once."""
+    a = np.frombuffer(data, np.uint8)
+    n, line = len(a), line or limit
+    if not n or not limit:
+        return a[:0]
+    h = a.astype(np.int64)
+    step = np.where(h < 128, h + 2, np.where(h > 128, 2, 1))
+    pos = _chain(np.append(np.minimum(np.arange(n) + step, n), n))
+    hp = h[pos]
+    lit = hp < 128
+    count = np.where(lit, np.minimum(hp + 1, n - 1 - pos),
+                     np.where((hp > 128) & (pos + 1 < n), 257 - hp, 0))
+    k = len(pos)
+    cum = np.concatenate([[0], np.cumsum(count)])
+    # the packet after the one that fills the line starting at each packet
+    after = np.searchsorted(cum, cum[:-1] + line, "left")
+    starts = _chain(np.append(np.minimum(after, k), k))[:-(-limit // line)]
+    # each packet's place in its line (past the line's end after the last
+    # line: nothing kept)
+    off = cum[:-1] - cum[starts[np.searchsorted(starts, np.arange(k),
+                                                "right") - 1]]
+    kept = np.clip(np.minimum(count, line - off), 0, None)
+    owner = np.repeat(np.arange(k), kept)
+    within = np.arange(len(owner)) - (np.cumsum(kept) - kept)[owner]
+    return a[pos[owner] + 1 + np.where(lit[owner], within, 0)][:limit]
 
 
 def _decompress(chunk: bytes, compression: int, size: int) -> np.ndarray:

@@ -3,7 +3,15 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises, and the script exits non-zero):
+Phases (any failure raises, and the script exits non-zero).  Phases 1-4,
+10, 11 and phase 15's timed gather run first, alone on the card; then the
+phases that need neither phase 8's scene nor its frames (5-7, 12, 13,
+15-17, 19-22, 24, 26, 29's small legs and 30, in that order from 24 and 15)
+run in a second process, this script with --side (side_main), beside the
+rest (8, 9, 14, 18, 23, 25, 28, 29's full-size legs, 27, 31-34, in that
+order), which waits for the side's phase 24 and 15 frames before phase 29
+and for its end before the record.  The side's output is printed when it
+ends; a failure in either process fails the script and ends the other.
   1. device: requires CUDA; prints the card and its power limit;
   2. build: compiles the CUDA kernels from acceleratedvolrenderer_tpu_torch/csrc
      with nvcc into build/kernels/ and prints the build time;
@@ -93,10 +101,11 @@ Phases (any failure raises, and the script exits non-zero):
      regen frame mean (both estimate one image), march launches equal to
      the loop iterations summed over the chunks;
  15. fog box (homogeneous medium, a 1^3 majorant: the window route): a
-     24x24 frame on the GPU and the CPU at phase 5's tolerances; then the
+     24x24 frame on the GPU and the CPU at phase 5's tolerances; the
      gather kernel at the route's shapes (V 1, n 16384*8 in regen and
      65536*8 in render(), 1% of the ids out of range) against its plain
-     version, each timed with table[idx] and its bound; then 256x256 through
+     version, each timed with table[idx] and its bound (phase_gather_v1,
+     after phase 11, alone on the card); then 256x256 through
      render() at spp 32 and render_regen at spp 8 with the bench knobs:
      films finite with positive means within 2% of each other, one gather
      launch per loop iteration and no march launch; seconds and Mrays/s;
@@ -293,11 +302,14 @@ Phases (any failure raises, and the script exits non-zero):
      (one per loop iteration, no gather or dma launch) and the map
      frame's march call IMAGE_CAPTURE_CALL held equal to plain; (c) the
      32x24 version on the card and the CPU within SURF_MEAN_TOL; (d) the
-     host seconds of three decodes each of the committed 2048x1024 lossy
-     WebP (held to its hash of PIL's samples, as the ground's is), an
-     8-bit and a 16-bit LZW TIFF, a GIF, a QOI and a binary PPM at
-     2048x1024 (and a 4:2:0 JPEG), each equal to its written samples, and
-     the parse and render seconds and peak device memory.
+     host seconds of one decode each (three before phase 34 came) of the
+     committed 2048x1024 lossy WebP (held to its hash of PIL's samples,
+     as the ground's is), an 8-bit and a 16-bit LZW TIFF, a GIF, a QOI
+     and a binary PPM at 2048x1024 (and a 4:2:0 JPEG), each equal to its
+     written samples, and the parse and render seconds and peak device
+     memory.  It keeps the medium file, the ground's decoded samples and
+     (d)'s 8-bit TIFF for phase 34 and returns the uniform-sky frame's
+     mean.
  33. image writers (utils/image_write.py, the PCX, SGI, IM and DDS readers
      of utils/image_read.py): phase 32's map frame (1280x720, rendered
      on the card; it launches no kernel here) through the port's
@@ -309,6 +321,26 @@ Phases (any failure raises, and the script exits non-zero):
      and the files of the committed ground fixture's first 128x96
      pixels hash as PIL's do (images.json; this machine has no PIL).
      Each file's bytes and seconds (the CLI call and the encode alone).
+ 34. block-compressed maps (utils/bcn.py; the palette DDS, PSD, ICO and
+     BigTIFF readers): (a) scripts/block_maps.py's integer encoders
+     rebuild phase 32's sinusoid sky at 2048x1024 as BC6H UF16 (mode 11)
+     and the ground's decoded samples (kept by phase 32) as BC7 (mode 6),
+     each file's bytes and the port's decode held to images.json's
+     SHA-256 of the bytes and of PIL's samples; (b) phase 32's file with
+     the BC6H DDS as the infinite light's map and the BC7 DDS as the
+     ground's imagemap (image_formats_file_text), rendered by the CLI at
+     1280x720 spp 1 with the parser's warnings made errors: the parsed
+     scene's two maps equal read_image's of the files bit for bit, one
+     march launch per loop iteration and no gather or dma launch, the
+     frame's march call BCN_CAPTURE_CALL held equal to plain, its mean
+     apart from phase 32's uniform-sky frame's, the 32x24 version on the
+     card and the CPU within SURF_MEAN_TOL; (c) one decode each, host
+     seconds printed, of the sky as BC1, BC3, BC4, BC5 and BC7 DDS (with
+     (a)'s BC6H: each at its PIL hash), and of a palette DDS, a PackBits
+     RGB PSD, an LZW BigTIFF (phase 32 (d)'s 8-bit TIFF's strips) and an
+     ICO of a 256x256 32-bit bitmap and a 256x256 PNG entry, each equal
+     to its written samples; each step's seconds and the frame's peak
+     device memory.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -328,8 +360,9 @@ legs; `sharding_world1_launches` and `sharding_rank_launches`, each rank's
 (regen, wave, gradient) launches in phase 31; `image_formats_launches`,
 the march launches of phase 32's three CLI frames, and its captured
 call's `image_formats_max_abs_err`; `image_writers_max_abs_err`, phase
-33's largest read-back |diff| of a lossless file, no kernel's) and the
-result JSON.
+33's largest read-back |diff| of a lossless file, no kernel's;
+`bcn_maps_launches`, the march launches of phase 34's frame, and its
+captured call's `bcn_maps_max_abs_err`) and the result JSON.
 """
 import json
 import os
@@ -1338,13 +1371,21 @@ def phase_fog(dev, card):
     small_gpu_cpu("fog box 24x24",
                   lambda d: presets.fog_box(res=24, spp=4, device=d), dev,
                   **SMALL_KNOBS)
-    rec = gather_v1(dev, 16384, "v1_")
-    rec.update(gather_v1(dev, 65536, "v1_n65536_"))
     scene = presets.fog_box(res=256, device=dev)
     render_counts, regen_counts = full_frame_pair(
         "fog box", scene, dev, card, FOG_SPP, FOG_REGEN_SPP, "window")
-    return dict(rec, fog_launches=regen_counts[1],
+    return dict(fog_launches=regen_counts[1],
                 fog_render_launches=render_counts[1])
+
+
+def phase_gather_v1(dev):
+    """Phase 15's gather at the fog box's shapes (V 1, n 16384*8 and
+    65536*8) against its plain version, timed with table[idx] and bounded;
+    run before the side process starts, so that no other process shares
+    the card while it is timed."""
+    rec = gather_v1(dev, 16384, "v1_")
+    rec.update(gather_v1(dev, 65536, "v1_n65536_"))
+    return rec
 
 
 def phase_emissive(dev, card):
@@ -2902,8 +2943,9 @@ def bdpt_small(dev, card):
 
 
 def phase_integrators(dev, scene, card):
-    """Phase 29 (see the module docstring); scene is phase 8's.  Returns
-    the (march, gather, dma) launches of the five full-size legs, summed,
+    """Phase 29's full-size legs (see the module docstring); scene is phase
+    8's, and FRAMES holds the side process's room and fog-box frames.
+    Returns the (march, gather, dma) launches of the five legs, summed,
     and the march launches of the depth-4 render() frame."""
     from acceleratedvolrenderer_tpu_torch.models.integrators import (
         bdpt, mlt, sppm)
@@ -2936,7 +2978,6 @@ def phase_integrators(dev, scene, card):
     if st["truncated_candidates"] <= 0:
         raise AssertionError("sppm: the cap is not reached, so the gap is "
                              "not the reference's")
-    sppm_small(dev, card)
 
     img, _ = integrator_leg("mlt", lambda: mlt.render_mlt(
         room, n_chains=MLT_CHAINS, n_mutations=MLT_MUTATIONS,
@@ -2983,11 +3024,17 @@ def phase_integrators(dev, scene, card):
           f"{counts[0]} march launches): rel diff {rel:.4e} (gate 0.12: "
           f"{'passes' if rel < 0.12 else 'fails'}; a gap the reference "
           "shares, see BDPT_SMALL)", flush=True)
-    bdpt_small(dev, card)
+    return tuple(int(sum(c)) for c in zip(*LEG_COUNTS)), counts[0]
 
+
+def phase_integrators_small(dev, card):
+    """Phase 29's small legs, in the side process: SPPM and BDPT at their
+    small sizes against the JAX package's means, and the four through the
+    CLI and through their entries at 32x24 on the GPU and the CPU."""
+    sppm_small(dev, card)
+    bdpt_small(dev, card)
     integrators_cli(dev, card)
     integrators_gpu_cpu(dev)
-    return tuple(int(sum(c)) for c in zip(*LEG_COUNTS)), counts[0]
 
 
 # ---------------------------------------------------------------------------
@@ -3831,6 +3878,10 @@ IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests/data/images"
 IMAGE_GROUND = "ground_1024x512_q90.webp"
 IMAGE_SKY_WEBP = "sky_2048x1024_q90.webp"
 IMAGE_MAP_FRAME = "map_frame.exr"     # phase 32's map frame, for phase 33
+# phase 32's medium file, ground samples and 8-bit LZW sky TIFF, for 34
+IMAGE_MEDIUM = "medium.pbrt"
+IMAGE_GROUND_SAMPLES = "ground.npy"
+IMAGE_TIFF8 = "sky8.tif"
 # phase 33: imgtool convert --tonemap writes the map frame to each of these
 # (PNG and JPEG, then the lossless formats write_png writes byte for byte)
 WRITER_EXTS = (".png", ".jpg", ".bmp", ".tga", ".tif", ".ppm", ".pcx",
@@ -3896,7 +3947,8 @@ def image_formats_file_text(width, height, medium, sky=None, ground=None):
 
 def image_fixture_checks():
     """The committed lossy WebP fixtures decoded by the port, each held to
-    the SHA-256 of PIL's samples in images.json; returns the decoded
+    the SHA-256 of PIL's samples in images.json (whose entries with
+    `rebuilt_by` are phase 34's, not committed); returns the decoded
     ground texture."""
     import hashlib
 
@@ -3905,6 +3957,8 @@ def image_fixture_checks():
     record = json.loads((IMAGE_FIXTURES / "images.json").read_text())
     out = {}
     for name, rec in sorted(record.items()):
+        if "rebuilt_by" in rec:
+            continue
         px = webp.decode_webp((IMAGE_FIXTURES / name).read_bytes())
         digest = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
         ok = list(px.shape) == rec["shape"] and \
@@ -3920,8 +3974,10 @@ def image_fixture_checks():
 
 def phase_image_formats(dev, keep, card):
     """Phase 32 (see the module docstring); keep holds phase 28's grid
-    block.  Returns the march launches of the three CLI frames and the
-    captured call's max |diff|."""
+    block, and gains the medium file, the ground's decoded samples and
+    (d)'s 8-bit LZW TIFF for phase 34.  Returns the march launches of the
+    three CLI frames, the captured call's max |diff| and the uniform-sky
+    frame's mean."""
     import contextlib
     import tempfile
     import warnings
@@ -3950,7 +4006,9 @@ def phase_image_formats(dev, keep, card):
                              "to its written samples")
     (work / "sky.png").write_bytes(image.encode_png(sky_px))
     (work / "ground.png").write_bytes(image.encode_png(ground_px))
-    with open(work / "medium.pbrt", "w") as f:
+    np.save(Path(keep) / IMAGE_GROUND_SAMPLES, ground_px)
+    medium = Path(keep) / IMAGE_MEDIUM
+    with open(medium, "w") as f:
         f.write('MakeNamedMedium "cloud" "string type" "uniformgrid"\n')
         with open(Path(keep) / "grid.txt") as g:
             while True:
@@ -3967,7 +4025,7 @@ def phase_image_formats(dev, keep, card):
         "uniform sky": dict(ground="ground.webp")}
     for name, kw in files.items():
         (work / f"{name.replace(' ', '_')}.pbrt").write_text(
-            image_formats_file_text(W, H, work / "medium.pbrt", **kw))
+            image_formats_file_text(W, H, medium, **kw))
     print(f"image formats: fixtures checked and files written in "
           f"{time.time() - t0:.2f} s (the sky TIFF, 16-bit LZW, "
           f"{len(sky_data)} bytes, in {sky_write:.2f} s)", flush=True)
@@ -4041,10 +4099,10 @@ def phase_image_formats(dev, keep, card):
     tmp.cleanup()
     print(f"image formats (d): host CPU {tid.cpu_line()}; {card}",
           flush=True)
-    bad = []
+    bad, written = [], {}
     for name, size, write, secs, ok in tid.time_formats(
-            *IMAGE_SKY, webp_path=IMAGE_FIXTURES / IMAGE_SKY_WEBP,
-            sky16=sky_data):
+            *IMAGE_SKY, webp_path=IMAGE_FIXTURES / IMAGE_SKY_WEBP, reps=1,
+            sky16=sky_data, files=written):
         print(f"image formats (d): {name} {IMAGE_SKY[0]}x{IMAGE_SKY[1]}: "
               f"{size} bytes, written in {write:.2f} s; decode "
               f"{', '.join(f'{x:.3f}' for x in secs)} s; "
@@ -4053,7 +4111,162 @@ def phase_image_formats(dev, keep, card):
             bad.append(name)
     if bad:
         raise AssertionError(f"image formats (d): wrong decodes {bad}")
-    return launches, err
+    (Path(keep) / IMAGE_TIFF8).write_bytes(written["tiff 8-bit"])
+    return launches, err, float(frames["uniform sky"].mean())
+
+
+BCN_SKY = "sky_2048x1024_bc6h.dds"         # phase 34's maps (images.json)
+BCN_GROUND = "ground_1024x512_bc7.dds"
+BCN_CAPTURE_CALL = 20              # the frame's march call held to plain
+
+
+def _instances(obj, cls, out=None, seen=None, depth=0):
+    """The objects of class cls reachable from obj through attributes,
+    dataclass fields, lists, tuples and dicts (arrays and tensors not
+    entered)."""
+    out = [] if out is None else out
+    seen = set() if seen is None else seen
+    if id(obj) in seen or depth > 8 or isinstance(
+            obj, (np.ndarray, torch.Tensor, str, bytes, int, float)):
+        return out
+    seen.add(id(obj))
+    if isinstance(obj, cls):
+        out.append(obj)
+    if isinstance(obj, dict):
+        items = list(obj.values())
+    elif isinstance(obj, (list, tuple)):
+        items = list(obj)
+    else:
+        items = list(getattr(obj, "__dict__", {}).values())
+    for item in items:
+        _instances(item, cls, out, seen, depth + 1)
+    return out
+
+
+def phase_block_maps(dev, keep, uniform_mean, card):
+    """Phase 34 (see the module docstring); keep holds phase 32's medium
+    file, ground samples and 8-bit LZW TIFF.  Returns the frame's march
+    launches and its captured call's max |diff|."""
+    import contextlib
+    import warnings
+
+    from acceleratedvolrenderer_tpu_torch.models import lights, textures
+    from acceleratedvolrenderer_tpu_torch.ops import march
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+    from acceleratedvolrenderer_tpu_torch.scene import parser
+    from acceleratedvolrenderer_tpu_torch.utils import image
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import block_maps as bm
+    import time_image_decode as tid
+
+    record = json.loads((IMAGE_FIXTURES / "images.json").read_text())
+    work = Path(tempfile.mkdtemp())
+    try:
+        # (a) and (c): the block-compressed files rebuilt, held to the
+        # recorded hashes of their bytes and of PIL's samples
+        print(f"block maps: host CPU {tid.cpu_line()}; {card}", flush=True)
+        t0 = time.time()
+        files = bm.block_files(*IMAGE_SKY)
+        ground_px = np.load(Path(keep) / IMAGE_GROUND_SAMPLES)
+        files[BCN_GROUND] = bm.encode_dds("BC7", ground_px)
+        print(f"block maps (a): {len(files)} block-compressed files written "
+              f"in {time.time() - t0:.2f} s", flush=True)
+        t0 = time.time()
+        lossless = bm.lossless_files(
+            *IMAGE_SKY, tiff8=(Path(keep) / IMAGE_TIFF8).read_bytes())
+        print(f"block maps (c): lossless files written in "
+              f"{time.time() - t0:.2f} s", flush=True)
+        bad = []
+        for name, size, secs, shape, ok in bm.decode_all(files, lossless,
+                                                         record):
+            what = ("bytes and samples at PIL's hashes" if name in files
+                    else "equal to the source")
+            print(f"block maps (a, c): {name} {shape[1]}x{shape[0]}: {size} "
+                  f"bytes, decode {secs:.3f} s; "
+                  f"{what if ok else 'WRONG: not ' + what}", flush=True)
+            if not ok:
+                bad.append(name)
+        if bad:
+            raise AssertionError(f"block maps: wrong files or decodes {bad}")
+
+        # (b) the frame: the BC6H sky and the BC7 ground by the CLI
+        (work / "sky.dds").write_bytes(files[BCN_SKY])
+        (work / "ground.dds").write_bytes(files[BCN_GROUND])
+        W, H = FULL
+        path = work / "bcn.pbrt"
+        path.write_text(image_formats_file_text(
+            W, H, Path(keep) / IMAGE_MEDIUM, sky=work / "sky.dds",
+            ground="ground.dds"))
+        steps, parsed = {}, []
+        load_scene = parser.load_scene
+
+        def strict_load(*args, **kw):
+            t = time.time()
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                parsed.append(load_scene(*args, **kw))
+            steps["parse"] = time.time() - t
+            return parsed[-1]
+
+        captured, capture = march_capture(BCN_CAPTURE_CALL)
+        out = str(work / "bcn.exr")
+        torch.cuda.reset_peak_memory_stats(dev)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(parser, "load_scene",
+                                                  strict_load))
+            stack.enter_context(mock.patch.object(march, "march_block",
+                                                  capture))
+            zero_kernel_counts()
+            t = time.time()
+            st = run_cli([str(path), "-o", out, "--spp", "1", "--stats"])
+            cli = time.time() - t
+            counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        img = image.read_exr(out)[0]
+        rel = abs(float(img.mean()) - uniform_mean) / uniform_mean
+        print(f"block maps (b): pbrt {W}x{H} spp 1: parse "
+              f"{steps['parse']:.2f} s, render {st['render_time']:.3f} s "
+              f"({st['iterations']} iterations), the CLI call {cli:.2f} s; "
+              f"(march, gather, dma) launches {counts}; peak device memory "
+              f"{peak:.3f} GiB; film mean {img.mean():.6f}, rel diff "
+              f"{rel:.4e} from phase 32's uniform sky's; {card}", flush=True)
+        _check_frame("block maps (b)", img, (H, W, 3))
+        if counts != (st["iterations"], 0, 0):
+            raise AssertionError(f"block maps (b): launches {counts} for "
+                                 f"{st['iterations']} iterations")
+        if rel < 1e-3:
+            raise AssertionError("block maps (b): the frame's mean equals "
+                                 "the uniform sky's (map dropped?)")
+        sc = parsed[-1]
+        sky = [x.image for x in _instances(sc, lights.ImageInfiniteLight)]
+        ground = [x.image for x in _instances(sc, textures.ImageTexture)]
+        want_sky = image.read_image(str(work / "sky.dds"))[0]
+        want_ground = image.read_image(str(work / "ground.dds"))[0]
+        same = (len(sky) == 1 and len(ground) == 1
+                and np.array_equal(sky[0], want_sky)
+                and np.array_equal(ground[0].reshape(want_ground.shape),
+                                   want_ground))
+        print(f"block maps (b): the parsed sky {want_sky.shape} and ground "
+              f"{want_ground.shape} maps {'equal' if same else 'DIFFER FROM'}"
+              f" read_image's, bit for bit", flush=True)
+        if not same:
+            raise AssertionError("block maps (b): parsed maps differ from "
+                                 "read_image's")
+        err = check_captured_march("block maps (b)", captured,
+                                   BCN_CAPTURE_CALL)
+        small = replace(sc, camera=sc.camera._replace(width=32, height=24))
+        t = time.time()
+        imgs = [render.render(small, device=dev)[0],
+                render.render(small.to("cpu"), device="cpu")[0]]
+        compare_frames("block maps (b) 32x24 gpu vs cpu", *imgs,
+                       mean_tol=SURF_MEAN_TOL)
+        print(f"block maps (b): the 32x24 frames in {time.time() - t:.2f} s",
+              flush=True)
+        del sc, small, parsed
+    finally:
+        shutil.rmtree(work)
+    return counts[0], err
 
 
 def psnr(a, b):
@@ -4179,6 +4392,128 @@ def timed(name, fn, *args):
 T0 = time.time()
 
 
+# ---------------------------------------------------------------------------
+# The side process: the phases that need neither phase 8's scene nor its
+# frames run in a second process on the same card, beside the parent's
+# ---------------------------------------------------------------------------
+
+SIDE_PHASES = "5-7, 12, 13, 15-17, 19-22, 24, 26, 29's small legs and 30"
+SIDE_TIMEOUT = 900               # seconds the side process may take in all
+
+
+def side_main(work):
+    """This script with --side WORK: the side phases on the card in this
+    order, at half this host's CPU threads (the parent keeps the rest).
+    Phase 24's path frame and means and phase 15's render() frame go to
+    WORK/handoff.pkl once both exist (the parent's phases 27 and 29 read
+    them); the numbers for the kernels' record go to WORK/side.json at the
+    end."""
+    from acceleratedvolrenderer_tpu_torch import kernels
+
+    work = Path(work)
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    kernels.library()
+    torch.set_num_threads(max(1, torch.get_num_threads() // 2))
+    room_rec, room_means = timed("room", phase_room, dev, card)
+    fog_rec = timed("fog box", phase_fog, dev, card)
+    tmp = work / "handoff.pkl.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump({"room_means": room_means, "frames": {
+            k: FRAMES[k] for k in (("room", "path"),
+                                   ("fog box", "render"))}}, f)
+    os.replace(tmp, work / "handoff.pkl")
+    out = {"gather_rec": dict(fog_rec, **room_rec)}
+    fused_gpu = timed("small frame", phase_small_frame, dev)
+    out["window_launches"] = timed("window frame", phase_window_frame, dev,
+                                   fused_gpu)
+    timed("wave small", phase_wave_small, dev)
+    timed("grad fd", phase_grad_fd, dev)
+    timed("wave grad fd", phase_wave_grad_fd, dev)
+    out["chunk65536_launches"] = (
+        timed("emissive", phase_emissive, dev, card)
+        + timed("explosion", phase_explosion, dev, card))
+    timed("knobs", phase_knobs, dev)
+    timed("tracking", phase_tracking, dev)
+    timed("graph small", phase_graph_small, dev)
+    out["graph_launches"] = timed("graph full", phase_graph_full, dev, card)
+    timed("room samplers", phase_room_samplers, dev, room_means, card)
+    timed("other integrators, small", phase_integrators_small, dev, card)
+    out["item1_counts"], out["item1_max_abs_err"] = timed(
+        "item1", phase_item1, dev, card)
+    (work / "side.json").write_text(json.dumps(out))
+    print(f"side: {time.time() - T0:.1f} s wall", flush=True)
+    return 0
+
+
+class Side:
+    """The side process (side_main), started by the parent after phase 11.
+    Its output goes to a file, printed when it ends (or, if the parent
+    fails first, to stderr once stop has ended it)."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        self.work = Path(self.tmp.name)
+        self.log = open(self.work / "side.log", "w")
+        self.shown = False
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), "--side",
+             str(self.work)], stdout=self.log, stderr=subprocess.STDOUT)
+
+    def output(self):
+        self.log.flush()
+        return (self.work / "side.log").read_text()
+
+    def _left(self):
+        return SIDE_TIMEOUT - (time.time() - self.t0)
+
+    def handoff(self):
+        """Phase 24's path means, and its path frame and phase 15's
+        render() frame into FRAMES, once the side process has them."""
+        path = self.work / "handoff.pkl"
+        while not path.exists():
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"side process ended (exit code "
+                                   f"{self.proc.returncode}) before its "
+                                   "handoff")
+            if self._left() < 0:
+                raise RuntimeError(f"side process: no handoff after "
+                                   f"{SIDE_TIMEOUT} s")
+            time.sleep(0.5)
+        with open(path, "rb") as f:
+            h = pickle.load(f)
+        FRAMES.update(h["frames"])
+        return h["room_means"]
+
+    def finish(self):
+        """Waits for the side process, prints its output and returns its
+        side.json; raises if it failed or outlived SIDE_TIMEOUT."""
+        try:
+            rc = self.proc.wait(timeout=max(1.0, self._left()))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"side process still running after "
+                               f"{SIDE_TIMEOUT} s") from None
+        print(f"side process (phases {SIDE_PHASES}), exit code {rc}:\n"
+              + self.output(), end="", flush=True)
+        self.shown = True
+        if rc != 0:
+            raise RuntimeError(f"side process failed (exit code {rc})")
+        return json.loads((self.work / "side.json").read_text())
+
+    def stop(self):
+        """Ends the side process if it still runs and removes its files."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self.shown:
+            print(f"side process (phases {SIDE_PHASES}), exit code "
+                  f"{self.proc.returncode}:\n" + self.output(),
+                  file=sys.stderr, flush=True)
+        self.log.close()
+        self.tmp.cleanup()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4201,53 +4536,52 @@ def main():
     dma_rec = timed("dma", phase_dma, dev)
     dma_runs, dma_calls = timed("gather designs", phase_gather_designs,
                                 dev)
-    fused_gpu = timed("small frame", phase_small_frame, dev)
-    g_launches = timed("window frame", phase_window_frame, dev, fused_gpu)
-    timed("wave small", phase_wave_small, dev)
-    timed("grad fd", phase_grad_fd, dev)
-    timed("wave grad fd", phase_wave_grad_fd, dev)
-    launches, scene, slice_rec = timed("slice", phase_slice, dev, card)
-    wave_img = timed("wave full", phase_wave_full, dev, scene, slice_rec[0],
-                     card)
-    timed("grad full", phase_grad_full, dev, scene, card)
-    gather_rec.update(timed("fog box", phase_fog, dev, card))
-    march_rec["chunk65536_launches"] = (
-        timed("emissive", phase_emissive, dev, card)
-        + timed("explosion", phase_explosion, dev, card))
-    march_rec.update(timed("residual", phase_residual, dev, scene,
-                           slice_rec, card))
-    timed("knobs", phase_knobs, dev)
-    timed("tracking", phase_tracking, dev)
-    timed("graph small", phase_graph_small, dev)
-    graph_launches = timed("graph full", phase_graph_full, dev, card)
-    march_rec.update(timed("cloud surfaces", phase_cloud_surfaces, dev,
-                           scene, card))
-    room_rec, room_means = timed("room", phase_room, dev, card)
-    gather_rec.update(room_rec)
-    sky_rec, sky = timed("sky", phase_sky, dev, scene,
-                         slice_rec + (launches,), card)
-    march_rec.update(sky_rec)
-    timed("room samplers", phase_room_samplers, dev, room_means, card)
-    timed("portal entries", phase_portal_entries, dev, sky, room_means, card)
-    keep = tempfile.TemporaryDirectory()
-    march_n, gather_n = timed("scene file", phase_scene_file, dev, scene,
-                              wave_img, card, keep.name)
+    gather_rec.update(timed("gather v1", phase_gather_v1, dev))
+    side = Side()
+    try:
+        launches, scene, slice_rec = timed("slice", phase_slice, dev, card)
+        wave_img = timed("wave full", phase_wave_full, dev, scene,
+                         slice_rec[0], card)
+        timed("grad full", phase_grad_full, dev, scene, card)
+        march_rec.update(timed("residual", phase_residual, dev, scene,
+                               slice_rec, card))
+        march_rec.update(timed("cloud surfaces", phase_cloud_surfaces, dev,
+                               scene, card))
+        sky_rec, sky = timed("sky", phase_sky, dev, scene,
+                             slice_rec + (launches,), card)
+        march_rec.update(sky_rec)
+        keep = tempfile.TemporaryDirectory()
+        march_n, gather_n = timed("scene file", phase_scene_file, dev, scene,
+                                  wave_img, card, keep.name)
+        room_means = timed("side handoff", side.handoff)
+        integ_counts, march_rec["integrators_depth4_render_launches"] = timed(
+            "other integrators", phase_integrators, dev, scene, card)
+        timed("portal entries", phase_portal_entries, dev, sky, room_means,
+              card)
+        shard = timed("sharding", phase_sharding, dev, scene, card)
+        (march_rec["image_formats_launches"],
+         march_rec["image_formats_max_abs_err"], uniform_mean) = timed(
+            "image formats", phase_image_formats, dev, keep.name, card)
+        march_rec["image_writers_max_abs_err"] = timed(
+            "image writers", phase_image_writers, keep.name, card)
+        (march_rec["bcn_maps_launches"],
+         march_rec["bcn_maps_max_abs_err"]) = timed(
+            "block maps", phase_block_maps, dev, keep.name, uniform_mean,
+            card)
+        keep.cleanup()
+        side_out = timed("side process", side.finish)
+    finally:
+        side.stop()
     march_rec["scene_file_launches"] = march_n
     gather_rec["scene_file_launches"] = gather_n
-    integ_counts, march_rec["integrators_depth4_render_launches"] = timed(
-        "other integrators", phase_integrators, dev, scene, card)
-    item1_counts, march_rec["item1_max_abs_err"] = timed(
-        "item1", phase_item1, dev, card)
-    shard = timed("sharding", phase_sharding, dev, scene, card)
     march_rec["sharding_world1_launches"] = shard["world1"]
     march_rec["sharding_rank_launches"] = shard["ranks"]
     march_rec["sharding_max_abs_err"] = shard["max_abs_err"]
-    (march_rec["image_formats_launches"],
-     march_rec["image_formats_max_abs_err"]) = timed(
-        "image formats", phase_image_formats, dev, keep.name, card)
-    march_rec["image_writers_max_abs_err"] = timed(
-        "image writers", phase_image_writers, keep.name, card)
-    keep.cleanup()
+    march_rec["chunk65536_launches"] = side_out["chunk65536_launches"]
+    gather_rec.update(side_out["gather_rec"])
+    graph_launches = side_out["graph_launches"]
+    item1_counts = side_out["item1_counts"]
+    march_rec["item1_max_abs_err"] = side_out["item1_max_abs_err"]
 
     src = "acceleratedvolrenderer_tpu_torch/csrc/"
     print(f"chip_smoke: {time.time() - T0:.1f} s wall")
@@ -4260,7 +4594,8 @@ def main():
              item1_launches=item1_counts[0], **march_rec),
         dict(name="table_gather", route="cuda", source=src + "gather.cu",
              replaces="acceleratedvolrenderer_tpu/ops/pallas_gather.py:33",
-             launches=g_launches, graph_launches=graph_launches[1],
+             launches=side_out["window_launches"],
+             graph_launches=graph_launches[1],
              integrators_launches=integ_counts[1],
              item1_launches=item1_counts[1], **gather_rec),
         dict(name="dma_gather", route="cuda", source=src + "dma_gather.cu",
@@ -4280,4 +4615,6 @@ if __name__ == "__main__":
         sys.exit(shard_rank(int(sys.argv[2]), int(sys.argv[3]),
                             int(sys.argv[4]), sys.argv[5], sys.argv[6],
                             sys.argv[7]))
+    if sys.argv[1:2] == ["--side"]:
+        sys.exit(side_main(sys.argv[2]))
     sys.exit(main())

@@ -15,9 +15,18 @@ and holds the port's decode to the hashes).
     (`sha256_of_pil_files`, named fixture.<ext>): chip_smoke.py phase 33
     holds the port's files to them.
 
-Rerunning it rewrites both files; the CPU test
-tests/test_torch_image_formats_webp.py::test_committed_fixtures_hashes
-holds the committed files to the committed hashes.
+It also records, without committing them, the block-compressed DDS files
+scripts/block_maps.py rebuilds on any host (integer encoders), each under
+its name with `rebuilt_by` and the SHA-256 of its bytes: the 2048x1024
+sky in BC1, BC3, BC4, BC5, BC6H and BC7 (chip_smoke.py phase 34's sky map
+and its timed decodes) and the ground's decoded samples in BC7
+(ground_1024x512_bc7.dds, phase 34's ground texture).  Phase 34 holds the
+rebuilt files and the port's decodes of them to these hashes.
+
+Rerunning it rewrites both WebP files (the same bytes with PIL 12.1.0's
+libwebp); the CPU tests tests/test_torch_image_formats_webp.py::
+test_committed_fixtures_hashes and tests/test_torch_image_formats_bcn.py::
+test_rebuilt_block_maps_hashes hold the files to the recorded hashes.
 """
 import hashlib
 import io
@@ -33,7 +42,10 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "tests" / "data" / "images"
 sys.path.insert(0, str(ROOT / "scripts"))
 
+import block_maps  # noqa: E402
 import time_image_decode as tid  # noqa: E402
+
+GROUND_BC7 = "ground_1024x512_bc7.dds"
 
 
 def ground(w, h, seed=7):
@@ -72,6 +84,23 @@ def written_hashes(px, tmp):
     return out
 
 
+def block_map_records(ground_webp):
+    """images.json's records of the rebuilt block-compressed files."""
+    ground_px = np.asarray(Image.open(ground_webp).convert("RGB"))
+    files = dict(block_maps.block_files())
+    files[GROUND_BC7] = block_maps.encode_dds("BC7", ground_px)
+    out = {}
+    for name, data in sorted(files.items()):
+        digest, shape = decoded_hash(io.BytesIO(data))
+        out[name] = {"rebuilt_by": "scripts/block_maps.py",
+                     "sha256_of_bytes": hashlib.sha256(data).hexdigest(),
+                     "sha256_of_pil_samples": digest, "shape": shape,
+                     "bytes": len(data)}
+        print(f"{name}: {len(data)} bytes, PIL samples {shape} sha256 "
+              f"{digest}")
+    return out
+
+
 def main():
     OUT.mkdir(parents=True, exist_ok=True)
     files = {"sky_2048x1024_q90.webp": tid.sky(2048, 1024, 255),
@@ -93,6 +122,7 @@ def main():
                 record[name].update(
                     written_crop=list(WRITTEN_CROP),
                     sha256_of_pil_files=written_hashes(crop, tmp))
+    record.update(block_map_records(OUT / "ground_1024x512_q90.webp"))
     (OUT / "images.json").write_text(json.dumps(record, indent=1) + "\n")
 
 

@@ -43,6 +43,8 @@ def main():
     print(f"setup {time.time() - t0:.1f} s", flush=True)
     print(cs.timed("other integrators", cs.phase_integrators, dev, scene,
                    card))
+    cs.timed("other integrators, small", cs.phase_integrators_small, dev,
+             card)
     r = subprocess.run([sys.executable, "-m", "pytest", "--noconftest",
                         "-q", "-m", "cuda", "tests/test_torch_cuda.py", "-k",
                         "other_integrators", "-p", "no:cacheprovider"],

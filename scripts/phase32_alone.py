@@ -1,8 +1,10 @@
-"""chip_smoke.py's phases 32 (image formats) and 33 (image writers, which
-converts phase 32's map frame) alone on the CUDA card, with the phases
-they need: 8 (the 1280x720 cloud over the 256^3 grid), 14 (its wave
-frame) and 28 (the grid through a .nvdb and nanovdb2pbrt into the block
-phase 32 Includes).
+"""chip_smoke.py's phases 32 (image formats), 33 (image writers, which
+converts phase 32's map frame) and 34 (block-compressed maps, which
+reuses phase 32's medium file, ground samples and 8-bit TIFF and holds
+its frame's mean against phase 32's uniform sky's) alone on the CUDA
+card, with the phases they need: 8 (the 1280x720 cloud over the 256^3
+grid), 14 (its wave frame) and 28 (the grid through a .nvdb and
+nanovdb2pbrt into the block phase 32 Includes).
 
     python3 scripts/phase32_alone.py [--frame-out PATH]
 
@@ -40,12 +42,15 @@ def main():
     with tempfile.TemporaryDirectory() as keep:
         cs.timed("scene file", cs.phase_scene_file, dev, scene, wave_img,
                  card, keep)
-        print(cs.timed("image formats", cs.phase_image_formats, dev, keep,
-                       card))
+        *formats, uniform_mean = cs.timed(
+            "image formats", cs.phase_image_formats, dev, keep, card)
+        print(formats, uniform_mean)
         if args.frame_out:
             Path(args.frame_out).parent.mkdir(parents=True, exist_ok=True)
             shutil.copy(Path(keep) / cs.IMAGE_MAP_FRAME, args.frame_out)
         print(cs.timed("image writers", cs.phase_image_writers, keep, card))
+        print(cs.timed("block maps", cs.phase_block_maps, dev, keep,
+                       uniform_mean, card))
     return 0
 
 

@@ -494,13 +494,14 @@ def cpu_line():
 
 
 def time_formats(width=2048, height=1024, webp_path=None, reps=3,
-                 sky16=None):
+                 sky16=None, files=None):
     """[(name, file bytes, write seconds, [decode seconds] * reps, ok)]:
     each format written at width x height and decoded `reps` times by
     utils/image.py's _decode_image (the path read_image takes); ok: the
     decode equals the written samples (the JPEG: PSNR > 20 dB; the WebP:
     its shape).  sky16: sky_tiff's bytes when the caller has them (its
-    write is then not timed again)."""
+    write is then not timed again).  files: a dict that gains each
+    written file's bytes under its kind ("jpeg", "tiff 8-bit", ...)."""
     from acceleratedvolrenderer_tpu_torch.utils import webp
 
     s8, s16 = sky(width, height, 255), sky(width, height)
@@ -513,9 +514,9 @@ def time_formats(width=2048, height=1024, webp_path=None, reps=3,
     cases = [
         ("JPEG 4:2:0 baseline", lambda: encode_jpeg(rgb), rgb, "jpeg"),
         ("TIFF 8-bit RGB LZW + predictor", lambda: encode_tiff(s8), s8,
-         "tiff"),
+         "tiff 8-bit"),
         ("TIFF 16-bit RGB LZW + predictor",
-         lambda: sky16 or sky_tiff(width, height), s16, "tiff"),
+         lambda: sky16 or sky_tiff(width, height), s16, "tiff 16-bit"),
         ("GIF 256 colours, interlaced",
          lambda: encode_gif(gif_idx.astype(np.uint8), pal, interlace=True),
          pal[gif_idx], "gif"),
@@ -527,10 +528,12 @@ def time_formats(width=2048, height=1024, webp_path=None, reps=3,
         t0 = time.time()
         data = make()
         write = time.time() - t0
+        if files is not None:
+            files[kind] = data
         secs, got = [], None
         for _ in range(reps):
             t0 = time.time()
-            got = image._decode_image(f"x.{kind}", data)
+            got = image._decode_image(f"x.{kind.split()[0]}", data)
             secs.append(time.time() - t0)
         if kind == "jpeg":
             mse = float(np.mean((got.astype(float) - want) ** 2))

@@ -19,10 +19,10 @@ channels, a palette BMP its indices), the port expands as pbrt does and
 is held to PIL's RGB conversion.  The formats this file once held as
 unread (arithmetic-coded, lossless and CMYK JPEG, GIF, TIFF, WebP,
 colour-mapped TGA, RLE and 16-bit BMP; then PCX, SGI, IM and
-uncompressed DDS) are read now and held to the same rule; every format
-left unread raises, naming itself (a block-compressed DDS too).  The new
-readers' own tests are in
-tests/test_torch_image_formats_{tiff,webp,more,scene,readback}.py.
+uncompressed DDS; then block-compressed DDS, PSD, ICO and BigTIFF) are
+read now and held to the same rule; every format left unread raises,
+naming itself.  The new readers' own tests are in
+tests/test_torch_image_formats_{tiff,webp,more,scene,readback,bcn,psd_ico}.py.
 """
 import io
 import struct
@@ -229,17 +229,12 @@ UNREAD = {
     "jpeg2000_codestream": (".j2k", lambda: _other("JPEG2000",
                                                    no_jp2=True),
                             "JPEG 2000 codestream"),
-    "dds_dxt1": (".dds", lambda: _other("DDS", pixel_format="DXT1"),
-                 r"block-compressed DDS \(DXT1\)"),
-    "psd": (".psd", lambda: b"8BPS\0\1" + b"\0" * 40, "PSD"),
-    "ico": (".ico", lambda: _other("ICO"), "ICO"),
     "pam": (".pam", lambda: b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 3\nMAXVAL 255\n"
             b"ENDHDR\n" + bytes(6), "PAM"),
     "pfm": (".pfm", lambda: b"PF\n2 1\n-1.0\n" + bytes(24), "PFM"),
-    "bigtiff": (".tif", lambda: b"II+\0\x08\0\0\0" + bytes(16), "BigTIFF"),
     "unknown": (".xyz", lambda: b"\x00\x01\x02\x03" * 8,
                 "not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm, "
-                "PCX, SGI, IM, DDS or TGA image"),
+                "PCX, SGI, IM, DDS, PSD, ICO, CUR or TGA image"),
 }
 
 
@@ -280,6 +275,12 @@ NOW_READ = {
     "pcx": (".pcx", lambda: _other("PCX"), "reference"),
     "sgi": (".sgi", lambda: _other("SGI"), "reference"),
     "im": (".im", lambda: _other("IM"), "reference"),
+    "dds_dxt1": (".dds", lambda: _other("DDS", pixel_format="DXT1"),
+                 "reference"),
+    "psd": (".psd", lambda: tiw.psd_file(_scene(37, 23).transpose(2, 0, 1),
+                                         "RGB", rle=True), "reference"),
+    "ico": (".ico", lambda: _other("ICO"), "reference"),
+    "bigtiff": (".tif", lambda: _other("TIFF", big_tiff=True), "reference"),
 }
 
 

@@ -8,7 +8,8 @@ IM with a lookup table) from tests/torch_image_writers.py or built here.
 The samples equal PIL's (palettes and 1-bit expanded to colours, as
 PIL's convert gives them), and read_image equals the reference's where
 PIL hands the reference colours (L, RGB, RGBA), else the linearised
-colours.  Block-compressed DDS files raise, naming their format.
+colours.  PIL's block-compressed DDS files (DXT1, DXT3, DXT5, BC3, BC5)
+are read too (tests/test_torch_image_formats_bcn.py holds every kind).
 """
 import io
 import struct
@@ -187,14 +188,11 @@ BLOCK_COMPRESSED = {
 
 
 @pytest.mark.parametrize("name", sorted(BLOCK_COMPRESSED))
-def test_block_compressed_dds_raise(tmp_path, name):
-    """PIL's DXT / BCn files (DX10 headers for BC3 and BC5) raise, naming
-    the format."""
+def test_block_compressed_dds_read(tmp_path, name):
+    """PIL's DXT / BCn files (DX10 headers for BC3 and BC5), which raised
+    until the block decoders came: PIL's samples, the reference's
+    read_image."""
     b = io.BytesIO()
     Image.fromarray(_pixels(8, 8)[..., :3]).save(b, "DDS",
                                                  **BLOCK_COMPRESSED[name])
-    path = tmp_path / "t.dds"
-    path.write_bytes(b.getvalue())
-    with pytest.raises(ValueError,
-                       match=f"block-compressed DDS \\({name}\\)"):
-        timage.read_image(str(path))
+    _check(tmp_path, b.getvalue(), ".dds", image_read.decode_dds)

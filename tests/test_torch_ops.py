@@ -117,6 +117,19 @@ def test_grids_bake_and_majorant_exact():
                               tgrid.build_majorant_grid(td, res))
 
 
+@pytest.mark.parametrize("res, kw", [
+    ((9, 13, 11), dict(density=2.0, extent=0.45, frequency=4.0, seed=3)),
+    ((21, 7, 33), dict(wispiness=0.7, frequency=5.0, seed=1)),
+])
+def test_bake_slabs_equal_reference(res, kw):
+    """The port bakes in slabs of BAKE_SLAB z-planes on threads; a depth
+    that is no multiple of it and uneven sides keep the reference's bits."""
+    assert res[2] % tmedia.BAKE_SLAB
+    jd = jmedia.bake_cloud_density(res=res, **kw)
+    td = tmedia.bake_cloud_density(res=res, **kw)
+    assert td.shape == (res[2], res[1], res[0]) and np.array_equal(jd, td)
+
+
 def test_trilerp_stochastic_and_flat():
     rng = np.random.default_rng(1)
     dims = (12, 10, 8)

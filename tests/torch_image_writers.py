@@ -2,9 +2,11 @@
 cannot write them: JPEG of any sampling, colour space and markers,
 arithmetic-coded (libjpeg's QM coder, jcarith.c) and lossless (SOF3)
 JPEG; TIFF of every compression, predictor, layout and byte order; RLE
-BMP; RLE and 16-bit SGI; 1-bit PCX.  Built on scripts/time_image_decode.py's writers, whose procedural
-images and GIF, QOI, netpbm and LZW writers are imported here too, so
-that the tests take their files from this one module.
+BMP; RLE and 16-bit SGI; 1-bit PCX in one, two or four planes.  Built on
+scripts/time_image_decode.py's writers, whose procedural images and GIF,
+QOI, netpbm and LZW writers are imported here too, as are
+scripts/block_maps.py's (block-compressed and palette DDS, PSD, BigTIFF,
+ICO and CUR), so that the tests take their files from this one module.
 """
 import io
 import struct
@@ -21,6 +23,9 @@ from time_image_decode import (  # noqa: E402,F401
     JFIF, BitWriter, baseline_jpeg, dqt, encode_gif, encode_netpbm,
     encode_qoi, jpeg_planes, lzw_encode, scene, segment, sky, tiff_entry,
     tiff_file, ycc)
+from block_maps import (  # noqa: E402,F401
+    bigtiff, block_files, dds_blocks, encode_dds, icon_dib, icon_file,
+    packbits_rows, palette_dds, psd_file)
 
 
 # ---------------------------------------------------------------- JPEG
@@ -618,15 +623,18 @@ def sgi_file(px, rle=False, bpc=1, name=b""):
     return head + tabs + b"".join(rows)
 
 
-def pcx_1bit(bits):
-    """A 1-bit, one-plane PCX (version 5) of bits (H, W) in {0, 1}, rows of
-    an even stride run-length coded as PIL codes them."""
+def pcx_1bit(bits, planes=1, palette=None, even=True):
+    """A 1-bit PCX (version 5) of bits (H, W) in {0, 1} (with planes 2 or 4,
+    indices (H, W) below 2^planes, plane p holding bit p, and the 16-colour
+    header palette (16, 3)), rows of the stride (even where `even`, else
+    the bytes the row needs) run-length coded as PIL codes them."""
     h, w = bits.shape
     stride = (w + 7) // 8
-    stride += stride % 2
-    rows = np.zeros((h, stride * 8), np.uint8)
-    rows[:, :w] = bits
-    packed = np.packbits(rows, axis=1)
+    stride += stride % 2 if even else 0
+    rows = np.zeros((h, planes, stride * 8), np.uint8)
+    for p in range(planes):
+        rows[:, p, :w] = (np.asarray(bits) >> p) & 1
+    packed = np.packbits(rows, axis=2).reshape(h, planes * stride)
     body = bytearray()
     for row in packed:
         i = 0
@@ -639,9 +647,11 @@ def pcx_1bit(bits):
             else:
                 body += bytes([0xC0 | (j - i), int(row[i])])
             i = j
+    pal = (b"\0" * 24 + b"\xff" * 24 if palette is None
+           else np.asarray(palette, np.uint8).tobytes())
     head = (struct.pack("<BBBBHHHHHH", 10, 5, 1, 1, 0, 0, w - 1, h - 1, 100,
-                        100) + b"\0" * 24 + b"\xff" * 24
-            + struct.pack("<BBHHHH", 0, 1, stride, 1, w, h) + b"\0" * 54)
+                        100) + pal
+            + struct.pack("<BBHHHH", 0, planes, stride, 1, w, h) + b"\0" * 54)
     return head + bytes(body)
 
 
