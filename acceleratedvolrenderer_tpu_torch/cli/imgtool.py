@@ -23,9 +23,9 @@ def _load(path):
     """(rgb (H, W, 3), attrs) of an EXR, PFM or QOI file by its extension
     (a .qoi linearized, as the reference's read_qoi does), else of any file
     utils/image.py's read_image decodes (PNG, JPEG, BMP, TIFF, WebP, GIF,
-    netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, TGA): its colours scaled to
-    [0, 1] (a float TIFF's values as stored) and not linearized, as the
-    reference's loader does.  write_png's .qoi (PIL's QOI) is read back
+    netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, JPEG 2000, TGA): its colours
+    scaled to [0, 1] (a float TIFF's values as stored) and not linearized,
+    as the reference's loader does.  write_png's .qoi (PIL's QOI) is read back
     linearized by the first rule and its .pfm (P6 bytes) refused by
     read_pfm, as in the reference."""
     from ..utils.image import _decode_image, png_unit, read_exr, read_pfm, \

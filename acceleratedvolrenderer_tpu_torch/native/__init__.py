@@ -1,6 +1,7 @@
 """Native (C++) host code, loaded with ctypes (port of
 acceleratedvolrenderer_tpu/native/__init__.py: merge_points and KDTree of
-the graph layer, and the LZ4 block codec of utils/blosc.py).
+the graph layer, and the LZ4 block codec of utils/blosc.py; and, the
+port's own, the JPEG 2000 tier 1 of utils/jpeg2000.py, j2k_t1.cpp).
 
 Each source is compiled with g++ on first use (not at import) into its own
 library under build/native/ at the repository root, with the reference's
@@ -9,7 +10,9 @@ has no fallback: when it cannot be built or loaded, its entry points
 raise, because a silent fallback to another merge would change the graph.
 The LZ4 entries return None when lz4.cpp cannot be built or loaded, as
 the reference's do, and utils/blosc.py then runs its pure-Python codec
-(the reference's choice, made there and only there).
+(the reference's choice, made there and only there).  j2k_decode_blocks
+returns None the same way, and utils/jpeg2000.py then runs the numpy
+twin (utils/j2k_t1.py), which gives the same samples.
 """
 from __future__ import annotations
 
@@ -26,12 +29,16 @@ BUILD_DIR = SRC.parents[2] / "build" / "native"
 LIB_PATH = BUILD_DIR / "libavrt_kdtree.so"
 LZ4_SRC = SRC.with_name("lz4.cpp")
 LZ4_LIB_PATH = BUILD_DIR / "libavrt_lz4.so"
+J2K_SRC = SRC.with_name("j2k_t1.cpp")
+J2K_LIB_PATH = BUILD_DIR / "libavrt_j2k_t1.so"
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib = None
 _lz4_lib = None
 _lz4_tried = False
+_j2k_lib = None
+_j2k_tried = False
 # what a failed build of each source leaves its callers
 NO_FALLBACK = {"kdtree.cpp": "the graph layer has no fallback merge: "}
 
@@ -193,3 +200,48 @@ def lz4_decompress_block(src: bytes, dst_size: int):
     if r != dst_size:
         raise ValueError(f"lz4: decoded {r} bytes, expected {dst_size}")
     return dst[:dst_size].tobytes()
+
+
+
+def j2k_library(required: bool = False):
+    """The loaded JPEG 2000 tier-1 library, built on first use; None when
+    it cannot be built or loaded (required: raise instead)."""
+    global _j2k_lib, _j2k_tried
+    with _lock:
+        if _j2k_lib is not None or (_j2k_tried and not required):
+            return _j2k_lib
+        _j2k_tried = True
+        try:
+            _build(J2K_LIB_PATH, J2K_SRC)
+            lib = ctypes.CDLL(str(J2K_LIB_PATH))
+        except (OSError, RuntimeError):
+            if required:
+                raise
+            return None
+        lib.avrt_j2k_decode_blocks.restype = None
+        lib.avrt_j2k_decode_blocks.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int64, ctypes.c_void_p]
+        _j2k_lib = lib
+        return lib
+
+
+def j2k_decode_blocks(blocks, required: bool = False):
+    """Tier 1 of JPEG 2000 code-blocks in C++ (j2k_t1.cpp), with the
+    arguments and results of utils/j2k_t1.py's decode_blocks; None when
+    the library is unavailable and not required."""
+    from ..utils.j2k_t1 import pack
+
+    lib = j2k_library(required)
+    if lib is None:
+        return None
+    buf, starts, npass = pack(blocks)
+    cols = [np.array([b[k] for b in blocks], np.int32).reshape(-1)
+            for k in (2, 3, 4, 5)]
+    sizes = cols[2].astype(np.int64) * cols[3]
+    outoffs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    out = np.zeros(max(int(sizes.sum()), 1), np.int32)
+    lib.avrt_j2k_decode_blocks(_ptr(buf), _ptr(starts), _ptr(npass),
+                               *(_ptr(c) for c in cols), _ptr(outoffs),
+                               len(blocks), _ptr(out))
+    return [out[o:o + s].reshape(h, w) for o, s, h, w in
+            zip(outoffs, sizes, cols[2], cols[3])]

@@ -1660,19 +1660,17 @@ def decode_qoi(data: bytes, index_start: int = 0) -> np.ndarray:
 
 
 # formats read_image names but does not read (their magic bytes)
-_UNREAD_MAGIC = ((b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
-                 (b"\xff\x4f\xff\x51", "JPEG 2000 codestream"),
-                 (b"PF", "PFM"), (b"Pf", "PFM"))
+_UNREAD_MAGIC = ((b"PF", "PFM"), (b"Pf", "PFM"))
 _NETPBM_EXT = (".pbm", ".pgm", ".ppm", ".pnm")
 
 
 def _decode_image(path: str, data: bytes) -> np.ndarray:
     """Samples (H, W, C) of a PNG, JPEG, BMP, TIFF (also BigTIFF), WebP,
     GIF, QOI, netpbm, PCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7),
-    PSD, ICO, CUR or (by its extension) TGA file: uint8 colours, uint16 for
-    16-bit samples, float32 for a float TIFF; raises ValueError naming any
-    other format."""
-    from . import image_read
+    PSD, ICO, CUR, JPEG 2000 (JP2 or raw codestream) or (by its extension)
+    TGA file: uint8 colours, uint16 for 16-bit samples, float32 for a float
+    TIFF; raises ValueError naming any other format."""
+    from . import image_read, jpeg2000
 
     ext = path.lower()
     if data[:8] == _PNG_MAGIC:
@@ -1712,24 +1710,28 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         return image_read.decode_ico(data)
     if data[:4] == b"\0\0\2\0":
         return image_read.decode_cur(data)
+    if data[:12] == jpeg2000.JP2_MAGIC:
+        return jpeg2000.decode_jp2(data)
+    if data[:4] == jpeg2000.J2K_MAGIC:
+        return jpeg2000.decode_j2k(data)
     for magic, name in _UNREAD_MAGIC:
         if data.startswith(magic):
             raise ValueError(f"{path}: {name} images are not read")
     raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, "
-                     "QOI, netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR or TGA "
-                     "image")
+                     "QOI, netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, "
+                     "JPEG 2000 or TGA image")
 
 
 def read_image(path: str):
     """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
     reader above; PNG, JPEG, BMP, TIFF (also BigTIFF), WebP, GIF, QOI,
     netpbm, PCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7), PSD,
-    ICO, CUR and TGA decoded here (by their magic bytes, TGA by its
-    extension), their colours (palettes expanded, gray repeated, alpha
-    dropped) over 255 or 65535, sRGB -> linear (Image::Read's
-    LinearColorEncoding handling, util/image.cpp); a float TIFF is linear
-    already and kept as stored, as EXR and PFM are.  Other formats raise,
-    naming the format."""
+    ICO, CUR, JPEG 2000 (JP2 and raw codestream) and TGA decoded here (by
+    their magic bytes, TGA by its extension), their colours (palettes
+    expanded, gray repeated, alpha dropped) over 255 or 65535, sRGB ->
+    linear (Image::Read's LinearColorEncoding handling, util/image.cpp); a
+    float TIFF is linear already and kept as stored, as EXR and PFM are.
+    Other formats raise, naming the format."""
     if path.endswith(".exr"):
         img, _names, attrs = read_exr(path)
         return np.asarray(img[:, :, :3], np.float32), attrs

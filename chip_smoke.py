@@ -341,6 +341,22 @@ ends; a failure in either process fails the script and ends the other.
      ICO of a 256x256 32-bit bitmap and a 256x256 PNG entry, each equal
      to its written samples; each step's seconds and the frame's peak
      device memory.
+ 35. JPEG 2000 maps (utils/jpeg2000.py, tier 1 in native/j2k_t1.cpp,
+     built by g++ here): (a) the committed fixtures (J2K_SKY: the
+     2048x1024 sky as a 9/7 JP2 at rates 80 and 40, RPCL, 512x512 tiles;
+     J2K_GROUND: the 1024x512 ground as a 5/3 codestream at rate 20;
+     J2K_CROP: a lossless 512x256 crop of the sky) decoded once each,
+     held to images.json's SHA-256 of the bytes and of PIL's samples,
+     host seconds and us per pixel printed, and the sky and the crop
+     decoded once more by the numpy tier 1 (utils/j2k_t1.py), equal,
+     seconds printed; (b) phase 32's file with the JP2 as the infinite
+     light's map and the codestream as the ground's imagemap, rendered by
+     the CLI at 1280x720 spp 1 with the parser's warnings made errors,
+     held as phase 34's frame is (maps_frame): the parsed maps equal
+     read_image's bit for bit, one march launch per loop iteration and
+     no gather or dma launch, the march call BCN_CAPTURE_CALL equal to
+     plain, the mean apart from phase 32's uniform-sky frame's, the 32x24
+     version on the card and the CPU within SURF_MEAN_TOL.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -362,8 +378,11 @@ the march launches of phase 32's three CLI frames, and its captured
 call's `image_formats_max_abs_err`; `image_writers_max_abs_err`, phase
 33's largest read-back |diff| of a lossless file, no kernel's;
 `bcn_maps_launches`, the march launches of phase 34's frame, and its
-captured call's `bcn_maps_max_abs_err`) and the result JSON.
+captured call's `bcn_maps_max_abs_err`; `j2k_maps_launches` and
+`j2k_maps_max_abs_err`, the same of phase 35's frame) and the result
+JSON.
 """
+import hashlib
 import json
 import os
 import pickle
@@ -3948,8 +3967,8 @@ def image_formats_file_text(width, height, medium, sky=None, ground=None):
 def image_fixture_checks():
     """The committed lossy WebP fixtures decoded by the port, each held to
     the SHA-256 of PIL's samples in images.json (whose entries with
-    `rebuilt_by` are phase 34's, not committed); returns the decoded
-    ground texture."""
+    `rebuilt_by` are phase 34's, not committed, and whose JPEG 2000 files
+    are phase 35's); returns the decoded ground texture."""
     import hashlib
 
     from acceleratedvolrenderer_tpu_torch.utils import webp
@@ -3957,7 +3976,7 @@ def image_fixture_checks():
     record = json.loads((IMAGE_FIXTURES / "images.json").read_text())
     out = {}
     for name, rec in sorted(record.items()):
-        if "rebuilt_by" in rec:
+        if "rebuilt_by" in rec or not name.endswith(".webp"):
             continue
         px = webp.decode_webp((IMAGE_FIXTURES / name).read_bytes())
         digest = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
@@ -4147,15 +4166,6 @@ def phase_block_maps(dev, keep, uniform_mean, card):
     """Phase 34 (see the module docstring); keep holds phase 32's medium
     file, ground samples and 8-bit LZW TIFF.  Returns the frame's march
     launches and its captured call's max |diff|."""
-    import contextlib
-    import warnings
-
-    from acceleratedvolrenderer_tpu_torch.models import lights, textures
-    from acceleratedvolrenderer_tpu_torch.ops import march
-    from acceleratedvolrenderer_tpu_torch.parallel import render
-    from acceleratedvolrenderer_tpu_torch.scene import parser
-    from acceleratedvolrenderer_tpu_torch.utils import image
-
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import block_maps as bm
     import time_image_decode as tid
@@ -4193,80 +4203,154 @@ def phase_block_maps(dev, keep, uniform_mean, card):
         # (b) the frame: the BC6H sky and the BC7 ground by the CLI
         (work / "sky.dds").write_bytes(files[BCN_SKY])
         (work / "ground.dds").write_bytes(files[BCN_GROUND])
-        W, H = FULL
-        path = work / "bcn.pbrt"
-        path.write_text(image_formats_file_text(
-            W, H, Path(keep) / IMAGE_MEDIUM, sky=work / "sky.dds",
-            ground="ground.dds"))
-        steps, parsed = {}, []
-        load_scene = parser.load_scene
-
-        def strict_load(*args, **kw):
-            t = time.time()
-            with warnings.catch_warnings():
-                warnings.simplefilter("error")
-                parsed.append(load_scene(*args, **kw))
-            steps["parse"] = time.time() - t
-            return parsed[-1]
-
-        captured, capture = march_capture(BCN_CAPTURE_CALL)
-        out = str(work / "bcn.exr")
-        torch.cuda.reset_peak_memory_stats(dev)
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(mock.patch.object(parser, "load_scene",
-                                                  strict_load))
-            stack.enter_context(mock.patch.object(march, "march_block",
-                                                  capture))
-            zero_kernel_counts()
-            t = time.time()
-            st = run_cli([str(path), "-o", out, "--spp", "1", "--stats"])
-            cli = time.time() - t
-            counts = kernel_counts()
-        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        img = image.read_exr(out)[0]
-        rel = abs(float(img.mean()) - uniform_mean) / uniform_mean
-        print(f"block maps (b): pbrt {W}x{H} spp 1: parse "
-              f"{steps['parse']:.2f} s, render {st['render_time']:.3f} s "
-              f"({st['iterations']} iterations), the CLI call {cli:.2f} s; "
-              f"(march, gather, dma) launches {counts}; peak device memory "
-              f"{peak:.3f} GiB; film mean {img.mean():.6f}, rel diff "
-              f"{rel:.4e} from phase 32's uniform sky's; {card}", flush=True)
-        _check_frame("block maps (b)", img, (H, W, 3))
-        if counts != (st["iterations"], 0, 0):
-            raise AssertionError(f"block maps (b): launches {counts} for "
-                                 f"{st['iterations']} iterations")
-        if rel < 1e-3:
-            raise AssertionError("block maps (b): the frame's mean equals "
-                                 "the uniform sky's (map dropped?)")
-        sc = parsed[-1]
-        sky = [x.image for x in _instances(sc, lights.ImageInfiniteLight)]
-        ground = [x.image for x in _instances(sc, textures.ImageTexture)]
-        want_sky = image.read_image(str(work / "sky.dds"))[0]
-        want_ground = image.read_image(str(work / "ground.dds"))[0]
-        same = (len(sky) == 1 and len(ground) == 1
-                and np.array_equal(sky[0], want_sky)
-                and np.array_equal(ground[0].reshape(want_ground.shape),
-                                   want_ground))
-        print(f"block maps (b): the parsed sky {want_sky.shape} and ground "
-              f"{want_ground.shape} maps {'equal' if same else 'DIFFER FROM'}"
-              f" read_image's, bit for bit", flush=True)
-        if not same:
-            raise AssertionError("block maps (b): parsed maps differ from "
-                                 "read_image's")
-        err = check_captured_march("block maps (b)", captured,
-                                   BCN_CAPTURE_CALL)
-        small = replace(sc, camera=sc.camera._replace(width=32, height=24))
-        t = time.time()
-        imgs = [render.render(small, device=dev)[0],
-                render.render(small.to("cpu"), device="cpu")[0]]
-        compare_frames("block maps (b) 32x24 gpu vs cpu", *imgs,
-                       mean_tol=SURF_MEAN_TOL)
-        print(f"block maps (b): the 32x24 frames in {time.time() - t:.2f} s",
-              flush=True)
-        del sc, small, parsed
+        return maps_frame("block maps (b)", dev, keep, work, "sky.dds",
+                          "ground.dds", uniform_mean, card)
     finally:
         shutil.rmtree(work)
+
+
+def maps_frame(what, dev, keep, work, sky, ground, uniform_mean, card):
+    """Phase 32's file (keep holds its medium file) with the map work/sky
+    as the infinite light's and work/ground as the ground's imagemap,
+    rendered by the CLI at FULL spp 1 with the parser's warnings made
+    errors: the parsed maps equal read_image's bit for bit, one march
+    launch per loop iteration and no gather or dma launch, the march call
+    BCN_CAPTURE_CALL equal to plain, the mean apart from phase 32's
+    uniform-sky frame's, the 32x24 version on the card and the CPU within
+    SURF_MEAN_TOL.  Returns the march launches and the captured call's
+    max |diff|."""
+    import contextlib
+    import warnings
+
+    from acceleratedvolrenderer_tpu_torch.models import lights, textures
+    from acceleratedvolrenderer_tpu_torch.ops import march
+    from acceleratedvolrenderer_tpu_torch.parallel import render
+    from acceleratedvolrenderer_tpu_torch.scene import parser
+    from acceleratedvolrenderer_tpu_torch.utils import image
+
+    W, H = FULL
+    path = work / "maps.pbrt"
+    path.write_text(image_formats_file_text(
+        W, H, Path(keep) / IMAGE_MEDIUM, sky=work / sky, ground=ground))
+    steps, parsed = {}, []
+    load_scene = parser.load_scene
+
+    def strict_load(*args, **kw):
+        t = time.time()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            parsed.append(load_scene(*args, **kw))
+        steps["parse"] = time.time() - t
+        return parsed[-1]
+
+    captured, capture = march_capture(BCN_CAPTURE_CALL)
+    out = str(work / "maps.exr")
+    torch.cuda.reset_peak_memory_stats(dev)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(parser, "load_scene",
+                                              strict_load))
+        stack.enter_context(mock.patch.object(march, "march_block",
+                                              capture))
+        zero_kernel_counts()
+        t = time.time()
+        st = run_cli([str(path), "-o", out, "--spp", "1", "--stats"])
+        cli = time.time() - t
+        counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    img = image.read_exr(out)[0]
+    rel = abs(float(img.mean()) - uniform_mean) / uniform_mean
+    print(f"{what}: pbrt {W}x{H} spp 1: parse "
+          f"{steps['parse']:.2f} s, render {st['render_time']:.3f} s "
+          f"({st['iterations']} iterations), the CLI call {cli:.2f} s; "
+          f"(march, gather, dma) launches {counts}; peak device memory "
+          f"{peak:.3f} GiB; film mean {img.mean():.6f}, rel diff "
+          f"{rel:.4e} from phase 32's uniform sky's; {card}", flush=True)
+    _check_frame(what, img, (H, W, 3))
+    if counts != (st["iterations"], 0, 0):
+        raise AssertionError(f"{what}: launches {counts} for "
+                             f"{st['iterations']} iterations")
+    if rel < 1e-3:
+        raise AssertionError(f"{what}: the frame's mean equals "
+                             "the uniform sky's (map dropped?)")
+    sc = parsed[-1]
+    sky_maps = [x.image for x in _instances(sc, lights.ImageInfiniteLight)]
+    ground_maps = [x.image for x in _instances(sc, textures.ImageTexture)]
+    want_sky = image.read_image(str(work / sky))[0]
+    want_ground = image.read_image(str(work / ground))[0]
+    same = (len(sky_maps) == 1 and len(ground_maps) == 1
+            and np.array_equal(sky_maps[0], want_sky)
+            and np.array_equal(ground_maps[0].reshape(want_ground.shape),
+                               want_ground))
+    print(f"{what}: the parsed sky {want_sky.shape} and ground "
+          f"{want_ground.shape} maps {'equal' if same else 'DIFFER FROM'}"
+          f" read_image's, bit for bit", flush=True)
+    if not same:
+        raise AssertionError(f"{what}: parsed maps differ from "
+                             "read_image's")
+    err = check_captured_march(what, captured, BCN_CAPTURE_CALL)
+    small = replace(sc, camera=sc.camera._replace(width=32, height=24))
+    t = time.time()
+    imgs = [render.render(small, device=dev)[0],
+            render.render(small.to("cpu"), device="cpu")[0]]
+    compare_frames(f"{what} 32x24 gpu vs cpu", *imgs,
+                   mean_tol=SURF_MEAN_TOL)
+    print(f"{what}: the 32x24 frames in {time.time() - t:.2f} s", flush=True)
+    del sc, small, parsed
     return counts[0], err
+
+
+J2K_SKY = "sky_2048x1024_97.jp2"            # phase 35's maps (images.json)
+J2K_GROUND = "ground_1024x512_53.j2k"
+J2K_CROP = "sky_512x256_lossless.jp2"
+
+
+def phase_j2k_maps(dev, keep, uniform_mean, card):
+    """Phase 35 (see the module docstring); keep holds phase 32's medium
+    file.  Returns the frame's march launches and its captured call's
+    max |diff|."""
+    from acceleratedvolrenderer_tpu_torch import native
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import time_image_decode as tid
+
+    record = json.loads((IMAGE_FIXTURES / "images.json").read_text())
+    print(f"JPEG 2000 maps: host CPU {tid.cpu_line()}; {card}", flush=True)
+    t0 = time.time()
+    native.j2k_library(required=True)
+    print(f"JPEG 2000 maps: C++ tier 1 built or loaded in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    # (a) each fixture decoded once, held to the hashes of its bytes and of
+    # PIL's samples; the sky and the lossless crop once more by the numpy
+    # tier 1
+    bad = []
+    paths = [IMAGE_FIXTURES / n for n in (J2K_SKY, J2K_GROUND, J2K_CROP)]
+    for name, size, shape, secs, twin, ok in tid.time_jpeg2000(
+            paths, record, (J2K_SKY, J2K_CROP)):
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        ok = ok and hashlib.sha256(data).hexdigest() == record[name][
+            "sha256_of_bytes"]
+        px = shape[0] * shape[1]
+        line = (f"JPEG 2000 maps (a): {name} {shape[1]}x{shape[0]}: {size} "
+                f"bytes, decode {secs:.3f} s ({1e6 * secs / px:.3f} "
+                f"us/pixel, C++ tier 1)")
+        if twin is not None:
+            line += (f", {twin:.3f} s ({1e6 * twin / px:.3f} us/pixel) "
+                     "with the numpy tier 1")
+        print(f"{line}; {'at' if ok else 'NOT at'} images.json's hashes",
+              flush=True)
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"JPEG 2000 maps: wrong files or decodes {bad}")
+    # (b) the frame: the JP2 sky and the J2K ground by the CLI
+    work = Path(tempfile.mkdtemp())
+    try:
+        for name in (J2K_SKY, J2K_GROUND):
+            shutil.copy(IMAGE_FIXTURES / name, work / name)
+        return maps_frame("JPEG 2000 maps (b)", dev, keep, work, J2K_SKY,
+                          J2K_GROUND, uniform_mean, card)
+    finally:
+        shutil.rmtree(work)
 
 
 def psnr(a, b):
@@ -4567,6 +4651,10 @@ def main():
         (march_rec["bcn_maps_launches"],
          march_rec["bcn_maps_max_abs_err"]) = timed(
             "block maps", phase_block_maps, dev, keep.name, uniform_mean,
+            card)
+        (march_rec["j2k_maps_launches"],
+         march_rec["j2k_maps_max_abs_err"]) = timed(
+            "JPEG 2000 maps", phase_j2k_maps, dev, keep.name, uniform_mean,
             card)
         keep.cleanup()
         side_out = timed("side process", side.finish)

@@ -23,6 +23,19 @@ and its timed decodes) and the ground's decoded samples in BC7
 (ground_1024x512_bc7.dds, phase 34's ground texture).  Phase 34 holds the
 rebuilt files and the port's decodes of them to these hashes.
 
+It writes the JPEG 2000 fixtures of chip_smoke.py phase 35 from the WebP
+fixtures' samples (PIL's decode), with their SHA-256 and that of PIL's
+decode of each (`sha256_of_bytes`, `sha256_of_pil_samples`):
+  - sky_2048x1024_97.jp2: JP2, irreversible 9/7, quality layers at rates
+    80 and 40, RPCL, 512x512 tiles, 32x32 code-blocks, 128x128 precincts
+    (phase 35's sky map);
+  - ground_1024x512_53.j2k: a raw codestream, reversible 5/3, one layer
+    at rate 20, LRCP, default code-blocks (phase 35's ground texture);
+  - sky_512x256_lossless.jp2: the sky's first 512x256 pixels, lossless
+    5/3 (timed by phase 35 and scripts/time_image_decode.py).
+tests/test_torch_image_formats_j2k.py::test_committed_fixtures_hashes
+holds them to the recorded hashes.
+
 Rerunning it rewrites both WebP files (the same bytes with PIL 12.1.0's
 libwebp); the CPU tests tests/test_torch_image_formats_webp.py::
 test_committed_fixtures_hashes and tests/test_torch_image_formats_bcn.py::
@@ -101,6 +114,35 @@ def block_map_records(ground_webp):
     return out
 
 
+J2K_FILES = {
+    "sky_2048x1024_97.jp2": ("sky", None, dict(
+        irreversible=True, quality_layers=[80, 40], progression="RPCL",
+        tile_size=(512, 512), codeblock_size=(32, 32),
+        precinct_size=(128, 128))),
+    "ground_1024x512_53.j2k": ("ground", None, dict(
+        quality_layers=[20], progression="LRCP")),
+    "sky_512x256_lossless.jp2": ("sky", (512, 256), {}),
+}
+
+
+def jpeg2000_records(sky_webp, ground_webp):
+    """Write the JPEG 2000 fixtures; their images.json records."""
+    src = {"sky": np.asarray(Image.open(sky_webp).convert("RGB")),
+           "ground": np.asarray(Image.open(ground_webp).convert("RGB"))}
+    out = {}
+    for name, (which, crop, kw) in J2K_FILES.items():
+        px = src[which] if crop is None else src[which][:crop[1], :crop[0]]
+        Image.fromarray(px).save(OUT / name, **kw)
+        data = (OUT / name).read_bytes()
+        digest, shape = decoded_hash(OUT / name)
+        out[name] = {"sha256_of_bytes": hashlib.sha256(data).hexdigest(),
+                     "sha256_of_pil_samples": digest, "shape": shape,
+                     "bytes": len(data)}
+        print(f"{name}: {len(data)} bytes, PIL samples {shape} sha256 "
+              f"{digest}")
+    return out
+
+
 def main():
     OUT.mkdir(parents=True, exist_ok=True)
     files = {"sky_2048x1024_q90.webp": tid.sky(2048, 1024, 255),
@@ -123,6 +165,8 @@ def main():
                     written_crop=list(WRITTEN_CROP),
                     sha256_of_pil_files=written_hashes(crop, tmp))
     record.update(block_map_records(OUT / "ground_1024x512_q90.webp"))
+    record.update(jpeg2000_records(OUT / "sky_2048x1024_q90.webp",
+                                   OUT / "ground_1024x512_q90.webp"))
     (OUT / "images.json").write_text(json.dumps(record, indent=1) + "\n")
 
 

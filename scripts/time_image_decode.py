@@ -18,7 +18,15 @@ the encoders below, and decoded three times:
     LZW with the predictor (the sky map of chip_smoke.py's phase 32);
   - GIF: 256 colours, interlaced; QOI: RGB; PPM: binary, maxval 255;
   - WebP: a lossy quality-90 file made by PIL, committed under
-    tests/data/images/ (scripts/make_image_fixtures.py), when given.
+    tests/data/images/ (scripts/make_image_fixtures.py), when given;
+  - JPEG 2000: the committed fixtures (a 2048x1024 9/7 JP2, a 1024x512
+    5/3 codestream, a 512x256 lossless JP2) or the files given with
+    --j2k (say a lossless 2048x1024 JP2 that PIL wrote), decoded once
+    with the C++ tier 1 (native/j2k_t1.cpp) and, with --twin, once with
+    the numpy twin (utils/j2k_t1.py); both must give the same samples,
+    at images.json's hash of PIL's where it records the file.
+
+    python3 scripts/time_image_decode.py --j2k a.jp2 b.j2k --twin
 
 The lossless files must decode to the written samples exactly.  Prints
 the host's CPU, each file's size and write seconds and each decode's
@@ -29,6 +37,7 @@ and lossless JPEG; TIFF of every layout and compression) are in
 tests/torch_image_writers.py, built on the pieces here.
 """
 import argparse
+import json
 import os
 import platform
 import struct
@@ -39,6 +48,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
+J2K_FIXTURES = ("sky_2048x1024_97.jp2", "ground_1024x512_53.j2k",
+                "sky_512x256_lossless.jp2")
 sys.path.insert(0, str(ROOT))
 
 from acceleratedvolrenderer_tpu_torch.utils import image  # noqa: E402
@@ -493,15 +504,54 @@ def cpu_line():
     return f"{model}, {platform.machine()}, {os.cpu_count()} cores"
 
 
+def time_jpeg2000(paths, record=None, twin=()):
+    """[(name, bytes, shape, C++ seconds, numpy seconds or None, ok)]: each
+    JPEG 2000 file decoded once by utils/image.py's _decode_image (tier 1
+    in C++, which must build) and, for the names in twin, once more with
+    the numpy tier 1; ok: the two decodes are equal, and the samples'
+    SHA-256 is record[name]["sha256_of_pil_samples"] where record holds
+    the name."""
+    import hashlib
+
+    from acceleratedvolrenderer_tpu_torch import native
+    from acceleratedvolrenderer_tpu_torch.utils import jpeg2000
+
+    native.j2k_library(required=True)
+    out = []
+    for path in map(Path, paths):
+        data = path.read_bytes()
+        t0 = time.time()
+        got = image._decode_image(str(path), data)
+        secs = time.time() - t0
+        ok = True
+        twin_secs = None
+        if path.name in twin:
+            fn = (jpeg2000.decode_jp2 if data[:12] == jpeg2000.JP2_MAGIC
+                  else jpeg2000.decode_j2k)
+            t0 = time.time()
+            ok = np.array_equal(fn(data, native=False), got)
+            twin_secs = time.time() - t0
+        rec = (record or {}).get(path.name)
+        if rec is not None:
+            digest = hashlib.sha256(np.ascontiguousarray(got).tobytes())
+            ok = ok and digest.hexdigest() == rec["sha256_of_pil_samples"] \
+                and list(got.shape) == rec["shape"]
+        out.append((path.name, len(data), got.shape, secs, twin_secs,
+                    bool(ok)))
+    return out
+
+
 def time_formats(width=2048, height=1024, webp_path=None, reps=3,
-                 sky16=None, files=None):
+                 sky16=None, files=None, j2k=(), twin=False):
     """[(name, file bytes, write seconds, [decode seconds] * reps, ok)]:
     each format written at width x height and decoded `reps` times by
     utils/image.py's _decode_image (the path read_image takes); ok: the
     decode equals the written samples (the JPEG: PSNR > 20 dB; the WebP:
     its shape).  sky16: sky_tiff's bytes when the caller has them (its
     write is then not timed again).  files: a dict that gains each
-    written file's bytes under its kind ("jpeg", "tiff 8-bit", ...)."""
+    written file's bytes under its kind ("jpeg", "tiff 8-bit", ...).
+    j2k: JPEG 2000 files, decoded once each by time_jpeg2000 (twin: also
+    by the numpy tier 1, a record of its own), held to images.json."""
     from acceleratedvolrenderer_tpu_torch.utils import webp
 
     s8, s16 = sky(width, height, 255), sky(width, height)
@@ -550,6 +600,16 @@ def time_formats(width=2048, height=1024, webp_path=None, reps=3,
             secs.append(time.time() - t0)
         out.append((f"WebP lossy ({Path(webp_path).name})", len(data), 0.0,
                     secs, got.shape[:2] == (height, width)))
+    record = json.loads((ROOT / "tests/data/images/images.json").read_text(
+    )) if j2k else None
+    names = [Path(p).name for p in j2k] if twin else ()
+    for name, size, shape, secs, twin_secs, ok in time_jpeg2000(
+            j2k, record, names):
+        what = f"JPEG 2000 {name} {shape[1]}x{shape[0]}"
+        out.append((f"{what} (C++ tier 1)", size, 0.0, [secs], ok))
+        if twin_secs is not None:
+            out.append((f"{what} (numpy tier 1)", size, 0.0, [twin_secs],
+                        ok))
     return out
 
 
@@ -559,16 +619,22 @@ def main():
     ap.add_argument("--height", type=int, default=1024)
     ap.add_argument("--webp", default=str(
         ROOT / "tests/data/images/sky_2048x1024_q90.webp"))
+    ap.add_argument("--j2k", nargs="*", default=[
+        str(ROOT / "tests/data/images" / n) for n in J2K_FIXTURES])
+    ap.add_argument("--twin", action="store_true",
+                    help="also time the numpy tier 1 of each JPEG 2000")
     a = ap.parse_args()
     webp_path = a.webp if Path(a.webp).exists() and (
         a.width, a.height) == (2048, 1024) else None
     print(f"host CPU: {cpu_line()}")
     bad = []
-    for name, size, write, secs, ok in time_formats(a.width, a.height,
-                                                    webp_path):
-        print(f"{name} {a.width}x{a.height}: {size} bytes, written in "
-              f"{write:.2f} s; decode {', '.join(f'{s:.3f}' for s in secs)}"
-              f" s; {'equal to the source' if ok else 'WRONG'}")
+    for name, size, write, secs, ok in time_formats(
+            a.width, a.height, webp_path, j2k=a.j2k, twin=a.twin):
+        at = "" if name.startswith("JPEG 2000") else \
+            f" {a.width}x{a.height}"
+        print(f"{name}{at}: {size} bytes, written in {write:.2f} s; decode "
+              f"{', '.join(f'{s:.3f}' for s in secs)} s; "
+              f"{'equal to the source' if ok else 'WRONG'}")
         if not ok:
             bad.append(name)
     if bad:

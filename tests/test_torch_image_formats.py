@@ -198,6 +198,14 @@ def _other(fmt, **kw):
     return b.getvalue()
 
 
+def _j2k_patched(data, offset, bits):
+    """A JPEG 2000 file with bits set in byte `offset` of its COD segment's
+    body (8: the code-block style, 0: Scod)."""
+    data = bytearray(data)
+    data[data.index(b"\xff\x52") + 4 + offset] |= bits
+    return bytes(data)
+
+
 def _palette_tga():
     b = io.BytesIO()
     Image.fromarray(_scene(37, 23)).convert("P").save(b, "TGA")
@@ -225,16 +233,18 @@ UNREAD = {
         _scene(37, 23), jfif=True), "lossless JPEG in YCbCr"),
     "12bit_jpeg": (".jpg", lambda: tiw.patch_sof(tiw.pil_jpeg(), precision=12),
                    "12-bit"),
-    "jpeg2000": (".jp2", lambda: _other("JPEG2000"), "JPEG 2000"),
-    "jpeg2000_codestream": (".j2k", lambda: _other("JPEG2000",
-                                                   no_jp2=True),
-                            "JPEG 2000 codestream"),
+    # JPEG 2000 is read (test_torch_image_formats_j2k.py); what PIL's
+    # writer cannot make is refused, naming it
+    "jpeg2000": (".jp2", lambda: _j2k_patched(_other("JPEG2000"), 8, 1),
+                 "code-block mode switches"),
+    "jpeg2000_codestream": (".j2k", lambda: _j2k_patched(_other(
+        "JPEG2000", no_jp2=True), 0, 2), "SOP / EPH markers"),
     "pam": (".pam", lambda: b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 3\nMAXVAL 255\n"
             b"ENDHDR\n" + bytes(6), "PAM"),
     "pfm": (".pfm", lambda: b"PF\n2 1\n-1.0\n" + bytes(24), "PFM"),
     "unknown": (".xyz", lambda: b"\x00\x01\x02\x03" * 8,
                 "not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm, "
-                "PCX, SGI, IM, DDS, PSD, ICO, CUR or TGA image"),
+                "PCX, SGI, IM, DDS, PSD, ICO, CUR, JPEG 2000 or TGA image"),
 }
 
 
