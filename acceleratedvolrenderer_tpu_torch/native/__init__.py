@@ -12,7 +12,11 @@ The LZ4 entries return None when lz4.cpp cannot be built or loaded, as
 the reference's do, and utils/blosc.py then runs its pure-Python codec
 (the reference's choice, made there and only there).  j2k_decode_blocks
 returns None the same way, and utils/jpeg2000.py then runs the numpy
-twin (utils/j2k_t1.py), which gives the same samples.
+twin (utils/j2k_t1.py), which gives the same samples.  j2k_encode_blocks
+has no fallback: it raises when j2k_t1.cpp cannot be built or loaded, and
+so does utils/jpeg2000_write.py, whose plain-Python twin (utils/j2k_t1.py's
+encode_blocks) is far too slow for a frame and holds the C++ encoder in
+the tests only.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ _lz4_tried = False
 _j2k_lib = None
 _j2k_tried = False
 # what a failed build of each source leaves its callers
-NO_FALLBACK = {"kdtree.cpp": "the graph layer has no fallback merge: "}
+NO_FALLBACK = {"kdtree.cpp": "the graph layer has no fallback merge: ",
+               "j2k_t1.cpp": "JPEG 2000 writing has no fallback encoder: "}
 
 
 def _build(lib_path: Path, src: Path = SRC):
@@ -221,6 +226,9 @@ def j2k_library(required: bool = False):
         lib.avrt_j2k_decode_blocks.restype = None
         lib.avrt_j2k_decode_blocks.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int64, ctypes.c_void_p]
+        lib.avrt_j2k_encode_blocks.restype = ctypes.c_int64
+        lib.avrt_j2k_encode_blocks.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int64] + [ctypes.c_void_p] * 5
         _j2k_lib = lib
         return lib
 
@@ -245,3 +253,33 @@ def j2k_decode_blocks(blocks, required: bool = False):
                                len(blocks), _ptr(out))
     return [out[o:o + s].reshape(h, w) for o, s, h, w in
             zip(outoffs, sizes, cols[2], cols[3])]
+
+
+def j2k_encode_blocks(blocks):
+    """Tier 1 of JPEG 2000 code-blocks in C++ (j2k_t1.cpp), with the
+    arguments and results of utils/j2k_t1.py's encode_blocks; raises when
+    the library cannot be built or loaded."""
+    lib = j2k_library(required=True)
+    if not blocks:
+        return []
+    coefs = [np.ascontiguousarray(c, np.int32).reshape(-1) for c, _ in blocks]
+    sizes = np.array([c.size for c in coefs], np.int64)
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    hs = np.array([c.shape[0] for c, _ in blocks], np.int32)
+    ws = np.array([c.shape[1] for c, _ in blocks], np.int32)
+    orient = np.array([o for _, o in blocks], np.int32)
+    caps = 3 * sizes + 64       # room for 8-bit images (<= 11 bit-planes)
+    out_offs = np.concatenate([[0], np.cumsum(caps)[:-1]]).astype(np.int64)
+    out = np.zeros(int(caps.sum()), np.uint8)
+    coef = np.concatenate(coefs)
+    nbps = np.zeros(len(blocks), np.int32)
+    lens = np.zeros(len(blocks), np.int64)
+    r = lib.avrt_j2k_encode_blocks(
+        _ptr(coef), _ptr(offs), _ptr(hs), _ptr(ws), _ptr(orient),
+        len(blocks), _ptr(out), _ptr(out_offs), _ptr(caps), _ptr(nbps),
+        _ptr(lens))
+    if r < 0:
+        raise RuntimeError(f"j2k tier 1: code-block {-1 - r} outgrew its "
+                           "buffer")
+    return [(int(n), out[o:o + k].tobytes())
+            for n, o, k in zip(nbps, out_offs, lens)]

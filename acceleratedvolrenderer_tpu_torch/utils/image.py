@@ -1667,9 +1667,9 @@ _NETPBM_EXT = (".pbm", ".pgm", ".ppm", ".pnm")
 def _decode_image(path: str, data: bytes) -> np.ndarray:
     """Samples (H, W, C) of a PNG, JPEG, BMP, TIFF (also BigTIFF), WebP,
     GIF, QOI, netpbm, PCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7),
-    PSD, ICO, CUR, JPEG 2000 (JP2 or raw codestream) or (by its extension)
-    TGA file: uint8 colours, uint16 for 16-bit samples, float32 for a float
-    TIFF; raises ValueError naming any other format."""
+    PSD, ICO, CUR, ICNS, JPEG 2000 (JP2 or raw codestream) or (by its
+    extension) TGA file: uint8 colours, uint16 for 16-bit samples, float32
+    for a float TIFF; raises ValueError naming any other format."""
     from . import image_read, jpeg2000
 
     ext = path.lower()
@@ -1710,6 +1710,8 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         return image_read.decode_ico(data)
     if data[:4] == b"\0\0\2\0":
         return image_read.decode_cur(data)
+    if data[:4] == b"icns":
+        return image_read.icns_array(data)
     if data[:12] == jpeg2000.JP2_MAGIC:
         return jpeg2000.decode_jp2(data)
     if data[:4] == jpeg2000.J2K_MAGIC:
@@ -1718,7 +1720,7 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         if data.startswith(magic):
             raise ValueError(f"{path}: {name} images are not read")
     raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, "
-                     "QOI, netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, "
+                     "QOI, netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, ICNS, "
                      "JPEG 2000 or TGA image")
 
 
@@ -1726,8 +1728,8 @@ def read_image(path: str):
     """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
     reader above; PNG, JPEG, BMP, TIFF (also BigTIFF), WebP, GIF, QOI,
     netpbm, PCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7), PSD,
-    ICO, CUR, JPEG 2000 (JP2 and raw codestream) and TGA decoded here (by
-    their magic bytes, TGA by its extension), their colours (palettes
+    ICO, CUR, ICNS, JPEG 2000 (JP2 and raw codestream) and TGA decoded here
+    (by their magic bytes, TGA by its extension), their colours (palettes
     expanded, gray repeated, alpha dropped) over 255 or 65535, sRGB ->
     linear (Image::Read's LinearColorEncoding handling, util/image.cpp); a
     float TIFF is linear already and kept as stored, as EXR and PFM are.

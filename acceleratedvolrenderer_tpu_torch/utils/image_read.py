@@ -1,5 +1,5 @@
 """Decoders of the formats utils/image.py's other readers do not cover:
-PCX, SGI, IM, DDS, PSD, ICO and CUR, numpy only.  Each gives the samples
+PCX, SGI, IM, DDS, PSD, ICO, CUR and ICNS, numpy only.  Each gives the samples
 PIL 12.1.0 gives for the file (the reference reads images through PIL),
 as colours where PIL gives palette indices; the dispatch by magic bytes
 is image.py::_decode_image's.
@@ -25,7 +25,11 @@ is image.py::_decode_image's.
   - PSD: the merged image of 8-bit files (and 1-bit bitmaps), raw or
     PackBits, whatever their layers;
   - ICO: the entry PIL loads, PNG or bitmap (the AND mask or the 32-bit
-    pixels' fourth byte as alpha); CUR: the entry PIL loads, its bitmap.
+    pixels' fourth byte as alpha); CUR: the entry PIL loads, its bitmap;
+  - ICNS: the entry PIL loads (the largest size, by PIL's table of types):
+    a PNG, or a JPEG 2000 (utils/jpeg2000.py) made RGBA, or the legacy
+    RGB (it32, ih32, il32, is32: raw or PackBits-like runs per channel)
+    with its 8-bit mask (t8mk, h8mk, l8mk, s8mk) as alpha where present.
 """
 from __future__ import annotations
 
@@ -530,3 +534,154 @@ def decode_cur(data: bytes) -> np.ndarray:
         return rgb
     raw = np.frombuffer(data, np.uint8, w * h * 4, pix)
     return np.concatenate([rgb, raw[3::4].reshape(h, w)[::-1, :, None]], -1)
+
+
+# ---------------------------------------------------------------------------
+# ICNS
+# ---------------------------------------------------------------------------
+
+# IcnsImagePlugin's table: (width, height, scale) -> entry types in the
+# order PIL reads them ("png": PNG or JPEG 2000, "rgb": legacy 24-bit,
+# "rgb32t": the same behind 4 zero bytes, "mask": 8-bit alpha)
+ICNS_TYPES = {
+    (512, 512, 2): [(b"ic10", "png")],
+    (512, 512, 1): [(b"ic09", "png")],
+    (256, 256, 2): [(b"ic14", "png")],
+    (256, 256, 1): [(b"ic08", "png")],
+    (128, 128, 2): [(b"ic13", "png")],
+    (128, 128, 1): [(b"ic07", "png"), (b"it32", "rgb32t"), (b"t8mk", "mask")],
+    (64, 64, 1): [(b"icp6", "png")],
+    (32, 32, 2): [(b"ic12", "png")],
+    (48, 48, 1): [(b"ih32", "rgb"), (b"h8mk", "mask")],
+    (32, 32, 1): [(b"icp5", "png"), (b"il32", "rgb"), (b"l8mk", "mask")],
+    (16, 16, 2): [(b"ic11", "png")],
+    (16, 16, 1): [(b"icp4", "png"), (b"is32", "rgb"), (b"s8mk", "mask")],
+}
+
+
+def _icns_rgb(data: bytes, start: int, length: int, n: int) -> np.ndarray:
+    """A legacy entry's n samples of each of R, G, B: raw when it holds
+    3 n bytes, else each channel in runs (a byte b < 128: b + 1 bytes
+    follow; else the next byte b - 125 times)."""
+    if length == 3 * n:
+        return np.frombuffer(data, np.uint8, 3 * n, start).reshape(n, 3)
+    planes, pos = [], start
+    for _ in range(3):
+        out, left = [], n
+        while left > 0 and pos < len(data):
+            b = data[pos]
+            if b & 0x80:
+                k = b - 125
+                out.append(data[pos + 1:pos + 2] * k)
+                pos += 2
+            else:
+                k = b + 1
+                out.append(data[pos + 1:pos + 1 + k])
+                pos += 1 + k
+            left -= k
+        if left != 0:
+            raise ValueError(f"ICNS: error reading channel [{left} left]")
+        planes.append(np.frombuffer(b"".join(out)[:n], np.uint8))
+    return np.stack(planes, 1)
+
+
+_PNG_MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
+
+
+def decode_icns(data: bytes):
+    """(the samples PIL's ICNS reader loads, see the module docstring;
+    their PIL mode: a PNG entry's own, RGBA for a JPEG 2000 one, RGB or,
+    with a mask, RGBA for a legacy one)."""
+    return _icns(data)[:2]
+
+
+def _icns(data: bytes):
+    """decode_icns's (samples, mode) and the fourth byte PIL keeps beside
+    each RGB pixel: 255 where an unpacker made the image, 0 where a
+    legacy entry's runs were put band by band into a new image."""
+    from . import jpeg2000
+    from .image import _PNG_MAGIC, decode_png
+
+    (size,) = struct.unpack_from(">I", data, 4)
+    blocks, i = {}, 8
+    while i < size:
+        sig, n = struct.unpack_from(">4sI", data, i)
+        if n <= 0 or n > 0x7FFFFFFF:
+            raise ValueError("ICNS: invalid block header")
+        blocks[sig] = (i + 8, n - 8)
+        i += n
+    sizes = [s for s, kinds in ICNS_TYPES.items()
+             if any(k in blocks for k, _ in kinds)]
+    if not sizes:
+        raise ValueError("ICNS: no 32-bit icon resources found")
+    best = max(sizes)
+    side = best[0] * best[2]
+    got = {}
+    for kind, how in ICNS_TYPES[best]:
+        if kind not in blocks:
+            continue
+        start, length = blocks[kind]
+        if how == "png":
+            entry = data[start:start + length]
+            if entry[:8] == _PNG_MAGIC:
+                mode = _PNG_MODES.get(entry[25], "?")
+                if mode == "L" and entry[24] == 16:
+                    mode = "I;16"
+                elif mode == "L" and entry[24] == 1:
+                    mode = "1"
+                got["RGBA"] = (decode_png(entry), mode, 255)
+                continue
+            if entry[:4] == jpeg2000.J2K_MAGIC:
+                px = jpeg2000.decode_j2k(entry)
+            elif entry[:12] == jpeg2000.JP2_MAGIC:
+                px = jpeg2000.decode_jp2(entry)
+            else:
+                raise ValueError("ICNS: unsupported icon subimage format")
+            if px.dtype != np.uint8:
+                raise ValueError("ICNS: a JPEG 2000 entry of 16-bit samples "
+                                 "is not read")
+            if px.ndim == 2:
+                px = px[..., None]
+            c = px.shape[2]
+            rgb = np.repeat(px[..., :1], 3, 2) if c <= 2 else px[..., :3]
+            alpha = px[..., c - 1:] if c in (2, 4) else np.full(
+                px.shape[:2] + (1,), 255, np.uint8)
+            got["RGBA"] = (np.concatenate([rgb, alpha], 2), "RGBA", 255)
+        elif how == "mask":
+            got["A"] = np.frombuffer(data, np.uint8, side * side,
+                                     start).reshape(side, side)
+        else:
+            if how == "rgb32t":
+                if data[start:start + 4] != b"\0\0\0\0":
+                    raise ValueError("ICNS: unknown signature, expecting "
+                                     "0x00000000")
+                start, length = start + 4, length - 4
+            got["RGB"] = _icns_rgb(data, start, length,
+                                   side * side).reshape(side, side, 3)
+            pad = 255 if length == 3 * side * side else 0
+    if "RGBA" in got:
+        return got["RGBA"]
+    if "A" in got:
+        return (np.concatenate([got["RGB"], got["A"][..., None]], 2), "RGBA",
+                255)
+    return got["RGB"], "RGB", pad
+
+
+def icns_array(data: bytes) -> np.ndarray:
+    """What np.asarray(PIL.Image.open(file)) gives for an ICNS file, as the
+    reference's read_image and imgtool's loader take it.  PIL opens an
+    ICNS as RGBA and learns the entry's own mode only when the array's
+    bytes load it, packed as RGBA all the same: an RGBA entry comes out
+    right, an RGB one as its RGBX bytes regrouped in threes (a hazard of
+    the reference, kept; X as _icns gives it), any other mode raises as
+    PIL does."""
+    px, mode, pad = _icns(data)
+    if px.dtype == np.uint16:                   # PIL keeps the high byte
+        px = (px >> 8).astype(np.uint8)
+    if mode == "RGBA":
+        return px
+    if mode != "RGB":
+        raise ValueError(f"No packer found from {mode} to RGBA")
+    h, w = px.shape[:2]
+    rgbx = np.concatenate([px, np.full((h, w, 1), pad, np.uint8)], 2)
+    return rgbx.reshape(-1)[:h * w * 3].reshape(h, w, 3)

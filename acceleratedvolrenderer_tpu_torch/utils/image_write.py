@@ -24,14 +24,23 @@ PIL), byte for byte the same.
   - IM: PIL's text header (the file's name in it), planar rows bottom-up;
   - DDS: uncompressed 24-bit BGR with PIL's header and masks;
   - QOI: PIL's encoder, whose index starts empty (not write_qoi's);
-  - PNG: encode_png (pixels equal to PIL's file, not its bytes).
+  - EPS (.eps, .ps): EpsEncode.c's hex lines under PIL's header;
+  - PDF: one page, the image a DCTDecode stream of encode_jpeg's bytes,
+    dated time.gmtime() at the call as PIL dates it;
+  - GIF: utils/gif_write.py (Quant.c's median cut, GifEncode.c's LZW);
+  - JPEG 2000 (.jp2 .j2k .jpc .jpf .jpx .j2c): utils/jpeg2000_write.py
+    (lossless 5/3; a raw codestream for .j2k only, JP2 for the others);
+  - PNG: encode_png (pixels equal to PIL's file, not its bytes);
+  - ICO and ICNS: PIL's directories over PNG entries of the image
+    resized as PIL resizes it (utils/resample.py), each entry encode_png's
+    (its pixels PIL's, its bytes, and so the sizes and offsets the
+    directory states, not).
 
 encode(path, px) returns the file's bytes or raises what PIL raises for
 the extension: ValueError for an unknown or missing one, KeyError for a
 format PIL only reads, OSError / ValueError (PIL's words) where PIL
 refuses RGB or lacks the handler, and ValueError naming the format where
-PIL writes it and this module does not yet (GIF, WebP, JPEG 2000, AVIF,
-ICO, ICNS, EPS, PDF).
+PIL writes it and this module does not yet (WebP, AVIF).
 """
 from __future__ import annotations
 
@@ -537,6 +546,145 @@ def encode_qoi(px: np.ndarray) -> bytes:
 
 
 # ---------------------------------------------------------------------------
+# EPS and PDF
+# ---------------------------------------------------------------------------
+
+
+def encode_eps(px: np.ndarray) -> bytes:
+    """PIL's EPS of RGB px (EpsImagePlugin._save): the EPSF-3.0 header (its
+    ImageData comment behind a single '%', as PIL formats it) and a
+    `false 3 colorimage` procedure, then the samples as lower-case hex
+    as EpsEncode.c writes them: a newline after every 39 samples, across
+    rows, none after the last; then the trailer (its EndBinary behind four
+    '%', unformatted in PIL)."""
+    h, w = px.shape[:2]
+    head = (b"%!PS-Adobe-3.0 EPSF-3.0\n%%Creator: PIL 0.1 EpsEncode\n"
+            + b"%%%%BoundingBox: 0 0 %d %d\n" % (w, h)
+            + b"%%Pages: 1\n%%EndComments\n%%Page: 1 1\n"
+            + b"%%ImageData: %d %d " % (w, h)     # one '%', as PIL's
+            + b'8 3 0 1 1 "false 3 colorimage"\n'
+            + b"gsave\n10 dict begin\n/buf %d string def\n" % (3 * w)
+            + b"%d %d scale\n%d %d 8\n" % (w, h, w, h)
+            + b"[%d 0 0 -%d 0 %d]\n" % (w, h, h)
+            + b"{ currentfile buf readhexstring pop } bind\n"
+            + b"false 3 colorimage\n")
+    hexed = np.ascontiguousarray(px).tobytes().hex().encode("ascii")
+    body = b"\n".join(hexed[i:i + 78] for i in range(0, len(hexed), 78))
+    return head + body + b"\n%%%%EndBinary\ngrestore end\n"
+
+
+def _pdf_string(s: str) -> bytes:
+    """PdfParser's literal of a text string: UTF-16BE behind its byte-order
+    mark, backslashes and parentheses escaped."""
+    b = b"\xfe\xff" + s.encode("utf_16_be")
+    return b"(" + b.replace(b"\\", b"\\\\").replace(b"(", b"\\(").replace(
+        b")", b"\\)") + b")"
+
+
+def encode_pdf(px: np.ndarray, path: str) -> bytes:
+    """PIL's one-page PDF of RGB px (PdfImagePlugin._save at 72 dpi):
+    objects 4 (catalog), 5 (pages), 1 (the image, a DCTDecode XObject of
+    encode_jpeg's bytes), 2 (the page), 3 (its contents) and 6 (the
+    information: the file's stem as title, unless empty, and the creation
+    and modification dates, both time.gmtime() at the call, as PIL stamps
+    them), then the cross-reference table and the trailer."""
+    import time
+
+    h, w = px.shape[:2]
+    stamp = b"(D:" + time.strftime("%Y%m%d%H%M%SZ", time.gmtime()).encode(
+        "ascii") + b")"
+    jpeg = encode_jpeg(px)
+    size = b"%r %r" % (float(w), float(h))
+    contents = b"q %f 0 0 %f 0 0 cm /image Do Q\n" % (w, h)
+    title = _stem(path)
+    info = ((b"\n/Title " + _pdf_string(title)) if title else b"") + (
+        b"\n/CreationDate " + stamp + b"\n/ModDate " + stamp)
+
+    def obj(n, body, stream=None):
+        out = b"%d 0 obj<<" % n + body
+        if stream is None:
+            return out + b"\n>>endobj\n"
+        return (out + b"\n/Length %d\n>>stream\n" % len(stream) + stream
+                + b"\nendstream\nendobj\n")
+
+    objs = [
+        (4, obj(4, b"\n/Type /Catalog\n/Pages 5 0 R")),
+        (5, obj(5, b"\n/Type /Pages\n/Count 1\n/Kids [ 2 0 R ]")),
+        (1, obj(1, b"\n/Type /XObject\n/Subtype /Image\n/Width %d\n/Height %d"
+                b"\n/Filter /DCTDecode\n/BitsPerComponent 8\n"
+                b"/ColorSpace /DeviceRGB" % (w, h), jpeg)),
+        (2, obj(2, b"\n/Resources <<\n/ProcSet [ /PDF /ImageC ]\n/XObject <<"
+                b"\n/image 1 0 R\n>>\n>>\n/MediaBox [ 0 0 " + size
+                + b" ]\n/Contents 3 0 R\n/Type /Page\n/Parent 5 0 R")),
+        (3, obj(3, b"", contents)),
+        (6, obj(6, info)),
+    ]
+    out = b"%PDF-1.4\n% created by Pillow PDF driver\n"
+    at = {}
+    for n, body in objs:
+        at[n] = len(out)
+        out += body
+    xref = b"xref\n0 7\n0000000000 65536 f \n" + b"".join(
+        b"%010d 00000 n \n" % at[n] for n in range(1, 7))
+    return (out + xref + b"trailer\n<<\n/Root 4 0 R\n/Size 7\n/Info 6 0 R\n>>"
+            + b"\nstartxref\n%d\n%%%%EOF" % len(out))
+
+
+# ---------------------------------------------------------------------------
+# ICO and ICNS: resized copies, each a PNG
+# ---------------------------------------------------------------------------
+
+ICO_SIZES = (16, 24, 32, 48, 64, 128, 256)
+# ICNS entry types and their square sizes, in the order PIL writes them
+ICNS_SIZES = ((b"ic07", 128), (b"ic08", 256), (b"ic09", 512),
+              (b"ic10", 1024), (b"ic11", 32), (b"ic12", 64), (b"ic13", 256),
+              (b"ic14", 512))
+
+
+def encode_ico(px: np.ndarray) -> bytes:
+    """PIL's ICO of RGB px (IcoImagePlugin._save): for each of ICO_SIZES
+    no larger than the image on either side, the image fitted into that
+    square keeping its aspect (resample.thumbnail, LANCZOS); the header,
+    one 16-byte entry per such frame (width and height, 256 stored as 0;
+    no palette; 32 bits per pixel, as PIL states it; size and offset),
+    then each frame as a PNG (encode_png: PIL's pixels, not its zlib
+    stream).  An image under 16 pixels on a side gets no entry: the
+    6-byte file PIL writes, which PIL cannot open."""
+    from .image import encode_png
+    from .resample import thumbnail
+
+    h, w = px.shape[:2]
+    frames = [thumbnail(px, (s, s)) for s in ICO_SIZES if s <= w and s <= h]
+    pngs = [encode_png(f) for f in frames]
+    head = b"\0\0\1\0" + struct.pack("<H", len(frames))
+    at = len(head) + 16 * len(frames)
+    for f, png in zip(frames, pngs):
+        fh, fw = f.shape[:2]
+        head += struct.pack("<BBBBHHII", fw % 256, fh % 256, 0, 0, 0, 32,
+                            len(png), at)
+        at += len(png)
+    return head + b"".join(pngs)
+
+
+def encode_icns(px: np.ndarray) -> bytes:
+    """PIL's ICNS of RGB px (IcnsImagePlugin._save): the header, the table
+    of contents of the entries ic07 ... ic14 in that order, then the
+    entries, each the PNG (encode_png) of px resized to its square size
+    (resample.resize, BICUBIC), whatever px's aspect."""
+    from .image import encode_png
+    from .resample import resize
+
+    streams = {s: encode_png(resize(px, (s, s)))
+               for s in {s for _, s in ICNS_SIZES}}
+    entries = [(kind, streams[s]) for kind, s in ICNS_SIZES]
+    toc = b"TOC " + struct.pack(">i", 8 + 8 * len(entries)) + b"".join(
+        kind + struct.pack(">i", 8 + len(st)) for kind, st in entries)
+    body = b"".join(kind + struct.pack(">i", 8 + len(st)) + st
+                    for kind, st in entries)
+    return b"icns" + struct.pack(">i", 8 + len(toc) + len(body)) + toc + body
+
+
+# ---------------------------------------------------------------------------
 # the extension table of PIL 12.1.0's Image.save, for an RGB image
 # ---------------------------------------------------------------------------
 
@@ -544,6 +692,18 @@ def _png(px, path):
     from .image import encode_png
 
     return encode_png(px)
+
+
+def _gif(px):
+    from .gif_write import encode_gif
+
+    return encode_gif(px)
+
+
+def _jpeg2000(px, path):
+    from .jpeg2000_write import encode_jpeg2000
+
+    return encode_jpeg2000(px, path)
 
 
 WRITERS = {
@@ -560,6 +720,12 @@ WRITERS = {
     "IM": encode_im,
     "DDS": lambda px, path: encode_dds(px),
     "QOI": lambda px, path: encode_qoi(px),
+    "EPS": lambda px, path: encode_eps(px),
+    "PDF": encode_pdf,
+    "GIF": lambda px, path: _gif(px),
+    "JPEG2000": lambda px, path: _jpeg2000(px, path),
+    "ICO": lambda px, path: encode_ico(px),
+    "ICNS": lambda px, path: encode_icns(px),
 }
 
 # format of each extension PIL registers
@@ -577,13 +743,13 @@ EXTENSIONS = {
     ".im": "IM",
     ".dds": "DDS",
     ".qoi": "QOI",
-    # written by PIL, not yet here
-    ".gif": "GIF", ".webp": "WEBP",
+    ".gif": "GIF",
     ".jp2": "JPEG2000", ".j2k": "JPEG2000", ".jpc": "JPEG2000",
     ".jpf": "JPEG2000", ".jpx": "JPEG2000", ".j2c": "JPEG2000",
-    ".avif": "AVIF", ".avifs": "AVIF",
     ".ico": "ICO", ".icns": "ICNS", ".eps": "EPS", ".ps": "EPS",
     ".pdf": "PDF",
+    # written by PIL, not yet here
+    ".webp": "WEBP", ".avif": "AVIF", ".avifs": "AVIF",
     # PIL refuses an RGB image
     ".blp": "BLP", ".msp": "MSP", ".palm": "PALM", ".xbm": "XBM",
     # PIL has no handler installed
@@ -599,7 +765,7 @@ EXTENSIONS = {
 
 # formats PIL writes and this module does not yet, in the order they are
 # queued
-NOT_YET = ("GIF", "WEBP", "JPEG2000", "AVIF", "ICO", "ICNS", "EPS", "PDF")
+NOT_YET = ("WEBP", "AVIF")
 _REFUSED = {"BLP": (ValueError, "Unsupported BLP image mode"),
             "MSP": (OSError, "cannot write mode RGB as MSP"),
             "PALM": (OSError, "cannot write mode RGB as Palm"),

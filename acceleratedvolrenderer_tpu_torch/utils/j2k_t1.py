@@ -377,3 +377,193 @@ def decode_blocks(blocks) -> list[np.ndarray]:
         v = batch.val[k, 1:h + 1, 1:w + 1]
         out[i] = np.where(batch.neg[k, 1:h + 1, 1:w + 1], -v, v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# encoding
+# ---------------------------------------------------------------------------
+
+
+class _MQEncoder:
+    """One MQ encoder as OpenJPEG's mqc.c runs it (T.800 C.2): out[0] is a
+    dummy 0 byte before the block's first, so that the first BYTEOUT may
+    look at the byte before it."""
+
+    def __init__(self):
+        self.out = bytearray(1)
+        self.bp = 0
+        self.a, self.c, self.ct = 0x8000, 0, 12
+        self.st = [0] * N_CTX
+        self.mps = [0] * N_CTX
+        for cx, s in CTX_INIT.items():
+            self.st[cx] = s
+
+    def _put(self, v):
+        v &= 0xFF                               # the C byte cast
+        self.bp += 1
+        if self.bp == len(self.out):
+            self.out.append(v)
+        else:
+            self.out[self.bp] = v
+
+    def _byteout(self):
+        if self.out[self.bp] == 0xFF:
+            self._put(self.c >> 20)
+            self.c &= 0xFFFFF
+            self.ct = 7
+        elif not self.c & 0x8000000:
+            self._put(self.c >> 19)
+            self.c &= 0x7FFFF
+            self.ct = 8
+        else:
+            self.out[self.bp] += 1
+            if self.out[self.bp] == 0xFF:
+                self.c &= 0x7FFFFFF
+                self._put(self.c >> 20)
+                self.c &= 0xFFFFF
+                self.ct = 7
+            else:
+                self._put(self.c >> 19)
+                self.c &= 0x7FFFF
+                self.ct = 8
+
+    def _renorme(self):
+        while True:
+            self.a <<= 1
+            self.c = (self.c << 1) & 0xFFFFFFFF  # a 32-bit register
+            self.ct -= 1
+            if self.ct == 0:
+                self._byteout()
+            if self.a & 0x8000:
+                return
+
+    def encode(self, cx, d):
+        s = self.st[cx]
+        qe = _QE_TABLE[s][0]
+        self.a -= qe
+        if d == self.mps[cx]:
+            if self.a & 0x8000:
+                self.c += qe
+                return
+            if self.a < qe:
+                self.a = qe
+            else:
+                self.c += qe
+            self.st[cx] = _QE_TABLE[s][1]
+        else:
+            if self.a < qe:
+                self.c += qe
+            else:
+                self.a = qe
+            if _QE_TABLE[s][3]:
+                self.mps[cx] = 1 - self.mps[cx]
+            self.st[cx] = _QE_TABLE[s][2]
+        self._renorme()
+
+    def flush(self) -> bytes:
+        """FLUSH (T.800 Figure C.10); the block's bytes, a last 0xFF
+        dropped."""
+        t = self.c + self.a
+        self.c |= 0xFFFF
+        if self.c >= t:
+            self.c -= 0x8000
+        for _ in range(2):
+            self.c = (self.c << self.ct) & 0xFFFFFFFF
+            self._byteout()
+        if self.out[self.bp] != 0xFF:
+            self.bp += 1
+        return bytes(self.out[1:self.bp])
+
+
+def encode_block(coef: np.ndarray, orient: int) -> tuple[int, bytes]:
+    """Tier 1 of one code-block of signed coefficients (h, w), orientation
+    0 LL / 1 HL / 2 LH / 3 HH, as OpenJPEG codes it in its lossless single
+    layer: every pass of every bit-plane, ended by the MQ flush.  Returns
+    (number of coded bit-planes, bytes); (0, b"") for a block of zeros.
+    Plain Python, one coefficient at a time: native/j2k_t1.cpp's
+    avrt_j2k_encode_blocks is its twin."""
+    h, w = coef.shape
+    pw = w + 2
+    mag = [0] * ((h + 2) * pw)
+    neg = [0] * len(mag)
+    for y in range(h):
+        for x in range(w):
+            v = int(coef[y, x])
+            mag[(y + 1) * pw + x + 1] = abs(v)
+            neg[(y + 1) * pw + x + 1] = int(v < 0)
+    planes = max(mag).bit_length()
+    if not planes:
+        return 0, b""
+    state = [0] * len(mag)
+    nbz = [0] * len(mag)
+    nbneg = [0] * len(mag)
+    zc = [int(c) for c in ZC[orient]]
+    sc = [int(c) for c in SC]
+    mq = _MQEncoder()
+
+    def significant(i):
+        c = sc[(nbz[i] & 15) | (nbneg[i] << 4)]
+        mq.encode(c & 127, neg[i] ^ (c >> 7))
+        state[i] |= SIG
+        for d, b in ((-1, _E), (1, _W), (-pw, _S), (pw, _N), (-pw - 1, _SE),
+                     (-pw + 1, _SW), (pw - 1, _NE), (pw + 1, _NW)):
+            nbz[i + d] |= b
+        if neg[i]:
+            for d, b in ((-1, _E), (1, _W), (-pw, _S), (pw, _N)):
+                nbneg[i + d] |= b
+
+    def scan():
+        for y0 in range(0, h, 4):
+            for x in range(w):
+                yield y0, x, [(y0 + r + 1) * pw + x + 1
+                              for r in range(min(4, h - y0))]
+
+    for p in range(3 * planes - 2):
+        kind = 2 if p == 0 else (p - 1) % 3
+        plane = planes - 1 - (0 if p == 0 else 1 + (p - 1) // 3)
+        for y0, x, col in scan():
+            if kind == 0:                       # significance propagation
+                for i in col:
+                    if state[i] & SIG or not nbz[i]:
+                        continue
+                    state[i] |= PI
+                    b = mag[i] >> plane & 1
+                    mq.encode(zc[nbz[i]], b)
+                    if b:
+                        significant(i)
+            elif kind == 1:                     # magnitude refinement
+                for i in col:
+                    if state[i] & (SIG | PI) != SIG:
+                        continue
+                    mq.encode(16 if state[i] & REF else 15 if nbz[i] else 14,
+                              mag[i] >> plane & 1)
+                    state[i] |= REF
+            else:                               # cleanup
+                start = 0
+                if len(col) == 4 and all(
+                        not state[i] & (SIG | PI) and not nbz[i] for i in col):
+                    bits = [mag[i] >> plane & 1 for i in col]
+                    if not any(bits):
+                        mq.encode(CTX_RL, 0)
+                        continue
+                    r = bits.index(1)
+                    mq.encode(CTX_RL, 1)
+                    mq.encode(CTX_UNI, r >> 1)
+                    mq.encode(CTX_UNI, r & 1)
+                    significant(col[r])
+                    start = r + 1
+                for i in col[start:]:
+                    if state[i] & (SIG | PI):
+                        continue
+                    b = mag[i] >> plane & 1
+                    mq.encode(zc[nbz[i]], b)
+                    if b:
+                        significant(i)
+        if kind == 2:
+            state = [s & ~PI for s in state]
+    return planes, mq.flush()
+
+
+def encode_blocks(blocks) -> list[tuple[int, bytes]]:
+    """encode_block of each (coefficients, orientation) in blocks."""
+    return [encode_block(c, o) for c, o in blocks]

@@ -8,10 +8,11 @@ Phases (any failure raises, and the script exits non-zero).  Phases 1-4,
 phases that need neither phase 8's scene nor its frames (5-7, 12, 13,
 15-17, 19-22, 24, 26, 29's small legs and 30, in that order from 24 and 15)
 run in a second process, this script with --side (side_main), beside the
-rest (8, 9, 14, 18, 23, 25, 28, 29's full-size legs, 27, 31-34, in that
+rest (8, 9, 14, 18, 23, 25, 28, 29's full-size legs, 27, 31-36, in that
 order), which waits for the side's phase 24 and 15 frames before phase 29
 and for its end before the record.  The side's output is printed when it
-ends; a failure in either process fails the script and ends the other.
+ends, and the wall line says how long after it the parent's phases
+ended; a failure in either process fails the script and ends the other.
   1. device: requires CUDA; prints the card and its power limit;
   2. build: compiles the CUDA kernels from acceleratedvolrenderer_tpu_torch/csrc
      with nvcc into build/kernels/ and prints the build time;
@@ -356,7 +357,26 @@ ends; a failure in either process fails the script and ends the other.
      read_image's bit for bit, one march launch per loop iteration and
      no gather or dma launch, the march call BCN_CAPTURE_CALL equal to
      plain, the mean apart from phase 32's uniform-sky frame's, the 32x24
-     version on the card and the CPU within SURF_MEAN_TOL.
+     version on the card and the CPU within SURF_MEAN_TOL.  The frame is
+     kept for phase 36.
+ 36. more image writers (utils/gif_write.py, utils/jpeg2000_write.py with
+     the C++ tier-1 encoder built by g++ here, utils/resample.py, the
+     EPS, PDF, ICO and ICNS encoders of utils/image_write.py and the ICNS
+     reader of utils/image_read.py): (a) phase 35's frame (1280x720,
+     rendered on the card; no kernel here) through the port's `imgtool
+     convert --tonemap` to each of MORE_WRITER_EXTS (PDF under a fixed
+     clock), each file write_png's encoding: the .jp2 and .j2k read back
+     by read_image and imgtool's loader equal to the tonemapped 8-bit
+     frame, the other JPEG 2000 extensions the .jp2's bytes, the GIF read
+     back as the palette's colours of gif_write.quantize's indices, the
+     ICO's 256x144 entry equal to resample.thumbnail's and the ICNS's
+     1024x1024 one to resample.resize's (read_image giving the reference's
+     regrouped RGBX), the EPS's hex samples the frame's, the PDF holding
+     encode_jpeg's stream; each encode under MORE_WRITER_BAR_S host
+     seconds, its bytes and seconds printed; (b) the committed ground
+     fixture's first 128x96 pixels written to each extension, held to
+     images.json's SHA-256 of PIL's files (PDF at its recorded clock; ICO
+     and ICNS by directory and each entry's decoded pixels).
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -379,14 +399,16 @@ call's `image_formats_max_abs_err`; `image_writers_max_abs_err`, phase
 33's largest read-back |diff| of a lossless file, no kernel's;
 `bcn_maps_launches`, the march launches of phase 34's frame, and its
 captured call's `bcn_maps_max_abs_err`; `j2k_maps_launches` and
-`j2k_maps_max_abs_err`, the same of phase 35's frame) and the result
-JSON.
+`j2k_maps_max_abs_err`, the same of phase 35's frame;
+`more_image_writers_max_abs_err`, phase 36's largest read-back |diff| of
+a lossless file, no kernel's) and the result JSON.
 """
 import hashlib
 import json
 import os
 import pickle
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -4299,6 +4321,7 @@ def maps_frame(what, dev, keep, work, sky, ground, uniform_mean, card):
     return counts[0], err
 
 
+J2K_MAP_FRAME = "j2k_frame.exr"   # phase 35's frame, for phase 36
 J2K_SKY = "sky_2048x1024_97.jp2"            # phase 35's maps (images.json)
 J2K_GROUND = "ground_1024x512_53.j2k"
 J2K_CROP = "sky_512x256_lossless.jp2"
@@ -4342,13 +4365,16 @@ def phase_j2k_maps(dev, keep, uniform_mean, card):
             bad.append(name)
     if bad:
         raise AssertionError(f"JPEG 2000 maps: wrong files or decodes {bad}")
-    # (b) the frame: the JP2 sky and the J2K ground by the CLI
+    # (b) the frame: the JP2 sky and the J2K ground by the CLI; the frame
+    # kept for phase 36
     work = Path(tempfile.mkdtemp())
     try:
         for name in (J2K_SKY, J2K_GROUND):
             shutil.copy(IMAGE_FIXTURES / name, work / name)
-        return maps_frame("JPEG 2000 maps (b)", dev, keep, work, J2K_SKY,
-                          J2K_GROUND, uniform_mean, card)
+        out = maps_frame("JPEG 2000 maps (b)", dev, keep, work, J2K_SKY,
+                         J2K_GROUND, uniform_mean, card)
+        shutil.copy(work / "maps.exr", Path(keep) / J2K_MAP_FRAME)
+        return out
     finally:
         shutil.rmtree(work)
 
@@ -4466,6 +4492,181 @@ def phase_image_writers(keep, card):
     return err
 
 
+# phase 36: imgtool convert --tonemap writes phase 35's frame to each of
+# these; the fixture's crop is held to PIL's files of each
+MORE_WRITER_EXTS = (".eps", ".ps", ".pdf", ".gif", ".jp2", ".j2k", ".jpc",
+                    ".jpf", ".jpx", ".j2c", ".ico", ".icns")
+MORE_WRITER_BAR_S = 10.0    # host seconds, one 1280x720 encode at most
+
+
+PDF_GMTIME = (2026, 1, 1, 0, 0, 0, 3, 1, 0)   # images.json's pdf_gmtime
+
+
+def pdf_clock(gmtime=PDF_GMTIME):
+    """time.gmtime fixed at gmtime (a 9-tuple): the PDF writer's dates
+    (PIL's and the port's both call it at save)."""
+    return mock.patch("time.gmtime", return_value=time.struct_time(
+        tuple(gmtime)))
+
+
+def icon_entries(data: bytes):
+    """(the directory's fields that do not depend on the entries' lengths,
+    the entries' PNG streams) of an ICO or ICNS file: ICO's header and
+    the first 8 bytes of each entry (size, colours, planes, bits); ICNS's
+    magic and its blocks' types in order (the table of contents first)."""
+    entries = []
+    if data[:4] == b"icns":
+        directory, i = data[:4], 8
+        while i < len(data):
+            kind, n = struct.unpack_from(">4sI", data, i)
+            directory += kind
+            if kind != b"TOC ":
+                entries.append(data[i + 8:i + n])
+            i += n
+        return directory, entries
+    (n,) = struct.unpack_from("<H", data, 4)
+    directory = data[:6]
+    for i in range(n):
+        e = data[6 + 16 * i:22 + 16 * i]
+        directory += e[:8]
+        size, at = struct.unpack_from("<II", e, 8)
+        entries.append(data[at:at + size])
+    return directory, entries
+
+
+def phase_more_writers(keep, card):
+    """Phase 36 (see the module docstring); keep holds phase 35's frame.
+    Returns the largest |diff| of a lossless file's read-back samples."""
+    import contextlib
+    import io
+
+    from acceleratedvolrenderer_tpu_torch import native
+    from acceleratedvolrenderer_tpu_torch.cli import imgtool
+    from acceleratedvolrenderer_tpu_torch.utils import (
+        gif_write, image, image_read, image_write, resample, webp)
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import time_image_decode as tid
+
+    record = json.loads((IMAGE_FIXTURES / "images.json").read_text())[
+        IMAGE_GROUND]
+    clock = record["pdf_gmtime"]
+    src = str(Path(keep) / J2K_MAP_FRAME)
+    frame = image.read_exr(src)[0][:, :, :3]
+    want = image.to_8bit(frame)
+    H, W = want.shape[:2]
+    print(f"more image writers: host CPU {tid.cpu_line()}; {card}",
+          flush=True)
+    native.j2k_library(required=True)       # the C++ tier-1 encoder
+    work = Path(tempfile.mkdtemp())
+    err, files = 0, {}
+    try:
+        # (a) the card's frame through the CLI to each format
+        for ext in MORE_WRITER_EXTS:
+            out = work / f"frame{ext}"
+            t = time.time()
+            with contextlib.redirect_stdout(io.StringIO()), pdf_clock(clock):
+                rc = imgtool.main(["convert", "--tonemap", src, str(out)])
+            cli = time.time() - t
+            if rc != 0:
+                raise AssertionError(f"more image writers: imgtool convert "
+                                     f"to {ext}: exit code {rc}")
+            t = time.time()
+            with pdf_clock(clock):
+                data = image_write.encode(str(out), want)
+            enc = time.time() - t
+            if data != out.read_bytes():
+                raise AssertionError(f"more image writers: {ext}: imgtool's "
+                                     "file is not write_png's encoding")
+            files[ext] = data
+            fmt = image_write.EXTENSIONS[ext]
+            what, d = "", 0
+            if fmt == "JPEG2000" and ext in (".jp2", ".j2k"):
+                px = image._decode_image(str(out), data)
+                d = int(np.abs(px.astype(int) - want.astype(int)).max())
+                ok = (d == 0 and np.array_equal(
+                    image.read_image(str(out))[0], _srgb_to_linear(want))
+                    and np.array_equal(imgtool._load(str(out))[0],
+                                       want.astype(np.float32) / 255))
+                what = (f"read back by read_image and imgtool's loader, "
+                        f"max |diff| {d}")
+            elif fmt == "JPEG2000":
+                ok = data == files[".jp2"]
+                what = "the .jp2 file's bytes (PIL writes JP2 here too)"
+            elif fmt == "GIF":
+                pal, idx = gif_write.quantize(want)
+                px = image._decode_image(str(out), data)
+                ok = np.array_equal(px, pal[idx])
+                d = int(np.abs(px.astype(int) - want.astype(int)).max())
+                what = (f"{len(pal)} colours, read back equal to the "
+                        f"palette's colours of the indices (max |diff| {d} "
+                        "from the frame)")
+                d = 0
+            elif fmt == "ICO":
+                big = resample.thumbnail(want, (256, 256))
+                px = image._decode_image(str(out), data)
+                ok = np.array_equal(px, big) and np.array_equal(
+                    image.read_image(str(out))[0], _srgb_to_linear(big))
+                n = len(icon_entries(data)[1])
+                what = (f"{n} entries, the {big.shape[1]}x{big.shape[0]} "
+                        "one read back equal to resample.thumbnail's")
+            elif fmt == "ICNS":
+                big = resample.resize(want, (1024, 1024))
+                px = image_read.decode_icns(data)[0]
+                ok = np.array_equal(px, big) and np.array_equal(
+                    image.read_image(str(out))[0],
+                    _srgb_to_linear(image_read.icns_array(data)))
+                what = ("the 1024x1024 entry equal to resample.resize's; "
+                        "read_image as the reference's (RGBX regrouped)")
+            elif fmt == "EPS":
+                hexed = data.split(b"colorimage\n")[-1].split(b"\n%%")[0]
+                ok = bytes.fromhex(hexed.replace(b"\n", b"").decode()) == \
+                    want.tobytes()
+                what = "its hex samples the frame's"
+            else:                                   # PDF
+                ok = image_write.encode_jpeg(want) in data
+                what = "its DCT stream encode_jpeg's"
+            err = max(err, d)
+            ok = ok and enc < MORE_WRITER_BAR_S
+            print(f"more image writers (a): {ext} {W}x{H}: {len(data)} "
+                  f"bytes, imgtool convert {cli:.3f} s (encode {enc:.3f} "
+                  f"s, at most {MORE_WRITER_BAR_S:.0f}); {what}"
+                  f"{'' if ok else ' WRONG'}", flush=True)
+            if not ok:
+                raise AssertionError(f"more image writers: {ext} wrong or "
+                                     "slow")
+        # (b) the committed fixture's crop, held to PIL's files
+        cw, ch = record["written_crop"]
+        crop = webp.decode_webp((IMAGE_FIXTURES / IMAGE_GROUND).read_bytes())[
+            :ch, :cw]
+        bad = []
+        for ext, digest in sorted(record["sha256_of_pil_files_exact"].items()):
+            with pdf_clock(clock):
+                got = image_write.encode(f"fixture{ext}", crop)
+            if hashlib.sha256(got).hexdigest() != digest:
+                bad.append(ext)
+        for ext, want_rec in sorted(record["pil_icon_files"].items()):
+            directory, entries = icon_entries(
+                image_write.encode(f"fixture{ext}", crop))
+            got_rec = {"directory": directory.hex(), "entries": []}
+            for png in entries:
+                a = np.ascontiguousarray(image.decode_png(png))
+                got_rec["entries"].append(
+                    [hashlib.sha256(a.tobytes()).hexdigest(), list(a.shape)])
+            if got_rec != want_rec:
+                bad.append(ext)
+        print(f"more image writers (b): the ground fixture's {cw}x{ch} files "
+              f"({', '.join(MORE_WRITER_EXTS)}): "
+              f"{'all at' if not bad else 'NOT all at'} PIL's hashes (ICO, "
+              "ICNS: directory and entries' pixels)", flush=True)
+        if bad:
+            raise AssertionError(f"more image writers: {bad} differ from "
+                                 "PIL's files")
+    finally:
+        shutil.rmtree(work)
+    return err
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -4525,6 +4726,7 @@ def side_main(work):
     timed("other integrators, small", phase_integrators_small, dev, card)
     out["item1_counts"], out["item1_max_abs_err"] = timed(
         "item1", phase_item1, dev, card)
+    out["ended_at"] = time.time()
     (work / "side.json").write_text(json.dumps(out))
     print(f"side: {time.time() - T0:.1f} s wall", flush=True)
     return 0
@@ -4656,6 +4858,9 @@ def main():
          march_rec["j2k_maps_max_abs_err"]) = timed(
             "JPEG 2000 maps", phase_j2k_maps, dev, keep.name, uniform_mean,
             card)
+        march_rec["more_image_writers_max_abs_err"] = timed(
+            "more image writers", phase_more_writers, keep.name, card)
+        parent_end = time.time()
         keep.cleanup()
         side_out = timed("side process", side.finish)
     finally:
@@ -4672,7 +4877,9 @@ def main():
     march_rec["item1_max_abs_err"] = side_out["item1_max_abs_err"]
 
     src = "acceleratedvolrenderer_tpu_torch/csrc/"
-    print(f"chip_smoke: {time.time() - T0:.1f} s wall")
+    print(f"chip_smoke: {time.time() - T0:.1f} s wall; the parent's phases "
+          f"ended {parent_end - side_out['ended_at']:.1f} s after the side "
+          "process's")
     print(card)
     print(json.dumps({"kernels": [
         dict(name="march_block", route="cuda", source=src + "march.cu",

@@ -13,7 +13,13 @@ and holds the port's decode to the hashes).
     record also holds the SHA-256 of the files PIL writes of its first
     128x96 decoded pixels, one per format the port writes byte for byte
     (`sha256_of_pil_files`, named fixture.<ext>): chip_smoke.py phase 33
-    holds the port's files to them.
+    holds the port's files to them.  Phase 36's formats are recorded
+    beside them: `sha256_of_pil_files_exact` for EPS, PS, PDF (written
+    with time.gmtime fixed at `pdf_gmtime`), GIF and the six JPEG 2000
+    extensions, and `pil_icon_files` for ICO and ICNS: the directory's
+    fields that do not depend on the PNG streams' lengths (ICO: the header
+    and each entry's first 8 bytes; ICNS: the entry types in order) and
+    the SHA-256 and shape of each entry's decoded pixels.
 
 It also records, without committing them, the block-compressed DDS files
 scripts/block_maps.py rebuilds on any host (integer encoders), each under
@@ -54,9 +60,11 @@ from PIL import Image
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "tests" / "data" / "images"
 sys.path.insert(0, str(ROOT / "scripts"))
+sys.path.insert(0, str(ROOT))
 
 import block_maps  # noqa: E402
 import time_image_decode as tid  # noqa: E402
+from chip_smoke import PDF_GMTIME, icon_entries, pdf_clock  # noqa: E402
 
 GROUND_BC7 = "ground_1024x512_bc7.dds"
 
@@ -95,6 +103,43 @@ def written_hashes(px, tmp):
         Image.fromarray(px).save(path)
         out[ext] = hashlib.sha256(path.read_bytes()).hexdigest()
     return out
+
+
+# phase 36's formats: byte for byte, and ICO / ICNS by directory and
+# pixels (PDF files under chip_smoke.PDF_GMTIME's clock)
+EXACT_EXTS = (".eps", ".ps", ".pdf", ".gif", ".jp2", ".j2k", ".jpc", ".jpf",
+              ".jpx", ".j2c")
+ICON_EXTS = (".ico", ".icns")
+
+
+def icon_record(ext, data):
+    """The directory and per-entry pixels of an ICO or ICNS file:
+    {"directory": hex, "entries": [[sha256 of the samples, shape], ...]},
+    each entry's PNG decoded by PIL."""
+    directory, pngs = icon_entries(data)
+    entries = []
+    for png in pngs:
+        a = np.ascontiguousarray(np.asarray(Image.open(io.BytesIO(png))))
+        entries.append([hashlib.sha256(a.tobytes()).hexdigest(),
+                        list(a.shape)])
+    return {"directory": directory.hex(), "entries": entries}
+
+
+def new_writer_records(px, tmp):
+    """Phase 36's records of PIL's files of px (see the docstring)."""
+    exact = {}
+    for ext in EXACT_EXTS:
+        path = Path(tmp) / f"fixture{ext}"
+        with pdf_clock():
+            Image.fromarray(px).save(path)
+        exact[ext] = hashlib.sha256(path.read_bytes()).hexdigest()
+    icons = {}
+    for ext in ICON_EXTS:
+        path = Path(tmp) / f"fixture{ext}"
+        Image.fromarray(px).save(path)
+        icons[ext] = icon_record(ext, path.read_bytes())
+    return {"sha256_of_pil_files_exact": exact,
+            "pdf_gmtime": list(PDF_GMTIME), "pil_icon_files": icons}
 
 
 def block_map_records(ground_webp):
@@ -164,6 +209,7 @@ def main():
                 record[name].update(
                     written_crop=list(WRITTEN_CROP),
                     sha256_of_pil_files=written_hashes(crop, tmp))
+                record[name].update(new_writer_records(crop, tmp))
     record.update(block_map_records(OUT / "ground_1024x512_q90.webp"))
     record.update(jpeg2000_records(OUT / "sky_2048x1024_q90.webp",
                                    OUT / "ground_1024x512_q90.webp"))

@@ -1,8 +1,9 @@
 """chip_smoke.py's phases 32 (image formats), 33 (image writers, which
 converts phase 32's map frame), 34 (block-compressed maps, which reuses
 phase 32's medium file, ground samples and 8-bit TIFF and holds its
-frame's mean against phase 32's uniform sky's) and 35 (JPEG 2000 maps,
-which reuses the medium file and the mean) alone on the CUDA
+frame's mean against phase 32's uniform sky's), 35 (JPEG 2000 maps,
+which reuses the medium file and the mean) and 36 (more image writers,
+which converts phase 35's frame) alone on the CUDA
 card, with the phases they need: 8 (the 1280x720 cloud over the 256^3
 grid), 14 (its wave frame) and 28 (the grid through a .nvdb and
 nanovdb2pbrt into the block phase 32 Includes).
@@ -54,6 +55,8 @@ def main():
                        uniform_mean, card))
         print(cs.timed("JPEG 2000 maps", cs.phase_j2k_maps, dev, keep,
                        uniform_mean, card))
+        print(cs.timed("more image writers", cs.phase_more_writers, keep,
+                       card))
     return 0
 
 

@@ -15,6 +15,9 @@ with 99% of voxels within rtol 1e-3 / atol 1e-6 * max|g|, frame means to
 1e-3 and 99% of pixels to rtol 1e-3 / atol 1e-5 (exp, log1p and erfinv
 differ by ulps between the two devices, and one flipped choice reroutes a
 sample)."""
+import json
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -106,26 +109,47 @@ def test_march_kernel_unaligned_views(dev, residual):
     _march_case(shifted, 8, (16, 16, 16))
 
 
+# profiles CALLS march_block calls at (K, residual) in a process of its
+# own and prints every kernel that took device time, with its count
+_PROFILE_WINDOW = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from acceleratedvolrenderer_tpu_torch.ops import march
+K, residual, calls = int(sys.argv[1]), sys.argv[2] == "1", int(sys.argv[3])
+dev = torch.device("cuda", 0)
+lanes = {k: torch.as_tensor(v, device=dev) for k, v in march.random_lanes(
+    16384, (16, 16, 16), seed=3, residual=residual).items()}
+march.march_block(K=K, maj_res=(16, 16, 16), **lanes)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+        march.march_block(K=K, maj_res=(16, 16, 16), **lanes)
+    torch.cuda.synchronize()
+print(json.dumps([[e.key, e.count] for e in prof.key_averages()
+                  if e.self_device_time_total > 0]))
+"""
+
+
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("K", [1, 8])
 def test_march_call_is_one_kernel(dev, residual, K):
     """A march_block call launches exactly one kernel, the march kernel:
     the flags come out of it as bool planes, with no decoding kernels.  A
-    window of CALLS calls is profiled (the profiler has missed the events
-    of a window of one call): every device event in it is the march
-    kernel's, CALLS of them."""
-    from torch.profiler import ProfilerActivity, profile
-
+    window of CALLS calls is profiled in a fresh process (the profiler has
+    missed the events of a window of one call, and late in a long process
+    it has recorded fewer launches than were made): every device event in
+    it is the march kernel's, CALLS of them."""
     calls = 8
-    lanes = _lanes(16384, (16, 16, 16), 3, residual, dev)
-    march.march_block(K=K, maj_res=(16, 16, 16), **lanes)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            march.march_block(K=K, maj_res=(16, 16, 16), **lanes)
-        torch.cuda.synchronize()
-    run = [(e.key, e.count) for e in prof.key_averages()
-           if e.self_device_time_total > 0]
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROFILE_WINDOW, str(K), str(int(residual)),
+         str(calls)], cwd=root, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    run = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(run) == 1, run
     assert "march_kernel" in run[0][0] and run[0][1] == calls, run
 

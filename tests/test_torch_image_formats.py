@@ -244,7 +244,8 @@ UNREAD = {
     "pfm": (".pfm", lambda: b"PF\n2 1\n-1.0\n" + bytes(24), "PFM"),
     "unknown": (".xyz", lambda: b"\x00\x01\x02\x03" * 8,
                 "not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm, "
-                "PCX, SGI, IM, DDS, PSD, ICO, CUR, JPEG 2000 or TGA image"),
+                "PCX, SGI, IM, DDS, PSD, ICO, CUR, ICNS, JPEG 2000 or TGA "
+                "image"),
 }
 
 
