@@ -1,7 +1,8 @@
 """Native (C++) host code, loaded with ctypes (port of
 acceleratedvolrenderer_tpu/native/__init__.py: merge_points and KDTree of
 the graph layer, and the LZ4 block codec of utils/blosc.py; and, the
-port's own, the JPEG 2000 tier 1 of utils/jpeg2000.py, j2k_t1.cpp).
+port's own, the JPEG 2000 tier 1 of utils/jpeg2000.py, j2k_t1.cpp, and
+the VP8 encoder of utils/webp_write.py, vp8_enc.cpp).
 
 Each source is compiled with g++ on first use (not at import) into its own
 library under build/native/ at the repository root, with the reference's
@@ -16,7 +17,9 @@ twin (utils/j2k_t1.py), which gives the same samples.  j2k_encode_blocks
 has no fallback: it raises when j2k_t1.cpp cannot be built or loaded, and
 so does utils/jpeg2000_write.py, whose plain-Python twin (utils/j2k_t1.py's
 encode_blocks) is far too slow for a frame and holds the C++ encoder in
-the tests only.
+the tests only.  vp8_enc.cpp, the lossy WebP encoder of
+utils/webp_write.py, has no fallback and no twin: vp8_enc_library raises
+when it cannot be built or loaded.
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ LZ4_SRC = SRC.with_name("lz4.cpp")
 LZ4_LIB_PATH = BUILD_DIR / "libavrt_lz4.so"
 J2K_SRC = SRC.with_name("j2k_t1.cpp")
 J2K_LIB_PATH = BUILD_DIR / "libavrt_j2k_t1.so"
+VP8_SRC = SRC.with_name("vp8_enc.cpp")
+VP8_LIB_PATH = BUILD_DIR / "libavrt_vp8_enc.so"
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
@@ -43,9 +48,11 @@ _lz4_lib = None
 _lz4_tried = False
 _j2k_lib = None
 _j2k_tried = False
+_vp8_lib = None
 # what a failed build of each source leaves its callers
 NO_FALLBACK = {"kdtree.cpp": "the graph layer has no fallback merge: ",
-               "j2k_t1.cpp": "JPEG 2000 writing has no fallback encoder: "}
+               "j2k_t1.cpp": "JPEG 2000 writing has no fallback encoder: ",
+               "vp8_enc.cpp": "WebP writing has no fallback encoder: "}
 
 
 def _build(lib_path: Path, src: Path = SRC):
@@ -283,3 +290,70 @@ def j2k_encode_blocks(blocks):
                            "buffer")
     return [(int(n), out[o:o + k].tobytes())
             for n, o, k in zip(nbps, out_offs, lens)]
+
+
+def vp8_enc_library():
+    """The loaded VP8 encoder library (vp8_enc.cpp), built on first use;
+    raises RuntimeError (naming g++) when it cannot be built, as WebP
+    writing has no fallback."""
+    global _vp8_lib
+    with _lock:
+        if _vp8_lib is not None:
+            return _vp8_lib
+        _build(VP8_LIB_PATH, VP8_SRC)
+        lib = ctypes.CDLL(str(VP8_LIB_PATH))
+        lib.avrt_vp8_analyze.restype = None
+        lib.avrt_vp8_analyze.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+        lib.avrt_vp8_encode.restype = ctypes.c_int64
+        lib.avrt_vp8_encode.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+            ctypes.c_int64]
+        _vp8_lib = lib
+        return lib
+
+
+def _planes(y, u, v):
+    """The Y, U, V planes as contiguous uint8 arrays, checked against each
+    other: (H, W) and ((H + 1) // 2, (W + 1) // 2)."""
+    y, u, v = (np.ascontiguousarray(a, np.uint8) for a in (y, u, v))
+    h, w = y.shape
+    if u.shape != ((h + 1) // 2, (w + 1) // 2) or v.shape != u.shape:
+        raise ValueError(f"vp8: chroma planes {u.shape}, {v.shape} do not "
+                         f"fit a {w}x{h} luma plane")
+    return y, u, v, w, h
+
+
+def vp8_analyze(y, u, v, tables):
+    """libwebp's analysis pass (vp8_enc.cpp) over the Y, U, V planes:
+    (each macroblock's segment in raster order (uint8), the four
+    segments' alphas, their betas, the mean chroma alpha)."""
+    lib = vp8_enc_library()
+    y, u, v, w, h = _planes(y, u, v)
+    segment = np.zeros(((w + 15) // 16) * ((h + 15) // 16), np.uint8)
+    out = np.zeros(10, np.int32)
+    lib.avrt_vp8_analyze(_ptr(y), _ptr(u), _ptr(v), w, h, _ptr(tables),
+                         _ptr(segment), _ptr(out))
+    return segment, out[:4].tolist(), out[4:8].tolist(), int(out[9])
+
+
+def vp8_encode(y, u, v, tables, segment, params):
+    """The VP8 key frame (vp8_enc.cpp) of the planes with each
+    macroblock's segment and params (utils/webp_write.py's
+    segment_params)."""
+    lib = vp8_enc_library()
+    y, u, v, w, h = _planes(y, u, v)
+    segment = np.ascontiguousarray(segment, np.uint8)
+    params = np.ascontiguousarray(params, np.int32)
+    if segment.shape != (((w + 15) // 16) * ((h + 15) // 16),) or \
+            params.shape != (14,):
+        raise ValueError("vp8: a segment per macroblock and 14 params")
+    cap = 4 * w * h + 4096
+    while True:                 # at most twice: a short buffer says its need
+        dst = np.zeros(cap, np.uint8)
+        n = lib.avrt_vp8_encode(_ptr(y), _ptr(u), _ptr(v), w, h,
+                                _ptr(tables), _ptr(segment), _ptr(params),
+                                _ptr(dst), cap)
+        if n >= 0:
+            return dst[:n].tobytes()
+        cap = -n

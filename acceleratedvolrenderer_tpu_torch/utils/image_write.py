@@ -30,6 +30,9 @@ PIL), byte for byte the same.
   - GIF: utils/gif_write.py (Quant.c's median cut, GifEncode.c's LZW);
   - JPEG 2000 (.jp2 .j2k .jpc .jpf .jpx .j2c): utils/jpeg2000_write.py
     (lossless 5/3; a raw codestream for .j2k only, JP2 for the others);
+  - WebP: utils/webp_write.py (libwebp 1.6.0's lossy VP8 at quality 80,
+    method 4; its macroblock loop in native/vp8_enc.cpp, built by g++ on
+    first use, without which writing .webp raises);
   - PNG: encode_png (pixels equal to PIL's file, not its bytes);
   - ICO and ICNS: PIL's directories over PNG entries of the image
     resized as PIL resizes it (utils/resample.py), each entry encode_png's
@@ -40,7 +43,7 @@ encode(path, px) returns the file's bytes or raises what PIL raises for
 the extension: ValueError for an unknown or missing one, KeyError for a
 format PIL only reads, OSError / ValueError (PIL's words) where PIL
 refuses RGB or lacks the handler, and ValueError naming the format where
-PIL writes it and this module does not yet (WebP, AVIF).
+PIL writes it and this module does not yet (AVIF).
 """
 from __future__ import annotations
 
@@ -706,6 +709,12 @@ def _jpeg2000(px, path):
     return encode_jpeg2000(px, path)
 
 
+def _webp(px):
+    from .webp_write import encode_webp
+
+    return encode_webp(px)
+
+
 WRITERS = {
     "PNG": _png,
     "JPEG": lambda px, path: encode_jpeg(px),
@@ -726,6 +735,7 @@ WRITERS = {
     "JPEG2000": lambda px, path: _jpeg2000(px, path),
     "ICO": lambda px, path: encode_ico(px),
     "ICNS": lambda px, path: encode_icns(px),
+    "WEBP": lambda px, path: _webp(px),
 }
 
 # format of each extension PIL registers
@@ -748,8 +758,9 @@ EXTENSIONS = {
     ".jpf": "JPEG2000", ".jpx": "JPEG2000", ".j2c": "JPEG2000",
     ".ico": "ICO", ".icns": "ICNS", ".eps": "EPS", ".ps": "EPS",
     ".pdf": "PDF",
+    ".webp": "WEBP",
     # written by PIL, not yet here
-    ".webp": "WEBP", ".avif": "AVIF", ".avifs": "AVIF",
+    ".avif": "AVIF", ".avifs": "AVIF",
     # PIL refuses an RGB image
     ".blp": "BLP", ".msp": "MSP", ".palm": "PALM", ".xbm": "XBM",
     # PIL has no handler installed
@@ -765,7 +776,7 @@ EXTENSIONS = {
 
 # formats PIL writes and this module does not yet, in the order they are
 # queued
-NOT_YET = ("WEBP", "AVIF")
+NOT_YET = ("AVIF",)
 _REFUSED = {"BLP": (ValueError, "Unsupported BLP image mode"),
             "MSP": (OSError, "cannot write mode RGB as MSP"),
             "PALM": (OSError, "cannot write mode RGB as Palm"),

@@ -360,23 +360,33 @@ ended; a failure in either process fails the script and ends the other.
      version on the card and the CPU within SURF_MEAN_TOL.  The frame is
      kept for phase 36.
  36. more image writers (utils/gif_write.py, utils/jpeg2000_write.py with
-     the C++ tier-1 encoder built by g++ here, utils/resample.py, the
-     EPS, PDF, ICO and ICNS encoders of utils/image_write.py and the ICNS
-     reader of utils/image_read.py): (a) phase 35's frame (1280x720,
-     rendered on the card; no kernel here) through the port's `imgtool
-     convert --tonemap` to each of MORE_WRITER_EXTS (PDF under a fixed
-     clock), each file write_png's encoding: the .jp2 and .j2k read back
-     by read_image and imgtool's loader equal to the tonemapped 8-bit
-     frame, the other JPEG 2000 extensions the .jp2's bytes, the GIF read
-     back as the palette's colours of gif_write.quantize's indices, the
-     ICO's 256x144 entry equal to resample.thumbnail's and the ICNS's
-     1024x1024 one to resample.resize's (read_image giving the reference's
-     regrouped RGBX), the EPS's hex samples the frame's, the PDF holding
+     the C++ tier-1 encoder built by g++ here, utils/webp_write.py with
+     the C++ VP8 encoder native/vp8_enc.cpp built by g++ here,
+     utils/resample.py, the EPS, PDF, ICO and ICNS encoders of
+     utils/image_write.py and the ICNS reader of utils/image_read.py): (a)
+     phase 35's frame (1280x720, rendered on the card; no kernel here)
+     through the port's `imgtool convert --tonemap` to each of
+     MORE_WRITER_EXTS (PDF under a fixed clock), each file write_png's
+     encoding: the .jp2 and .j2k read back by read_image and imgtool's
+     loader equal to the tonemapped 8-bit frame, the other JPEG 2000
+     extensions the .jp2's bytes, the .webp read back by read_image and
+     imgtool's loader equal to webp.decode_webp's samples (PIL's decode,
+     which the CPU tests hold it to) with its RGB PSNR against the 8-bit
+     frame printed, the GIF read back as the palette's colours of
+     gif_write.quantize's indices, the ICO's 256x144 entry equal to
+     resample.thumbnail's and the ICNS's 1024x1024 one to
+     resample.resize's (read_image giving the reference's regrouped
+     RGBX), the EPS's hex samples the frame's, the PDF holding
      encode_jpeg's stream; each encode under MORE_WRITER_BAR_S host
      seconds, its bytes and seconds printed; (b) the committed ground
      fixture's first 128x96 pixels written to each extension, held to
      images.json's SHA-256 of PIL's files (PDF at its recorded clock; ICO
-     and ICNS by directory and each entry's decoded pixels).
+     and ICNS by directory and each entry's decoded pixels), and the
+     ground's crops that images.json's pil_webp_files records (128x96,
+     37x23 and the whole 1024x512) written as WebP, each held to PIL's
+     file there: its VP8 header's fields, its size within 10%, its PSNR
+     (decode_webp) at most 0.5 dB under PIL's and its SHA-256 (the CPU
+     tests find the bytes equal).
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -4495,7 +4505,7 @@ def phase_image_writers(keep, card):
 # phase 36: imgtool convert --tonemap writes phase 35's frame to each of
 # these; the fixture's crop is held to PIL's files of each
 MORE_WRITER_EXTS = (".eps", ".ps", ".pdf", ".gif", ".jp2", ".j2k", ".jpc",
-                    ".jpf", ".jpx", ".j2c", ".ico", ".icns")
+                    ".jpf", ".jpx", ".j2c", ".ico", ".icns", ".webp")
 MORE_WRITER_BAR_S = 10.0    # host seconds, one 1280x720 encode at most
 
 
@@ -4534,6 +4544,12 @@ def icon_entries(data: bytes):
     return directory, entries
 
 
+def psnr_rgb(a, b):
+    """RGB PSNR (dB) of uint8 a against b; inf where they are equal."""
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+
+
 def phase_more_writers(keep, card):
     """Phase 36 (see the module docstring); keep holds phase 35's frame.
     Returns the largest |diff| of a lossless file's read-back samples."""
@@ -4543,7 +4559,8 @@ def phase_more_writers(keep, card):
     from acceleratedvolrenderer_tpu_torch import native
     from acceleratedvolrenderer_tpu_torch.cli import imgtool
     from acceleratedvolrenderer_tpu_torch.utils import (
-        gif_write, image, image_read, image_write, resample, webp)
+        gif_write, image, image_read, image_write, resample, webp,
+        webp_write)
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import time_image_decode as tid
@@ -4558,6 +4575,7 @@ def phase_more_writers(keep, card):
     print(f"more image writers: host CPU {tid.cpu_line()}; {card}",
           flush=True)
     native.j2k_library(required=True)       # the C++ tier-1 encoder
+    native.vp8_enc_library()                # the C++ VP8 encoder
     work = Path(tempfile.mkdtemp())
     err, files = 0, {}
     try:
@@ -4593,6 +4611,15 @@ def phase_more_writers(keep, card):
             elif fmt == "JPEG2000":
                 ok = data == files[".jp2"]
                 what = "the .jp2 file's bytes (PIL writes JP2 here too)"
+            elif fmt == "WEBP":
+                px = webp.decode_webp(data)
+                ok = (np.array_equal(image.read_image(str(out))[0],
+                                     _srgb_to_linear(px))
+                      and np.array_equal(imgtool._load(str(out))[0],
+                                         px.astype(np.float32) / 255))
+                what = (f"RGB PSNR {psnr_rgb(px, want):.2f} dB against the "
+                        "8-bit frame; read back by read_image and imgtool's "
+                        "loader equal to decode_webp's samples")
             elif fmt == "GIF":
                 pal, idx = gif_write.quantize(want)
                 px = image._decode_image(str(out), data)
@@ -4656,9 +4683,29 @@ def phase_more_writers(keep, card):
             if got_rec != want_rec:
                 bad.append(ext)
         print(f"more image writers (b): the ground fixture's {cw}x{ch} files "
-              f"({', '.join(MORE_WRITER_EXTS)}): "
+              f"({', '.join(e for e in MORE_WRITER_EXTS if e != '.webp')}): "
               f"{'all at' if not bad else 'NOT all at'} PIL's hashes (ICO, "
               "ICNS: directory and entries' pixels)", flush=True)
+        whole = webp.decode_webp((IMAGE_FIXTURES / IMAGE_GROUND).read_bytes())
+        for size, rec in record["pil_webp_files"].items():
+            ww, hh = map(int, size.split("x"))
+            px = np.ascontiguousarray(whole[:hh, :ww])
+            t = time.time()
+            got = image_write.encode("fixture.webp", px)
+            enc = time.time() - t
+            head = webp_write.header_fields(got)
+            q = psnr_rgb(webp.decode_webp(got), px)
+            ok = (head == rec["header"]
+                  and 0.9 * rec["bytes"] <= len(got) <= 1.1 * rec["bytes"]
+                  and q >= rec["psnr_rgb"] - 0.5
+                  and hashlib.sha256(got).hexdigest() == rec["sha256"])
+            print(f"more image writers (b): the ground fixture's {size} as "
+                  f"WebP: {len(got)} bytes (PIL's {rec['bytes']}), RGB PSNR "
+                  f"{q:.2f} dB (PIL's {rec['psnr_rgb']:.2f}), header, size, "
+                  f"PSNR and SHA-256 {'at' if ok else 'NOT at'} PIL's file's; "
+                  f"encode {enc:.3f} s", flush=True)
+            if not ok:
+                bad.append(f".webp {size}")
         if bad:
             raise AssertionError(f"more image writers: {bad} differ from "
                                  "PIL's files")

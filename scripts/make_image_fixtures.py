@@ -42,6 +42,17 @@ decode of each (`sha256_of_bytes`, `sha256_of_pil_samples`):
 tests/test_torch_image_formats_j2k.py::test_committed_fixtures_hashes
 holds them to the recorded hashes.
 
+It records, under each WebP fixture's `pil_webp_files`, the file PIL
+writes (Image.save's defaults: lossy, quality 80, method 4) of the
+fixture's decoded samples cropped to each size named there from the top
+left (ground: 128x96, 37x23 and the whole 1024x512; sky: 1280x720 and the
+whole 2048x1024): its length, SHA-256, RGB PSNR of PIL's decode against
+the crop, and the VP8 header's fields (utils/webp_write.py's
+header_fields: segments, quantizers, filter levels, filter type,
+sharpness, partitions and the rest).  chip_smoke.py phase 36 (b) holds
+the port's files of the ground's crops to them on the card's machine;
+tests/test_torch_image_write_webp.py holds the records to PIL.
+
 Rerunning it rewrites both WebP files (the same bytes with PIL 12.1.0's
 libwebp); the CPU tests tests/test_torch_image_formats_webp.py::
 test_committed_fixtures_hashes and tests/test_torch_image_formats_bcn.py::
@@ -64,9 +75,15 @@ sys.path.insert(0, str(ROOT))
 
 import block_maps  # noqa: E402
 import time_image_decode as tid  # noqa: E402
-from chip_smoke import PDF_GMTIME, icon_entries, pdf_clock  # noqa: E402
+from chip_smoke import (PDF_GMTIME, icon_entries, pdf_clock,  # noqa: E402
+                        psnr_rgb)
 
 GROUND_BC7 = "ground_1024x512_bc7.dds"
+# the crops (width, height; from the top left) of each WebP fixture whose
+# PIL WebP files images.json records
+WEBP_WRITE_CROPS = {"ground_1024x512_q90.webp": ((128, 96), (37, 23),
+                                                 (1024, 512)),
+                    "sky_2048x1024_q90.webp": ((1280, 720), (2048, 1024))}
 
 
 def ground(w, h, seed=7):
@@ -142,6 +159,28 @@ def new_writer_records(px, tmp):
             "pdf_gmtime": list(PDF_GMTIME), "pil_icon_files": icons}
 
 
+def webp_write_records(path):
+    """`pil_webp_files` of one WebP fixture (see the docstring)."""
+    from acceleratedvolrenderer_tpu_torch.utils.webp_write import \
+        header_fields
+
+    px = np.asarray(Image.open(path).convert("RGB"))
+    out = {}
+    for w, h in WEBP_WRITE_CROPS[Path(path).name]:
+        crop = np.ascontiguousarray(px[:h, :w])
+        buf = io.BytesIO()
+        Image.fromarray(crop).save(buf, "WEBP")
+        data = buf.getvalue()
+        back = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        out[f"{w}x{h}"] = {"bytes": len(data),
+                           "sha256": hashlib.sha256(data).hexdigest(),
+                           "psnr_rgb": psnr_rgb(back, crop),
+                           "header": header_fields(data)}
+        print(f"{Path(path).name} {w}x{h} as WebP: {len(data)} bytes, "
+              f"PSNR {out[f'{w}x{h}']['psnr_rgb']:.2f} dB")
+    return out
+
+
 def block_map_records(ground_webp):
     """images.json's records of the rebuilt block-compressed files."""
     ground_px = np.asarray(Image.open(ground_webp).convert("RGB"))
@@ -210,6 +249,7 @@ def main():
                     written_crop=list(WRITTEN_CROP),
                     sha256_of_pil_files=written_hashes(crop, tmp))
                 record[name].update(new_writer_records(crop, tmp))
+        record[name]["pil_webp_files"] = webp_write_records(OUT / name)
     record.update(block_map_records(OUT / "ground_1024x512_q90.webp"))
     record.update(jpeg2000_records(OUT / "sky_2048x1024_q90.webp",
                                    OUT / "ground_1024x512_q90.webp"))
