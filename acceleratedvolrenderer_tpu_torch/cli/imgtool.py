@@ -22,9 +22,10 @@ import numpy as np
 def _load(path):
     """(rgb (H, W, 3), attrs) of an EXR, PFM or QOI file by its extension
     (a .qoi linearized, as the reference's read_qoi does), else of any file
-    utils/image.py's read_image decodes (PNG, JPEG, BMP, TIFF, WebP, GIF,
-    netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, JPEG 2000, TGA): its colours
-    scaled to [0, 1] (a float TIFF's values as stored) and not linearized,
+    utils/image.py's read_image decodes (PNG, JPEG, BMP, DIB, TIFF, WebP,
+    GIF, netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, ICNS, JPEG 2000, BLP,
+    MSP, SPIDER, SUN, XBM, XPM, TGA): its colours scaled to [0, 1] (a float
+    TIFF's or SPIDER image's values as stored) and not linearized,
     as the reference's loader does.  write_png's .qoi (PIL's QOI) is read back
     linearized by the first rule and its .pfm (P6 bytes) refused by
     read_pfm, as in the reference."""

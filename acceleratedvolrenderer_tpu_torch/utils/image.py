@@ -278,24 +278,68 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+def _png_filters(rows: np.ndarray, bpp: int):
+    """Each row of rows (H, N) uint8 under the filters None, Up, Sub and
+    Paeth (PNG spec 9.2; zero bytes above the first row and left of the
+    first pixel), (4, H, N) uint8 in that order, and each filtered row's
+    cost (4, H): the sum of its bytes' absolute values read as signed."""
+    x = rows.astype(np.int16)
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    corner = np.zeros_like(x)
+    corner[1:, bpp:] = x[:-1, :-bpp]
+    p = left + up - corner
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, corner))
+    filtered = np.stack([x, x - up, x - left, x - paeth]).astype(np.uint8)
+    cost = np.abs(filtered.view(np.int8).astype(np.int32)).sum(-1)
+    return filtered, cost
+
+
 def encode_png(pixels: np.ndarray) -> bytes:
-    """A PNG of uint8 (8-bit) or uint16 (16-bit) pixels (H, W) gray or
-    (H, W, C) with C 1-4 (gray, gray + alpha, RGB, RGBA); every row
-    unfiltered (type 0).  Other dtypes are cast to uint8."""
+    """A PNG of uint8 (8-bit) or uint16 (16-bit, big-endian) pixels (H, W)
+    gray or (H, W, C) with C 1-4 (gray, gray + alpha, RGB, RGBA), the
+    bytes PIL 12.1.0's Image.save writes for them.  Other dtypes are cast
+    to uint8.  PIL's recipe (ZipEncode.c): each row starts from None and
+    takes Up, then Sub, then Paeth where its filtered bytes, read as
+    signed, have a strictly smaller sum of absolute values (Average only
+    under optimize, which save does not set); the filtered rows, each with
+    its type byte, go one by one through deflate at level 6, window 15,
+    memLevel 9, strategy Z_FILTERED; ImageFile._save cuts the stream into
+    IDAT chunks of max(65536, 4 * width) bytes, between IHDR and IEND.
+    The file equals PIL's where the zlib is PIL's (1.2.13); the stream
+    zlib.decompress gives back depends on this code alone."""
     a = np.asarray(pixels)
     if a.dtype != np.uint16:
         a = a.astype(np.uint8)
     if a.ndim == 2:
         a = a[..., None]
     h, w, c = a.shape
-    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
-    depth = 8 * a.dtype.itemsize
     rows = a.astype(a.dtype.newbyteorder(">")).reshape(h, -1).view(np.uint8)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    filtered, cost = _png_filters(rows, c * a.dtype.itemsize)
+    pick = np.zeros(h, np.int64)            # None, then Up, Sub and Paeth
+    best = cost[0].copy()
+    for k in (1, 2, 3):
+        better = cost[k] < best
+        pick[better] = k
+        best[better] = cost[k][better]
+    types = np.array([0, 2, 1, 4], np.uint8)[pick]
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    parts = [z.compress(bytes((types[i],)) + filtered[pick[i], i].tobytes())
+             for i in range(h)]
+    parts.append(z.flush())
+    stream = b"".join(parts)
+    size = max(65536, 4 * w)
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
     return (_PNG_MAGIC
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h,
+                                              8 * a.dtype.itemsize, ctype,
                                               0, 0, 0))
-            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + b"".join(_png_chunk(b"IDAT", stream[i:i + size])
+                       for i in range(0, len(stream), size))
             + _png_chunk(b"IEND", b""))
 
 
@@ -1091,7 +1135,7 @@ def _ycc_to_rgb(y, cb, cr):
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
+def decode_jpeg(data: bytes, ycck_as_cmyk: bool = False) -> np.ndarray:
     """A JPEG file's 8-bit samples, (H, W, 3) RGB or (H, W, 1) gray: Huffman
     baseline / extended sequential (SOF0 / SOF1), progressive (SOF2) and
     8-bit lossless (SOF3, unsubsampled, predictors 1-7), restart intervals, any sampling whose factors divide the largest
@@ -1099,9 +1143,11 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     choice of colour space: gray, YCbCr or RGB (JFIF; else an Adobe
     marker's transform; else the component ids 'R', 'G', 'B'), CMYK or
     YCCK (an Adobe marker's transform 0 or any other), whose inks come out
-    as PIL's convert("RGB") of its (Adobe-inverted) CMYK makes them.
-    Raises ValueError naming the format on anything else (hierarchical,
-    arithmetic-coded lossless, 12-bit, 2 components, other sampling)."""
+    as PIL's convert("RGB") of its (Adobe-inverted) CMYK makes them (a
+    YCCK frame's components taken as CMYK when ycck_as_cmyk, as PIL's BLP
+    reader has libjpeg take them).  Raises ValueError naming the format on
+    anything else (hierarchical, arithmetic-coded lossless, 12-bit, 2
+    components, other sampling)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     qts, dcs, acs = {}, {}, {}
@@ -1250,7 +1296,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if frame["lossless"]:                   # libjpeg-turbo refuses too
             raise ValueError("lossless JPEG in YCbCr is not read")
         return _ycc_to_rgb(*planes)
-    if adobe is not None and adobe != 0:        # YCCK -> CMYK (jdcolor.c)
+    if adobe is not None and adobe != 0 and not ycck_as_cmyk:  # jdcolor.c
         if frame["lossless"]:
             raise ValueError("lossless JPEG in YCCK is not read")
         planes[:3] = np.moveaxis(255 - _ycc_to_rgb(*planes[:3]).astype(
@@ -1456,6 +1502,38 @@ def decode_bmp(data: bytes) -> np.ndarray:
     if not top_down:
         px = px[::-1]
     return np.ascontiguousarray(px)
+
+
+# the header sizes PIL's DIB plugin accepts (BmpImagePlugin._dib_accept)
+DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+
+
+def is_dib(data: bytes) -> bool:
+    """PIL's test of a DIB (a BMP without its 14-byte file header): the
+    little-endian u32 at offset 0 is one of DIB_HEADERS."""
+    return len(data) >= 4 and struct.unpack_from("<I", data)[0] in DIB_HEADERS
+
+
+def decode_dib(data: bytes) -> np.ndarray:
+    """A DIB's samples as decode_bmp gives a BMP's.  The pixels start where
+    PIL's DibImageFile finds them: after the header, the three bit masks
+    that follow a 40-byte header under BI_BITFIELDS, and, at 8 bits or
+    fewer, the palette (3-byte entries after a 12-byte header, else 4;
+    the header's colour count, else 1 << bits)."""
+    if not is_dib(data) or len(data) < 16:
+        raise ValueError("not a DIB file")
+    hsize = struct.unpack_from("<I", data)[0]
+    if hsize == 12:
+        (bpp,) = struct.unpack_from("<H", data, 10)
+        comp, n_pal, entry = 0, 0, 3
+    else:
+        bpp, comp = struct.unpack_from("<HI", data, 14)
+        (n_pal,), entry = struct.unpack_from("<I", data, 32), 4
+    off = hsize + (12 if comp == 3 and hsize == 40 else 0)
+    if bpp <= 8:
+        off += entry * (n_pal or 1 << bpp)
+    head = struct.pack("<2sIHHI", b"BM", 14 + len(data), 0, 0, 14 + off)
+    return decode_bmp(head + data)
 
 
 def decode_gif(data: bytes) -> np.ndarray:
@@ -1665,12 +1743,15 @@ _NETPBM_EXT = (".pbm", ".pgm", ".ppm", ".pnm")
 
 
 def _decode_image(path: str, data: bytes) -> np.ndarray:
-    """Samples (H, W, C) of a PNG, JPEG, BMP, TIFF (also BigTIFF), WebP,
-    GIF, QOI, netpbm, PCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7),
-    PSD, ICO, CUR, ICNS, JPEG 2000 (JP2 or raw codestream) or (by its
-    extension) TGA file: uint8 colours, uint16 for 16-bit samples, float32
-    for a float TIFF; raises ValueError naming any other format."""
-    from . import image_read, jpeg2000
+    """Samples (H, W, C) of a PNG, JPEG, BMP, DIB, TIFF (also BigTIFF),
+    WebP, GIF, QOI, netpbm, PCX, SGI, IM, DDS (uncompressed, palette and
+    BC1-BC7), PSD, ICO, CUR, ICNS, JPEG 2000 (JP2 or raw codestream), BLP,
+    MSP, SPIDER, SUN raster, XBM, XPM or (by its extension) TGA file, each
+    recognised as PIL recognises it and, TGA aside, in PIL's order of
+    plugins (an uncompressed TGA starts with CUR's magic bytes): uint8
+    colours, uint16 for 16-bit samples, float32 for a float TIFF or
+    SPIDER image; raises ValueError naming any other format."""
+    from . import image_read, image_read_more as more, jpeg2000
 
     ext = path.lower()
     if data[:8] == _PNG_MAGIC:
@@ -1679,6 +1760,8 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         return decode_jpeg(data)
     if data[:2] == b"BM":
         return decode_bmp(data)
+    if is_dib(data):
+        return decode_dib(data)
     if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
         from .tiff import decode_tiff
 
@@ -1696,6 +1779,8 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
     if data[:1] == b"P" and data[1:2] in b"1234567" and len(data) > 2 and (
             data[2:3].isspace() or ext.endswith(_NETPBM_EXT)):
         return decode_netpbm(data)
+    if data[:4] in (b"BLP1", b"BLP2"):
+        return more.decode_blp(data)
     if image_read.is_pcx(data):
         return image_read.decode_pcx(data)
     if data[:2] == b"\x01\xda":
@@ -1716,24 +1801,37 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         return jpeg2000.decode_jp2(data)
     if data[:4] == jpeg2000.J2K_MAGIC:
         return jpeg2000.decode_j2k(data)
+    if data[:4] in (b"DanM", b"LinS"):
+        return more.decode_msp(data)
+    if more.spider_header(data) is not None:
+        return more.decode_spider(data)
+    if data[:4] == more.SUN_MAGIC:
+        return more.decode_sun(data)
+    if more.is_xbm(data):
+        return more.decode_xbm(data)
+    if data[:9] == b"/* XPM */":
+        return more.decode_xpm(data)
     for magic, name in _UNREAD_MAGIC:
         if data.startswith(magic):
             raise ValueError(f"{path}: {name} images are not read")
-    raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, "
-                     "QOI, netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, ICNS, "
-                     "JPEG 2000 or TGA image")
+    raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP, DIB, TIFF, WebP, "
+                     "GIF, QOI, netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, "
+                     "ICNS, JPEG 2000, BLP, MSP, SPIDER, SUN, XBM, XPM or "
+                     "TGA image")
 
 
 def read_image(path: str):
     """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
-    reader above; PNG, JPEG, BMP, TIFF (also BigTIFF), WebP, GIF, QOI,
+    reader above; PNG, JPEG, BMP, DIB, TIFF (also BigTIFF), WebP, GIF, QOI,
     netpbm, PCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7), PSD,
-    ICO, CUR, ICNS, JPEG 2000 (JP2 and raw codestream) and TGA decoded here
-    (by their magic bytes, TGA by its extension), their colours (palettes
-    expanded, gray repeated, alpha dropped) over 255 or 65535, sRGB ->
-    linear (Image::Read's LinearColorEncoding handling, util/image.cpp); a
-    float TIFF is linear already and kept as stored, as EXR and PFM are.
-    Other formats raise, naming the format."""
+    ICO, CUR, ICNS, JPEG 2000 (JP2 and raw codestream), BLP, MSP, SPIDER,
+    SUN raster, XBM, XPM and TGA decoded here (by their magic bytes,
+    SPIDER by its header, TGA by its extension), their colours (palettes
+    expanded, bilevel images 0 / 255, gray repeated, alpha dropped) over
+    255 or 65535, sRGB -> linear (Image::Read's LinearColorEncoding
+    handling, util/image.cpp); a float TIFF or SPIDER image is kept as
+    stored, as EXR and PFM are.  Other formats raise, naming the
+    format."""
     if path.endswith(".exr"):
         img, _names, attrs = read_exr(path)
         return np.asarray(img[:, :, :3], np.float32), attrs

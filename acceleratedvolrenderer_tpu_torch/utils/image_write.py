@@ -33,11 +33,10 @@ PIL), byte for byte the same.
   - WebP: utils/webp_write.py (libwebp 1.6.0's lossy VP8 at quality 80,
     method 4; its macroblock loop in native/vp8_enc.cpp, built by g++ on
     first use, without which writing .webp raises);
-  - PNG: encode_png (pixels equal to PIL's file, not its bytes);
-  - ICO and ICNS: PIL's directories over PNG entries of the image
-    resized as PIL resizes it (utils/resample.py), each entry encode_png's
-    (its pixels PIL's, its bytes, and so the sizes and offsets the
-    directory states, not).
+  - PNG: encode_png (PIL's filter choice and deflate settings; the bytes
+    PIL's where the zlib is PIL's);
+  - ICO and ICNS: PIL's directories over PNG entries (encode_png's) of
+    the image resized as PIL resizes it (utils/resample.py).
 
 encode(path, px) returns the file's bytes or raises what PIL raises for
 the extension: ValueError for an unknown or missing one, KeyError for a
@@ -650,9 +649,9 @@ def encode_ico(px: np.ndarray) -> bytes:
     square keeping its aspect (resample.thumbnail, LANCZOS); the header,
     one 16-byte entry per such frame (width and height, 256 stored as 0;
     no palette; 32 bits per pixel, as PIL states it; size and offset),
-    then each frame as a PNG (encode_png: PIL's pixels, not its zlib
-    stream).  An image under 16 pixels on a side gets no entry: the
-    6-byte file PIL writes, which PIL cannot open."""
+    then each frame as a PNG (encode_png).  An image under 16 pixels on a
+    side gets no entry: the 6-byte file PIL writes, which PIL cannot
+    open."""
     from .image import encode_png
     from .resample import thumbnail
 

@@ -6,7 +6,8 @@
 Phases (any failure raises, and the script exits non-zero).  Phases 1-4,
 10, 11 and phase 15's timed gather run first, alone on the card; then the
 phases that need neither phase 8's scene nor its frames (5-7, 12, 13,
-15-17, 19-22, 24, 26, 29's small legs and 30, in that order from 24 and 15)
+15-17, 19-22, 24, 26, 29's small legs, 30 and 37, in that order from 24,
+15 and 37)
 run in a second process, this script with --side (side_main), beside the
 rest (8, 9, 14, 18, 23, 25, 28, 29's full-size legs, 27, 31-36, in that
 order), which waits for the side's phase 24 and 15 frames before phase 29
@@ -207,10 +208,15 @@ ended; a failure in either process fails the script and ends the other.
      block (257^3: the converter adds a layer of background, as pbrt's
      does) and wrapped in a .pbrt file stating the preset's 1280x720
      scene (scene_file_text), rendered by the CLI (`cli/pbrt.py --spp 1
-     --stats --mse-reference-image` phase 14's frame): seconds of each
-     step (nvdb write, conversion, parse, render, EXR write and read
-     back), the MSE against phase 14's frame, iterations, march launches
-     (one per iteration), Mrays/s and peak memory; the parsed grid equal
+     --stats --mse-reference-image` phase 14's frame `--write-png`):
+     seconds of each step (nvdb write, conversion, parse, render, EXR
+     write and read back), the MSE against phase 14's frame, iterations,
+     march launches (one per iteration), Mrays/s and peak memory; the PNG
+     (encode_png, PIL's bytes) decoded equal to to_8bit of the run's EXR
+     frame and to encode_png's file of it, its bytes, the CLI's write and
+     encode_png's seconds, its rows' filter types, and the bytes and
+     seconds of the unfiltered level-6 encoder the port had before
+     (old_png_bytes); the parsed grid equal
      bit for bit to the values its text states (the converter prints six
      decimals: within GRID_TEXT_TOL of the preset's) and its extra layer
      zero; the
@@ -312,16 +318,21 @@ ended; a failure in either process fails the script and ends the other.
      (d)'s 8-bit TIFF for phase 34 and returns the uniform-sky frame's
      mean.
  33. image writers (utils/image_write.py, the PCX, SGI, IM and DDS readers
-     of utils/image_read.py): phase 32's map frame (1280x720, rendered
-     on the card; it launches no kernel here) through the port's
-     `imgtool convert --tonemap` to each of WRITER_EXTS and `imgtool
-     falsecolor` to .png and .jpg, each file read back through
-     read_image and imgtool's loader: the lossless ones equal the frame's
-     tonemapped 8-bit samples (max |diff| 0), the JPEGs' decodes reach
-     WRITER_MIN_PSNR against them (the falsecolor one against its PNG);
-     and the files of the committed ground fixture's first 128x96
-     pixels hash as PIL's do (images.json; this machine has no PIL).
-     Each file's bytes and seconds (the CLI call and the encode alone).
+     of utils/image_read.py, the DIB reader of utils/image.py): phase
+     32's map frame (1280x720, rendered on the card; it launches no
+     kernel here) through the port's `imgtool convert --tonemap` to each
+     of WRITER_EXTS (.dib among them) and `imgtool falsecolor` to .png
+     and .jpg, each file read back through read_image and imgtool's
+     loader: the lossless ones equal the frame's tonemapped 8-bit samples
+     (max |diff| 0), the JPEGs' decodes reach WRITER_MIN_PSNR against
+     them (the falsecolor one against its PNG); the files of the
+     committed ground fixture's first 128x96 pixels hash as PIL's do
+     (images.json; this machine has no PIL); and encode_png's files of
+     the ground's 128x96, 37x23 and whole 1024x512 samples held to PIL's
+     (png_hashes_held): the decompressed IDAT stream's SHA-256 always, the
+     file's where this host's zlib is images.json's pil_zlib (else both
+     versions printed).  Each file's bytes and seconds (the CLI call and
+     the encode alone).
  34. block-compressed maps (utils/bcn.py; the palette DDS, PSD, ICO and
      BigTIFF readers): (a) scripts/block_maps.py's integer encoders
      rebuild phase 32's sinusoid sky at 2048x1024 as BC6H UF16 (mode 11)
@@ -381,12 +392,20 @@ ended; a failure in either process fails the script and ends the other.
      seconds, its bytes and seconds printed; (b) the committed ground
      fixture's first 128x96 pixels written to each extension, held to
      images.json's SHA-256 of PIL's files (PDF at its recorded clock; ICO
-     and ICNS by directory and each entry's decoded pixels), and the
+     and ICNS by png_hashes_held: each PNG entry's IDAT stream always, the
+     file where this host's zlib is PIL's), and the
      ground's crops that images.json's pil_webp_files records (128x96,
      37x23 and the whole 1024x512) written as WebP, each held to PIL's
      file there: its VP8 header's fields, its size within 10%, its PSNR
      (decode_webp) at most 0.5 dB under PIL's and its SHA-256 (the CPU
      tests find the bytes equal).
+ 37. read formats (utils/image_read_more.py, in the side process): each
+     committed fixture of XBM, MSP (v1, v2), SPIDER, BLP (BLP1 palette and
+     JPEG, BLP2 palette and DXT1 / DXT3 / DXT5), SUN raster and XPM
+     (tests/data/images/, images.json's entries read by that module)
+     decoded once through image.py's _decode_image, held to the SHA-256 of
+     its bytes and of PIL's samples (colours for bilevel and palette
+     images), its host seconds printed (scripts/more_read_formats.py).
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -2700,9 +2719,11 @@ def phase_scene_file(dev, scene, wave_img, card, keep=None):
           f"text), scene file {path.stat().st_size / 2 ** 20:.1f} MiB",
           flush=True)
 
-    # time the CLI's parse and EXR write by wrapping what it calls
+    # time the CLI's parse, EXR write and PNG write by wrapping what it
+    # calls
     steps, parsed = {}, []
     load_scene, write_film = parser.load_scene, film.write_film
+    write_png = image.write_png
 
     def timed_load(*args, **kw):
         t = time.time()
@@ -2715,6 +2736,11 @@ def phase_scene_file(dev, scene, wave_img, card, keep=None):
         write_film(*args, **kw)
         steps["exr write"] = time.time() - t
 
+    def timed_png(*args, **kw):
+        t = time.time()
+        write_png(*args, **kw)
+        steps["png write"] = time.time() - t
+
     out = str(work / "cloud.exr")
     torch.cuda.reset_peak_memory_stats(dev)
     with contextlib.ExitStack() as stack:
@@ -2722,10 +2748,11 @@ def phase_scene_file(dev, scene, wave_img, card, keep=None):
                                               timed_load))
         stack.enter_context(mock.patch.object(film, "write_film",
                                               timed_write))
+        stack.enter_context(mock.patch.object(image, "write_png", timed_png))
         zero_kernel_counts()
         t3 = time.time()
         st = run_cli([str(path), "-o", out, "--spp", "1", "--stats",
-                      "--mse-reference-image", ref])
+                      "--mse-reference-image", ref, "--write-png"])
         t4 = time.time()
         counts = kernel_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -2747,6 +2774,7 @@ def phase_scene_file(dev, scene, wave_img, card, keep=None):
     if counts != (st["iterations"], 0, 0):
         raise AssertionError(f"scene file: launches {counts} for "
                              f"{st['iterations']} iterations")
+    cli_png_check(work / "cloud.png", img, steps["png write"], card)
     if rel > FULL_MEAN_TOL:
         raise AssertionError("scene file: mean not within 2% of phase 14's")
 
@@ -2777,6 +2805,50 @@ def phase_scene_file(dev, scene, wave_img, card, keep=None):
         shutil.move(str(work / "grid.txt"), str(Path(keep) / "grid.txt"))
     tmp.cleanup()
     return counts[0], gather_n
+
+
+def old_png_bytes(px):
+    """The PNG encoder the port had before it took PIL's recipe: every row
+    unfiltered, zlib.compress at level 6, one IDAT; (its bytes, seconds)."""
+    import zlib
+
+    t = time.time()
+    raw = np.concatenate([np.zeros((px.shape[0], 1), np.uint8),
+                          px.reshape(px.shape[0], -1)], 1)
+    n = len(zlib.compress(raw.tobytes(), 6)) + 8 + 25 + 12 + 12
+    return n, time.time() - t
+
+
+def cli_png_check(path, img, write_s, card):
+    """Phase 28's --write-png frame: decode_png of the CLI's PNG equals
+    to_8bit of the same run's EXR frame; its bytes, the CLI's write and
+    encode_png's seconds, the rows' filter types, and the old encoder's
+    bytes and seconds beside them."""
+    import zlib
+
+    from acceleratedvolrenderer_tpu_torch.utils import image
+
+    data = Path(path).read_bytes()
+    want = image.to_8bit(img)
+    if not np.array_equal(image.decode_png(data), want):
+        raise AssertionError("scene file: the CLI's PNG is not the frame's "
+                             "8-bit samples")
+    t = time.time()
+    again = image.encode_png(want)
+    enc = time.time() - t
+    if again != data:
+        raise AssertionError("scene file: the CLI's PNG is not encode_png's")
+    stream = np.frombuffer(png_idat_stream(data), np.uint8)
+    types = stream[::1 + want.shape[1] * want.shape[2]]
+    hist = {int(k): int(v) for k, v in zip(*np.unique(types,
+                                                      return_counts=True))}
+    old, old_s = old_png_bytes(want)
+    print(f"scene file: --write-png {want.shape[1]}x{want.shape[0]}: "
+          f"{len(data)} bytes (the unfiltered level-6 encoder: {old} bytes, "
+          f"{old / len(data):.3f}x; {old_s:.3f} s), CLI write {write_s:.3f} "
+          f"s, encode_png {enc:.3f} s, rows by filter type {hist}, equal to "
+          f"the EXR frame's to_8bit; zlib {zlib.ZLIB_RUNTIME_VERSION}; "
+          f"{card}", flush=True)
 
 
 def room_file_text(width, height, spp=1):
@@ -3935,8 +4007,8 @@ IMAGE_GROUND_SAMPLES = "ground.npy"
 IMAGE_TIFF8 = "sky8.tif"
 # phase 33: imgtool convert --tonemap writes the map frame to each of these
 # (PNG and JPEG, then the lossless formats write_png writes byte for byte)
-WRITER_EXTS = (".png", ".jpg", ".bmp", ".tga", ".tif", ".ppm", ".pcx",
-               ".sgi", ".im", ".dds", ".qoi")
+WRITER_EXTS = (".png", ".jpg", ".bmp", ".dib", ".tga", ".tif", ".ppm",
+               ".pcx", ".sgi", ".im", ".dds", ".qoi")
 # dB, the JPEGs' decodes against their pixels: a floor against a broken
 # encode or decode, the files' bytes being held to PIL's by the fixture
 # hashes.  What a JPEG at PIL's quality 75 keeps depends on the frame's
@@ -4494,6 +4566,14 @@ def phase_image_writers(keep, card):
               f"({', '.join(sorted(record['sha256_of_pil_files']))}): "
               f"{'all at' if not bad else 'NOT all at'} PIL's hashes",
               flush=True)
+        ground = webp.decode_webp((IMAGE_FIXTURES / IMAGE_GROUND).read_bytes())
+        for size, rec in record["pil_png_files"].items():
+            pw, ph = map(int, size.split("x"))
+            t = time.time()
+            png = image.encode_png(np.ascontiguousarray(ground[:ph, :pw]))
+            enc = time.time() - t
+            bad += png_hashes_held(f"image writers: the ground's {size} PNG",
+                                   png, rec, record["pil_zlib"], enc)
         if bad:
             raise AssertionError(f"image writers: {bad} differ from PIL's "
                                  "files")
@@ -4542,6 +4622,51 @@ def icon_entries(data: bytes):
         size, at = struct.unpack_from("<II", e, 8)
         entries.append(data[at:at + size])
     return directory, entries
+
+
+def png_idat_stream(data: bytes) -> bytes:
+    """The decompressed IDAT stream of a PNG file (its filtered rows, each
+    with its filter type byte): what the encoder chose, whatever the zlib
+    that deflated it."""
+    import zlib
+
+    i, parts = 8, []
+    while i < len(data):
+        n, kind = struct.unpack_from(">I4s", data, i)
+        if kind == b"IDAT":
+            parts.append(data[i + 8:i + 8 + n])
+        i += 12 + n
+    return zlib.decompress(b"".join(parts))
+
+
+def png_hashes_held(what, data, rec, pil_zlib, enc=None):
+    """Holds a PNG (or ICO / ICNS) file to images.json's record of PIL's:
+    its IDAT streams' SHA-256 always (the filters: the port's own choice),
+    the whole file's where this host's zlib is PIL's (pil_zlib; deflate's
+    bytes are the platform library's), else printing both versions.
+    Prints a line; returns [what] if a hash held differs, else []."""
+    import hashlib
+    import zlib
+
+    if data[:4] in (b"\0\0\1\0", b"icns"):
+        streams = [png_idat_stream(e) for e in icon_entries(data)[1]]
+        want = rec["idat_streams"]
+    else:
+        streams, want = [png_idat_stream(data)], [rec["sha256_of_idat_stream"]]
+    idat_ok = [hashlib.sha256(x).hexdigest() for x in streams] == want
+    file_ok = hashlib.sha256(data).hexdigest() == rec["sha256"]
+    same_zlib = zlib.ZLIB_RUNTIME_VERSION == pil_zlib
+    held = idat_ok and (file_ok or not same_zlib)
+    took = "" if enc is None else f", encode {enc:.3f} s"
+    print(f"{what}: {len(data)} bytes (PIL's {rec['bytes']}){took}; "
+          f"{len(streams)} IDAT stream(s) {'at' if idat_ok else 'NOT at'} "
+          f"PIL's SHA-256; the file's SHA-256 "
+          + (f"{'at' if file_ok else 'NOT at'} PIL's (zlib {pil_zlib} here "
+             "too)" if same_zlib else
+             f"not held: this host's zlib is {zlib.ZLIB_RUNTIME_VERSION}, "
+             f"PIL's {pil_zlib} (it is {'at' if file_ok else 'not at'} "
+             "PIL's)"), flush=True)
+    return [] if held else [what]
 
 
 def psnr_rgb(a, b):
@@ -4672,20 +4797,16 @@ def phase_more_writers(keep, card):
                 got = image_write.encode(f"fixture{ext}", crop)
             if hashlib.sha256(got).hexdigest() != digest:
                 bad.append(ext)
-        for ext, want_rec in sorted(record["pil_icon_files"].items()):
-            directory, entries = icon_entries(
-                image_write.encode(f"fixture{ext}", crop))
-            got_rec = {"directory": directory.hex(), "entries": []}
-            for png in entries:
-                a = np.ascontiguousarray(image.decode_png(png))
-                got_rec["entries"].append(
-                    [hashlib.sha256(a.tobytes()).hexdigest(), list(a.shape)])
-            if got_rec != want_rec:
-                bad.append(ext)
+        exact = sorted(record["sha256_of_pil_files_exact"])
         print(f"more image writers (b): the ground fixture's {cw}x{ch} files "
-              f"({', '.join(e for e in MORE_WRITER_EXTS if e != '.webp')}): "
-              f"{'all at' if not bad else 'NOT all at'} PIL's hashes (ICO, "
-              "ICNS: directory and entries' pixels)", flush=True)
+              f"({', '.join(exact)}): {'all at' if not bad else 'NOT all at'}"
+              " PIL's hashes", flush=True)
+        for ext, want_rec in sorted(record["pil_icon_files"].items()):
+            t = time.time()
+            got = image_write.encode(f"fixture{ext}", crop)
+            bad += png_hashes_held(
+                f"more image writers (b): the ground fixture's {cw}x{ch} "
+                f"{ext}", got, want_rec, record["pil_zlib"], time.time() - t)
         whole = webp.decode_webp((IMAGE_FIXTURES / IMAGE_GROUND).read_bytes())
         for size, rec in record["pil_webp_files"].items():
             ww, hh = map(int, size.split("x"))
@@ -4714,6 +4835,23 @@ def phase_more_writers(keep, card):
     return err
 
 
+def phase_read_formats(card):
+    """Phase 37 (see the module docstring), in the side process."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import more_read_formats as mrf
+    import time_image_decode as tid
+
+    rows = mrf.decode_fixtures()
+    print(f"read formats: host CPU {tid.cpu_line()}; {card}", flush=True)
+    for name, secs, shape, ok in rows:
+        print(f"read formats: {name} {tuple(shape)} decoded in {secs:.4f} s"
+              f", {'at' if ok else 'NOT at'} PIL's SHA-256", flush=True)
+    bad = [name for name, *_, ok in rows if not ok]
+    if len(rows) != 14 or bad:
+        raise AssertionError(f"read formats: {len(rows)} fixtures, {bad} "
+                             "differ from PIL's decode")
+
+
 def timed(name, fn, *args):
     t0 = time.time()
     out = fn(*args)
@@ -4729,7 +4867,8 @@ T0 = time.time()
 # frames run in a second process on the same card, beside the parent's
 # ---------------------------------------------------------------------------
 
-SIDE_PHASES = "5-7, 12, 13, 15-17, 19-22, 24, 26, 29's small legs and 30"
+SIDE_PHASES = ("5-7, 12, 13, 15-17, 19-22, 24, 26, 29's small legs, 30 "
+               "and 37")
 SIDE_TIMEOUT = 900               # seconds the side process may take in all
 
 
@@ -4756,6 +4895,7 @@ def side_main(work):
                                    ("fog box", "render"))}}, f)
     os.replace(tmp, work / "handoff.pkl")
     out = {"gather_rec": dict(fog_rec, **room_rec)}
+    timed("read formats", phase_read_formats, card)
     fused_gpu = timed("small frame", phase_small_frame, dev)
     out["window_launches"] = timed("window frame", phase_window_frame, dev,
                                    fused_gpu)

@@ -16,10 +16,13 @@ and holds the port's decode to the hashes).
     holds the port's files to them.  Phase 36's formats are recorded
     beside them: `sha256_of_pil_files_exact` for EPS, PS, PDF (written
     with time.gmtime fixed at `pdf_gmtime`), GIF and the six JPEG 2000
-    extensions, and `pil_icon_files` for ICO and ICNS: the directory's
-    fields that do not depend on the PNG streams' lengths (ICO: the header
-    and each entry's first 8 bytes; ICNS: the entry types in order) and
-    the SHA-256 and shape of each entry's decoded pixels.
+    extensions, and `pil_icon_files` for ICO and ICNS: each file's length
+    and SHA-256, and the SHA-256 of each PNG entry's decompressed IDAT
+    stream.  `pil_png_files` records PIL's PNG of the ground's first
+    128x96 and 37x23 samples and of the whole ground the same way (length,
+    SHA-256, SHA-256 of the IDAT stream), and `pil_zlib` the zlib version
+    PIL deflates with: chip_smoke.py phases 33 and 36 assert the streams'
+    hashes always, the files' where the host's zlib is that version.
 
 It also records, without committing them, the block-compressed DDS files
 scripts/block_maps.py rebuilds on any host (integer encoders), each under
@@ -53,6 +56,16 @@ sharpness, partitions and the rest).  chip_smoke.py phase 36 (b) holds
 the port's files of the ground's crops to them on the card's machine;
 tests/test_torch_image_write_webp.py holds the records to PIL.
 
+It writes the committed fixtures of the formats utils/image_read_more.py
+reads (more_read_files: XBM, MSP v1 and v2, SPIDER, BLP1 palette and
+JPEG, BLP2 palette and DXT1 / DXT3 / DXT5, SUN raster, XPM, each of the
+ground's first 128x96 samples; PIL's files where PIL writes the kind,
+scripts/more_read_formats.py's writers elsewhere), each recorded with
+`read_by`, the SHA-256 of its bytes and of PIL's samples (colours for
+bilevel and palette images, as the port reads them), PIL's mode and the
+shape; tests/test_torch_image_formats_pil_more.py and chip_smoke.py's
+side process hold the port's decodes to them.
+
 Rerunning it rewrites both WebP files (the same bytes with PIL 12.1.0's
 libwebp); the CPU tests tests/test_torch_image_formats_webp.py::
 test_committed_fixtures_hashes and tests/test_torch_image_formats_bcn.py::
@@ -76,9 +89,11 @@ sys.path.insert(0, str(ROOT))
 import block_maps  # noqa: E402
 import time_image_decode as tid  # noqa: E402
 from chip_smoke import (PDF_GMTIME, icon_entries, pdf_clock,  # noqa: E402
-                        psnr_rgb)
+                        png_idat_stream, psnr_rgb)
+import more_read_formats as mrf  # noqa: E402
 
 GROUND_BC7 = "ground_1024x512_bc7.dds"
+MORE_READ_CROP = (128, 96)
 # the crops (width, height; from the top left) of each WebP fixture whose
 # PIL WebP files images.json records
 WEBP_WRITE_CROPS = {"ground_1024x512_q90.webp": ((128, 96), (37, 23),
@@ -122,24 +137,45 @@ def written_hashes(px, tmp):
     return out
 
 
-# phase 36's formats: byte for byte, and ICO / ICNS by directory and
-# pixels (PDF files under chip_smoke.PDF_GMTIME's clock)
+# phase 36's formats: byte for byte, ICO / ICNS also by their PNG entries'
+# IDAT streams (PDF files under chip_smoke.PDF_GMTIME's clock)
 EXACT_EXTS = (".eps", ".ps", ".pdf", ".gif", ".jp2", ".j2k", ".jpc", ".jpf",
               ".jpx", ".j2c")
 ICON_EXTS = (".ico", ".icns")
+# the ground's crops (width, height; from the top left) whose PIL PNG files
+# images.json records
+PNG_CROPS = ((128, 96), (37, 23), (1024, 512))
+
+
+def png_record(data):
+    """A PNG file's length, SHA-256 and the SHA-256 of its decompressed IDAT
+    stream (chip_smoke.png_idat_stream)."""
+    return {"bytes": len(data), "sha256": hashlib.sha256(data).hexdigest(),
+            "sha256_of_idat_stream": hashlib.sha256(
+                png_idat_stream(data)).hexdigest()}
 
 
 def icon_record(ext, data):
-    """The directory and per-entry pixels of an ICO or ICNS file:
-    {"directory": hex, "entries": [[sha256 of the samples, shape], ...]},
-    each entry's PNG decoded by PIL."""
-    directory, pngs = icon_entries(data)
-    entries = []
-    for png in pngs:
-        a = np.ascontiguousarray(np.asarray(Image.open(io.BytesIO(png))))
-        entries.append([hashlib.sha256(a.tobytes()).hexdigest(),
-                        list(a.shape)])
-    return {"directory": directory.hex(), "entries": entries}
+    """An ICO or ICNS file's length, SHA-256 and the SHA-256 of each PNG
+    entry's decompressed IDAT stream, in the file's order."""
+    return {"bytes": len(data), "sha256": hashlib.sha256(data).hexdigest(),
+            "idat_streams": [hashlib.sha256(png_idat_stream(png)).hexdigest()
+                             for png in icon_entries(data)[1]]}
+
+
+def png_records(ground_px):
+    """`pil_png_files`: PIL's PNG of each of PNG_CROPS of the ground's
+    samples, and the zlib PIL deflates with."""
+    from PIL import features
+
+    out = {}
+    for w, h in PNG_CROPS:
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(ground_px[:h, :w])).save(
+            buf, "PNG")
+        out[f"{w}x{h}"] = png_record(buf.getvalue())
+        print(f"ground {w}x{h} as PNG: {out[f'{w}x{h}']['bytes']} bytes")
+    return {"pil_png_files": out, "pil_zlib": features.version("zlib")}
 
 
 def new_writer_records(px, tmp):
@@ -227,6 +263,77 @@ def jpeg2000_records(sky_webp, ground_webp):
     return out
 
 
+def _pil_bytes(im, fmt, **kw):
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def more_read_files(ground_px):
+    """{name: bytes} of the committed fixtures of the formats
+    utils/image_read_more.py reads, made of the ground's first 128x96
+    samples: PIL's XBM, MSP (v1), SPIDER (its luminance as floats) and
+    BLP1 / BLP2 (256-colour palette) files, and the writers' MSP v2, BLP1
+    JPEG (PIL's JPEG at quality 90 as its payload), BLP2 DXT1 / DXT3 /
+    DXT5 (alpha a diagonal ramp), SUN (24-bit run-length coded, 8-bit
+    with a colour map, 1-bit) and XPM (64 colours, 1 character each)."""
+    w, h = MORE_READ_CROP
+    px = np.ascontiguousarray(ground_px[:h, :w])
+    im = Image.fromarray(px)
+    bilevel = im.convert("1")
+    bits = np.asarray(bilevel).astype(np.uint8)
+    pal = im.quantize(256)
+    few = im.quantize(64)
+    idx64 = np.asarray(few)
+    pal64 = np.array(few.getpalette()[:192], np.uint8).reshape(64, 3)
+    yy, xx = np.mgrid[0:h, 0:w]
+    rgba = np.concatenate([px, ((xx + yy) * 255 // (w + h - 2)).astype(
+        np.uint8)[..., None]], -1)
+    files = {
+        "ground_128x96.xbm": _pil_bytes(bilevel, "XBM"),
+        "ground_128x96_v1.msp": _pil_bytes(bilevel, "MSP"),
+        "ground_128x96_v2.msp": mrf.msp_v2(bits),
+        "ground_128x96.spider": _pil_bytes(im.convert("F"), "SPIDER"),
+        "ground_128x96_blp1.blp": _pil_bytes(pal, "BLP", blp_version="BLP1"),
+        "ground_128x96_blp2.blp": _pil_bytes(pal, "BLP"),
+        "ground_128x96_blp1_jpeg.blp": mrf.blp1_jpeg(
+            _pil_bytes(im, "JPEG", quality=90), w, h),
+        "ground_128x96_rle.ras": mrf.sun_file(px, 24, rle=True),
+        "ground_128x96_palette.ras": mrf.sun_file(idx64, 8, palette=pal64),
+        "ground_128x96_1bit.ras": mrf.sun_file(bits, 1),
+        "ground_128x96.xpm": mrf.xpm_file(idx64, pal64),
+    }
+    for kind in ("DXT1", "DXT3", "DXT5"):
+        files[f"ground_128x96_{kind.lower()}.blp"] = mrf.blp2_blocks(
+            mrf.dxt_blocks(rgba, kind), w, h, kind)
+    return files
+
+
+def more_read_records(ground_px):
+    """Write the fixtures of more_read_files; their images.json records:
+    `read_by`, the SHA-256 of the bytes and of PIL's samples as the port
+    gives them (colours for mode 1 and P), PIL's mode and the samples'
+    shape (a channel axis for gray)."""
+    out = {}
+    for name, data in more_read_files(ground_px).items():
+        (OUT / name).write_bytes(data)
+        im = Image.open(io.BytesIO(data))
+        mode = im.mode
+        if mode in ("1", "P"):
+            im = im.convert("L" if mode == "1" else "RGB")
+        a = np.ascontiguousarray(np.asarray(im))
+        a = a[..., None] if a.ndim == 2 else a
+        out[name] = {"read_by": "utils/image_read_more.py",
+                     "sha256_of_bytes": hashlib.sha256(data).hexdigest(),
+                     "sha256_of_pil_samples": hashlib.sha256(
+                         a.tobytes()).hexdigest(),
+                     "pil_mode": mode, "shape": list(a.shape),
+                     "bytes": len(data)}
+        print(f"{name}: {len(data)} bytes, PIL mode {mode}, samples "
+              f"{list(a.shape)}")
+    return out
+
+
 def main():
     OUT.mkdir(parents=True, exist_ok=True)
     files = {"sky_2048x1024_q90.webp": tid.sky(2048, 1024, 255),
@@ -249,10 +356,14 @@ def main():
                     written_crop=list(WRITTEN_CROP),
                     sha256_of_pil_files=written_hashes(crop, tmp))
                 record[name].update(new_writer_records(crop, tmp))
+            ground_px = np.asarray(Image.open(OUT / name).convert("RGB"))
+            record[name].update(png_records(ground_px))
         record[name]["pil_webp_files"] = webp_write_records(OUT / name)
     record.update(block_map_records(OUT / "ground_1024x512_q90.webp"))
     record.update(jpeg2000_records(OUT / "sky_2048x1024_q90.webp",
                                    OUT / "ground_1024x512_q90.webp"))
+    record.update(more_read_records(np.asarray(Image.open(
+        OUT / "ground_1024x512_q90.webp").convert("RGB"))))
     (OUT / "images.json").write_text(json.dumps(record, indent=1) + "\n")
 
 

@@ -6,7 +6,9 @@ which reuses the medium file and the mean) and 36 (more image writers,
 which converts phase 35's frame) alone on the CUDA
 card, with the phases they need: 8 (the 1280x720 cloud over the 256^3
 grid), 14 (its wave frame) and 28 (the grid through a .nvdb and
-nanovdb2pbrt into the block phase 32 Includes).
+nanovdb2pbrt into the block phase 32 Includes, and the CLI's frame
+written as PNG), then 37 (the XBM, MSP, SPIDER, BLP, SUN and XPM
+fixtures' decodes, which the full script runs in its side process).
 
     python3 scripts/phase32_alone.py [--frame-out PATH]
 
@@ -57,6 +59,7 @@ def main():
                        uniform_mean, card))
         print(cs.timed("more image writers", cs.phase_more_writers, keep,
                        card))
+    cs.timed("read formats", cs.phase_read_formats, card)
     return 0
 
 

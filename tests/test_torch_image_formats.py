@@ -19,10 +19,12 @@ channels, a palette BMP its indices), the port expands as pbrt does and
 is held to PIL's RGB conversion.  The formats this file once held as
 unread (arithmetic-coded, lossless and CMYK JPEG, GIF, TIFF, WebP,
 colour-mapped TGA, RLE and 16-bit BMP; then PCX, SGI, IM and
-uncompressed DDS; then block-compressed DDS, PSD, ICO and BigTIFF) are
-read now and held to the same rule; every format left unread raises,
-naming itself.  The new readers' own tests are in
-tests/test_torch_image_formats_{tiff,webp,more,scene,readback,bcn,psd_ico}.py.
+uncompressed DDS; then block-compressed DDS, PSD, ICO and BigTIFF; then
+XBM, MSP, SPIDER, BLP, SUN, XPM and DIB) are read now and held to the
+same rule (a SPIDER image's floats as stored); every format left unread
+raises, naming itself.  The new readers' own tests are in
+tests/test_torch_image_formats_{tiff,webp,more,scene,readback,bcn,psd_ico,
+pil_more}.py.
 """
 import io
 import struct
@@ -243,9 +245,9 @@ UNREAD = {
             b"ENDHDR\n" + bytes(6), "PAM"),
     "pfm": (".pfm", lambda: b"PF\n2 1\n-1.0\n" + bytes(24), "PFM"),
     "unknown": (".xyz", lambda: b"\x00\x01\x02\x03" * 8,
-                "not an EXR, PNG, JPEG, BMP, TIFF, WebP, GIF, QOI, netpbm, "
-                "PCX, SGI, IM, DDS, PSD, ICO, CUR, ICNS, JPEG 2000 or TGA "
-                "image"),
+                "not an EXR, PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, QOI, "
+                "netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, ICNS, JPEG 2000, "
+                "BLP, MSP, SPIDER, SUN, XBM, XPM or TGA image"),
 }
 
 
@@ -256,6 +258,18 @@ def test_unread_formats_raise_naming_them(tmp_path, case):
     path.write_bytes(make())
     with pytest.raises(ValueError, match=words):
         timage.read_image(str(path))
+
+
+def _bilevel(fmt):
+    b = io.BytesIO()
+    Image.fromarray(_scene(37, 23)).convert("1").save(b, fmt)
+    return b.getvalue()
+
+
+def _other_p(fmt):
+    b = io.BytesIO()
+    Image.fromarray(_scene(37, 23)).convert("P").save(b, fmt)
+    return b.getvalue()
 
 
 def _rle8_bmp():
@@ -292,6 +306,18 @@ NOW_READ = {
                                          "RGB", rle=True), "reference"),
     "ico": (".ico", lambda: _other("ICO"), "reference"),
     "bigtiff": (".tif", lambda: _other("TIFF", big_tiff=True), "reference"),
+    # then XBM, MSP, SPIDER (its floats kept as stored: "stored"), BLP,
+    # SUN and XPM (tests/test_torch_image_formats_pil_more.py holds each
+    # kind) and DIB
+    "xbm": (".xbm", lambda: _bilevel("XBM"), "convert"),
+    "msp": (".msp", lambda: _bilevel("MSP"), "convert"),
+    "spider": (".spi", lambda: _other("SPIDER"), "stored"),
+    "blp": (".blp", lambda: _other_p("BLP"), "reference"),
+    "sun": (".ras", lambda: tiw.sun_file(_scene(37, 23), 24, rle=True),
+            "reference"),
+    "xpm": (".xpm", lambda: tiw.xpm_file(_scene(37, 23)[..., 0] // 32,
+                                         _scene(8, 1)[0]), "convert"),
+    "dib": (".dib", lambda: _other("DIB"), "reference"),
 }
 
 
@@ -304,6 +330,9 @@ def test_formerly_unread_formats_now_read(tmp_path, case):
     assert attrs == {} and lin.dtype == np.float32
     if rule == "reference":
         assert np.array_equal(lin, jimage.read_image(str(path))[0])
+    elif rule == "stored":
+        px = np.asarray(Image.open(path), np.float32)[..., None]
+        assert np.array_equal(lin, np.repeat(px, 3, axis=2))
     else:
         rgb = np.asarray(Image.open(path).convert("RGB"))
         assert np.array_equal(lin, _linear(rgb))

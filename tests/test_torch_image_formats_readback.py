@@ -1,10 +1,12 @@
-"""The port's PCX, SGI, IM and DDS readers (utils/image_read.py, through
+"""The port's PCX, SGI, IM, DDS and DIB readers (utils/image_read.py,
+utils/image.py's decode_dib, through
 utils/image.py's read_image) against PIL, which the reference's
 read_image uses, on the files write_png now writes and their other kinds:
 PIL's own files in every mode it writes each format in (L, P, RGB and
 RGBA, and 1 and LA where it writes them), and files PIL does not write
 (RLE and 16-bit SGI, 1-bit PCX, DDS of other bit masks and a DX10 header,
-IM with a lookup table) from tests/torch_image_writers.py or built here.
+IM with a lookup table, DIB under 12-, 40-, 108- and 124-byte headers)
+from tests/torch_image_writers.py or built here.
 The samples equal PIL's (palettes and 1-bit expanded to colours, as
 PIL's convert gives them), and read_image equals the reference's where
 PIL hands the reference colours (L, RGB, RGBA), else the linearised
@@ -196,3 +198,38 @@ def test_block_compressed_dds_read(tmp_path, name):
     Image.fromarray(_pixels(8, 8)[..., :3]).save(b, "DDS",
                                                  **BLOCK_COMPRESSED[name])
     _check(tmp_path, b.getvalue(), ".dds", image_read.decode_dds)
+
+
+def _dib_case(hsize, bpp, masks=None, n_colours=None, seed=0):
+    px = _pixels(37, 23, seed)
+    if bpp <= 8:
+        n = n_colours or 1 << bpp
+        pal = np.random.default_rng(seed + 1).integers(0, 256, (n, 3))
+        idx = px[..., 0].astype(np.int64) % n
+        return tiw.dib_file(idx, bpp, hsize, palette=pal)
+    return tiw.dib_file(px[..., :3], bpp, hsize, masks=masks)
+
+
+DIB_CASES = {
+    "core12_8bit": lambda: _dib_case(12, 8),
+    "core12_24bit": lambda: _dib_case(12, 24, seed=1),
+    "core12_1bit": lambda: _dib_case(12, 1, seed=2),
+    "info40_4bit_12_colours": lambda: _dib_case(40, 4, n_colours=12, seed=3),
+    "info40_24bit": lambda: _dib_case(40, 24, seed=4),
+    "info40_bitfields565": lambda: _dib_case(40, 16, (0xF800, 0x7E0, 0x1F),
+                                             seed=5),
+    "v4_108_24bit": lambda: _dib_case(108, 24, seed=6),
+    "v4_108_bitfields555": lambda: _dib_case(108, 16, (0x7C00, 0x3E0, 0x1F),
+                                             seed=7),
+    "v5_124_8bit_100_colours": lambda: _dib_case(124, 8, n_colours=100,
+                                                 seed=8),
+    "v5_124_bitfields_bgrx": lambda: _dib_case(
+        124, 32, (0xFF0000, 0xFF00, 0xFF), seed=9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DIB_CASES))
+def test_dib_read_back(tmp_path, case):
+    """DIBs (PIL's DibImageFile: the header size at offset 0) of each
+    header size: PIL's samples, the reference's read_image."""
+    _check(tmp_path, DIB_CASES[case](), ".dib", timage.decode_dib)

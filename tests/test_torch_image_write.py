@@ -4,7 +4,8 @@ path's extension: for every extension the port writes (but those
 test_torch_image_write_*.py hold), at 37x23 and 64x48
 (odd sizes: JPEG's edge MCUs), of a gradient that leaves [0, 1], noise
 and a constant, tonemapped and not, the two files are the same bytes
-(PNG: the same pixels, PIL's filters and zlib stream differ).  Every
+(PNG and APNG too: encode_png takes PIL's filters and deflate settings,
+and the tests run where the zlib is PIL's).  Every
 other extension PIL knows, and unknown or missing ones, raise what the
 JAX package raises (type and words), except the formats PIL writes and
 the port does not yet, which raise ValueError naming the format.
@@ -15,10 +16,20 @@ the hashes of PIL's files of the committed ground fixture (cropped to
 holds the port's files to on a machine without PIL; the reference's two
 hazards around write_png's .qoi and .pfm (item 3 of ROADMAP's list) stay
 as they are; and no file of the port or chip_smoke.py imports PIL.
+
+encode_png equals PIL's Image.save byte for byte on L, LA, RGB, RGBA and
+16-bit gray images, noise (stored blocks), zeros, a ramp whose rows tie
+Up, Sub and Paeth, 1x1, 3x2 and 37x23 images and a 3x16400 strip (IDAT
+cut at 4 * width); images.json's PNG records (chip_smoke.py phases 33
+and 36) are PIL's files and their IDAT streams'; a .dib write_png writes
+reads back through read_image as the reference reads it.
 """
 import hashlib
+import io
 import json
 import re
+import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +41,8 @@ from acceleratedvolrenderer_tpu.utils import image as jimage
 from acceleratedvolrenderer_tpu_torch.cli import imgtool as timgtool
 from acceleratedvolrenderer_tpu_torch.utils import image as timage
 from acceleratedvolrenderer_tpu_torch.utils import image_write
+
+from chip_smoke import png_idat_stream
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "data" / "images"
@@ -81,11 +94,7 @@ def test_extension_table_is_pils():
 @pytest.mark.parametrize("ext", WRITTEN)
 def test_write_png_matches_reference(tmp_path, ext, size, kind, tonemap):
     got, want = _both(tmp_path, ext, _image(kind, *size), tonemap)
-    if image_write.EXTENSIONS[ext] == "PNG":
-        assert np.array_equal(timage.decode_png(got.read_bytes()),
-                              np.asarray(Image.open(want)))
-    else:
-        assert got.read_bytes() == want.read_bytes()
+    assert got.read_bytes() == want.read_bytes()
 
 
 @pytest.mark.parametrize("ext", [".JPG", ".Tif", ".PCX"])
@@ -207,3 +216,101 @@ def test_no_port_file_imports_pil():
            if _PIL_IMPORT.search(f.read_text())]
     assert bad == []
     assert _PIL_IMPORT.search("    from PIL import Image")
+
+
+def _smooth(h, w, c, seed=0):
+    """Sinusoids with a little noise, uint8 (h, w, c): rows that pick
+    different filters."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.sin(xx / 17.0) * 60 + np.cos(yy / 11.0) * 50 + 128
+    a = np.stack([base + 10 * k for k in range(c)], -1)
+    a = a + np.random.default_rng(seed).integers(0, 6, (h, w, c))
+    return np.clip(a, 0, 255).astype(np.uint8)
+
+
+PNG_CASES = {
+    "L": lambda: _smooth(60, 70, 1)[..., 0],
+    "LA": lambda: _smooth(40, 33, 2, 1),
+    "RGB": lambda: _smooth(48, 64, 3, 2),
+    "RGBA": lambda: _smooth(50, 61, 4, 3),
+    "gray16": lambda: (_smooth(40, 50, 1, 4)[..., 0].astype(np.uint16) * 257
+                       + np.random.default_rng(5).integers(
+                           0, 50, (40, 50))).astype(np.uint16),
+    "noise": lambda: np.random.default_rng(6).integers(
+        0, 256, (90, 120, 3), np.uint8),
+    "zero": lambda: np.zeros((30, 40, 3), np.uint8),
+    "ramp_ties": lambda: np.tile(np.arange(64, dtype=np.uint8)[None, :, None],
+                                 (20, 1, 3)),
+    "1x1": lambda: np.array([[[1, 2, 3]]], np.uint8),
+    "3x2": lambda: _smooth(2, 3, 3, 7),
+    "37x23": lambda: _smooth(23, 37, 3, 8),
+    "strip_3x16400": lambda: _smooth(3, 16400, 3, 9),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PNG_CASES))
+def test_encode_png_is_pils(case):
+    """encode_png's file is PIL's Image.save's, byte for byte (the ramp's
+    rows cost Up, Sub and Paeth alike: PIL keeps the first that is
+    strictly better than None, tried in that order)."""
+    px = PNG_CASES[case]()
+    buf = io.BytesIO()
+    Image.fromarray(px).save(buf, "PNG")
+    assert timage.encode_png(px) == buf.getvalue()
+
+
+def test_png_filter_order_and_chunks():
+    """The filters PIL chooses (never Average) and its IDAT cut: the strip's
+    stream in chunks of 4 * width bytes."""
+    px = PNG_CASES["strip_3x16400"]()
+    data = timage.encode_png(px)
+    sizes = []
+    i = 8
+    while i < len(data):
+        n, kind = struct.unpack_from(">I4s", data, i)
+        if kind == b"IDAT":
+            sizes.append(n)
+        i += 12 + n
+    assert sizes[:-1] == [4 * 16400] * (len(sizes) - 1) and len(sizes) > 1
+    stream = png_idat_stream(timage.encode_png(_smooth(200, 300, 3)))
+    types = set(stream[::1 + 300 * 3])
+    assert types <= {0, 1, 2, 4} and len(types) > 1
+
+
+def test_png_records_are_pils(tmp_path):
+    """images.json's PNG records (chip_smoke.py phases 33 and 36 hold the
+    port's files to them on the card's host, which has no PIL): PIL's
+    files of the ground's crops, the SHA-256 of zlib.decompress of their
+    IDAT chunks, and the port's files are the same bytes; the recorded
+    zlib is PIL's and the one the tests run with."""
+    from PIL import features
+
+    name = "ground_1024x512_q90.webp"
+    rec = json.loads((FIXTURES / "images.json").read_text())[name]
+    assert rec["pil_zlib"] == features.version("zlib") == \
+        zlib.ZLIB_RUNTIME_VERSION
+    ground = np.asarray(Image.open(FIXTURES / name))
+    assert sorted(rec["pil_png_files"]) == ["1024x512", "128x96", "37x23"]
+    for size, r in rec["pil_png_files"].items():
+        w, h = map(int, size.split("x"))
+        px = np.ascontiguousarray(ground[:h, :w])
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, "PNG")
+        pil = buf.getvalue()
+        assert (len(pil), hashlib.sha256(pil).hexdigest()) == (
+            r["bytes"], r["sha256"])
+        assert hashlib.sha256(png_idat_stream(pil)).hexdigest() == r[
+            "sha256_of_idat_stream"]
+        assert timage.encode_png(px) == pil
+
+
+@pytest.mark.parametrize("kind", ["gradient", "noise"])
+def test_dib_read_back_as_reference(tmp_path, kind):
+    """write_png's .dib (PIL's DIB: a BMP without its file header) reads
+    back through read_image as the reference's read_image reads it."""
+    got, want = _both(tmp_path, ".dib", _image(kind, 37, 23))
+    assert got.read_bytes() == want.read_bytes()
+    lin = timage.read_image(str(got))[0]
+    assert np.array_equal(lin, jimage.read_image(str(want))[0])
+    assert np.array_equal(timage._decode_image(str(got), got.read_bytes()),
+                          np.asarray(Image.open(want)))

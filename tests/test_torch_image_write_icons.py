@@ -2,18 +2,21 @@
 (utils/resample.py) and its ICNS reader (utils/image_read.py) against
 PIL 12.1.0, which the JAX package's write_png and read_image go through.
 
-ICO and ICNS files hold PNG entries, whose zlib streams PIL and the port
-write differently: the files are held by their directory's fields that do
-not depend on those streams' lengths (chip_smoke.icon_entries) and by
-each entry's decoded pixels.  resample.py's resize (BICUBIC) and
+ICO and ICNS files hold PNG entries (encode_png's, PIL's bytes): the port's
+files are PIL's byte for byte, and the ground fixture's files are those
+images.json records, whole and by each entry's IDAT stream
+(chip_smoke.icon_entries, png_idat_stream).  resample.py's resize (BICUBIC) and
 thumbnail (LANCZOS, reducing_gap=None) equal PIL's pixel for pixel, up
 and down.  read_image of an ICNS gives what the reference's gives
 (np.asarray of PIL's image, RGB entries garbled as PIL packs them), on
 the port's files, PIL's and hand-built legacy ones (it32 run-length RGB
 with and without its t8mk mask, is32 raw), and decode_icns gives the
 entry PIL loads."""
+import hashlib
 import io
+import json
 import struct
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,21 +26,15 @@ from acceleratedvolrenderer_tpu.utils import image as jimage
 from acceleratedvolrenderer_tpu_torch.utils import (
     image, image_read, image_write, jpeg2000_write, resample)
 
-from chip_smoke import icon_entries
+from chip_smoke import icon_entries, png_idat_stream
 from torch_write_util import KINDS, SIZES, linear_image, write_both
 
 
-def _pil_pixels(png):
-    return np.asarray(Image.open(io.BytesIO(png)))
+FIXTURES = Path(__file__).resolve().parent / "data" / "images"
 
 
 def _same_icons(got: bytes, want: bytes):
-    dg, eg = icon_entries(got)
-    dw, ew = icon_entries(want)
-    assert dg == dw
-    assert len(eg) == len(ew)
-    for a, b in zip(eg, ew):
-        assert np.array_equal(image.decode_png(a), _pil_pixels(b))
+    assert got == want
 
 
 @pytest.mark.parametrize("tonemap", [True, False], ids=["tonemap", "linear"])
@@ -63,6 +60,27 @@ def test_icns_matches_reference(tmp_path, case):
     for p in (got, want):
         assert np.array_equal(image.read_image(str(p))[0],
                               jimage.read_image(str(p))[0])
+
+
+def test_icon_records_are_pils(tmp_path):
+    """images.json's ICO and ICNS records (chip_smoke.py phase 36 holds the
+    port's files to them): PIL's files of the ground's 128x96 crop, whole
+    and by each PNG entry's IDAT stream, and the port's files are those
+    bytes."""
+    name = "ground_1024x512_q90.webp"
+    rec = json.loads((FIXTURES / "images.json").read_text())[name]
+    w, h = rec["written_crop"]
+    px = np.ascontiguousarray(np.asarray(Image.open(FIXTURES / name))[:h, :w])
+    assert sorted(rec["pil_icon_files"]) == [".icns", ".ico"]
+    for ext, r in rec["pil_icon_files"].items():
+        path = tmp_path / f"fixture{ext}"
+        Image.fromarray(px).save(path)
+        pil = path.read_bytes()
+        assert (len(pil), hashlib.sha256(pil).hexdigest()) == (r["bytes"],
+                                                               r["sha256"])
+        assert [hashlib.sha256(png_idat_stream(e)).hexdigest()
+                for e in icon_entries(pil)[1]] == r["idat_streams"]
+        assert image_write.encode(str(path), px) == pil
 
 
 def test_hazard_ico_under_16_pixels(tmp_path):

@@ -2,11 +2,13 @@
 cannot write them: JPEG of any sampling, colour space and markers,
 arithmetic-coded (libjpeg's QM coder, jcarith.c) and lossless (SOF3)
 JPEG; TIFF of every compression, predictor, layout and byte order; RLE
-BMP; RLE and 16-bit SGI; 1-bit PCX in one, two or four planes.  Built on
+BMP; DIB under 12-, 40-, 108- and 124-byte headers; RLE and 16-bit SGI;
+1-bit PCX in one, two or four planes.  Built on
 scripts/time_image_decode.py's writers, whose procedural images and GIF,
 QOI, netpbm and LZW writers are imported here too, as are
 scripts/block_maps.py's (block-compressed and palette DDS, PSD, BigTIFF,
-ICO and CUR), so that the tests take their files from this one module.
+ICO and CUR) and scripts/more_read_formats.py's (XBM, MSP, SPIDER, BLP,
+SUN raster, XPM), so that the tests take their files from this one module.
 """
 import io
 import struct
@@ -26,6 +28,9 @@ from time_image_decode import (  # noqa: E402,F401
 from block_maps import (  # noqa: E402,F401
     bigtiff, block_files, dds_blocks, encode_dds, icon_dib, icon_file,
     packbits_rows, palette_dds, psd_file)
+from more_read_formats import (  # noqa: E402,F401
+    blp1_jpeg, blp1_palette, blp2_blocks, blp2_palette, dxt_blocks,
+    msp_v1, msp_v2, spider_file, sun_file, xbm_file, xpm_file)
 
 
 # ---------------------------------------------------------------- JPEG
@@ -522,6 +527,51 @@ def bmp_file(body, w, h, bpp, comp=0, palette=b"", masks=b""):
     info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, bpp, comp, len(body),
                        2835, 2835, len(palette) // 4, 0)
     return head + info + masks + palette + body
+
+
+def dib_file(px, bpp, hsize=40, palette=None, masks=None):
+    """A DIB (a BMP without its file header) of px, bottom-up: indices
+    (H, W) through palette (n, 3) RGB at 1-8 bits, or RGB (H, W, 3) at 24
+    bits, or 16 / 32 bits under BI_BITFIELDS masks (R, G, B): after a
+    40-byte header, or inside a 108- (V4) or 124-byte (V5) one (alpha mask
+    0).  A 12-byte (OS/2 core) header takes 3-byte palette entries."""
+    h, w = px.shape[:2]
+    if bpp <= 8:
+        bits = np.unpackbits(px.astype(np.uint8)[..., None], axis=-1)[
+            ..., 8 - bpp:]
+        rows = np.packbits(bits.reshape(h, -1), axis=1)
+    elif bpp == 24:
+        rows = px[..., ::-1].reshape(h, -1)
+    else:
+        r, g, b = (px[..., i].astype(np.int64) for i in range(3))
+        v = 0
+        for c, m in zip((r, g, b), masks):
+            top = m.bit_length()
+            width = top - (m & -m).bit_length() + 1
+            v = v | ((c >> (8 - width)) << (top - width))
+        rows = v.astype("<u4" if bpp == 32 else "<u2").view(np.uint8).reshape(
+            h, -1)
+    stride = (w * bpp + 31) // 32 * 4
+    body = np.zeros((h, stride), np.uint8)
+    body[:, :rows.shape[1]] = rows
+    body = body[::-1].tobytes()
+    comp = 3 if masks is not None else 0
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        if hsize != 12:
+            p = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], 1)
+        pal = p.tobytes()
+    if hsize == 12:
+        return struct.pack("<IHHHH", 12, w, h, 1, bpp) + pal + body
+    head = struct.pack("<IiiHHIIiiII", hsize, w, h, 1, bpp, comp, len(body),
+                       2835, 2835, 0 if palette is None else len(palette), 0)
+    mask_bytes = struct.pack("<III", *masks) if masks is not None else b""
+    if hsize == 40:
+        return head + mask_bytes + pal + body
+    extra = (mask_bytes or bytes(12)) + bytes(4)         # alpha mask 0
+    head += extra + bytes(hsize - len(head) - len(extra))
+    return head + pal + body
 
 
 def rle8(idx):
