@@ -1744,14 +1744,20 @@ _NETPBM_EXT = (".pbm", ".pgm", ".ppm", ".pnm")
 
 def _decode_image(path: str, data: bytes) -> np.ndarray:
     """Samples (H, W, C) of a PNG, JPEG, BMP, DIB, TIFF (also BigTIFF),
-    WebP, GIF, QOI, netpbm, PCX, SGI, IM, DDS (uncompressed, palette and
-    BC1-BC7), PSD, ICO, CUR, ICNS, JPEG 2000 (JP2 or raw codestream), BLP,
-    MSP, SPIDER, SUN raster, XBM, XPM or (by its extension) TGA file, each
-    recognised as PIL recognises it and, TGA aside, in PIL's order of
-    plugins (an uncompressed TGA starts with CUR's magic bytes): uint8
-    colours, uint16 for 16-bit samples, float32 for a float TIFF or
-    SPIDER image; raises ValueError naming any other format."""
+    WebP, GIF, QOI, netpbm, PCX, DCX, SGI, IM, DDS (uncompressed, palette
+    and BC1-BC7), PSD, ICO, CUR, ICNS, JPEG 2000 (JP2 or raw codestream),
+    BLP, MSP, SPIDER, SUN raster, XBM, XPM, FITS, FLI / FLC, FTEX, GBR,
+    IMT, IPTC, McIDAS, PhotoCD, PIXAR, XV thumbnail or (by its extension)
+    TGA file, each recognised as PIL recognises it and, TGA aside, in
+    PIL's order of plugins (an uncompressed TGA starts with CUR's magic
+    bytes).  IMT, IPTC and PhotoCD files have no magic bytes at the start
+    and GBR files a loose test: where PIL's plugin declines such a file
+    the next is tried, as PIL tries it.  uint8 colours, uint16 for 16-bit
+    samples, int32 for 32-bit integer ones (FITS, McIDAS), float32 for a
+    float TIFF, SPIDER or FITS image; raises ValueError naming any other
+    format."""
     from . import image_read, image_read_more as more, jpeg2000
+    from . import image_read_pil as pil
 
     ext = path.lower()
     if data[:8] == _PNG_MAGIC:
@@ -1776,6 +1782,10 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         return decode_qoi(data)
     if ext.endswith(".tga"):
         return decode_tga(data)
+    # PIL's PPM plugin does not take P7 (PAM), which the netpbm reader
+    # reads: the XV thumbnail, PIL's last plugin, is tested before it
+    if data[:6] == pil.XV_MAGIC:
+        return pil.decode_xvthumb(data)
     if data[:1] == b"P" and data[1:2] in b"1234567" and len(data) > 2 and (
             data[2:3].isspace() or ext.endswith(_NETPBM_EXT)):
         return decode_netpbm(data)
@@ -1783,12 +1793,32 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         return more.decode_blp(data)
     if image_read.is_pcx(data):
         return image_read.decode_pcx(data)
+    if data[:4] == pil.DCX_MAGIC:
+        return pil.decode_dcx(data)
     if data[:2] == b"\x01\xda":
         return image_read.decode_sgi(data)
     if data[:4] == b"DDS ":
         return image_read.decode_dds(data)
+    if data[:6] == b"SIMPLE" and (px := pil.attempt(pil.decode_fits,
+                                                   data)) is not None:
+        return px
+    if pil.is_fli(data) and (px := pil.attempt(pil.decode_fli,
+                                               data)) is not None:
+        return px
+    if data[:4] == b"FTEX":
+        return pil.decode_ftex(data)
+    if pil.is_gbr(data) and (px := pil.attempt(pil.decode_gbr,
+                                               data)) is not None:
+        return px
     if image_read.is_im(data):
         return image_read.decode_im(data)
+    if (px := pil.attempt(pil.decode_imt, data)) is not None:
+        return px
+    if data[:1] == b"\x1c" and (px := pil.attempt(pil.decode_iptc,
+                                                  data)) is not None:
+        return px
+    if data[:8] == pil.MCIDAS_MAGIC:
+        return pil.decode_mcidas(data)
     if data[:4] == b"8BPS":
         return image_read.decode_psd(data)
     if data[:4] == b"\0\0\1\0":
@@ -1803,6 +1833,10 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         return jpeg2000.decode_j2k(data)
     if data[:4] in (b"DanM", b"LinS"):
         return more.decode_msp(data)
+    if pil.is_pcd(data):
+        return pil.decode_pcd(data)
+    if data[:4] == pil.PIXAR_MAGIC:
+        return pil.decode_pixar(data)
     if more.spider_header(data) is not None:
         return more.decode_spider(data)
     if data[:4] == more.SUN_MAGIC:
@@ -1815,23 +1849,27 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         if data.startswith(magic):
             raise ValueError(f"{path}: {name} images are not read")
     raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP, DIB, TIFF, WebP, "
-                     "GIF, QOI, netpbm, PCX, SGI, IM, DDS, PSD, ICO, CUR, "
-                     "ICNS, JPEG 2000, BLP, MSP, SPIDER, SUN, XBM, XPM or "
-                     "TGA image")
+                     "GIF, QOI, netpbm, PCX, DCX, SGI, IM, DDS, PSD, ICO, "
+                     "CUR, ICNS, JPEG 2000, BLP, MSP, SPIDER, SUN, XBM, XPM, "
+                     "FITS, FLI, FTEX, GBR, IMT, IPTC, McIDAS, PhotoCD, "
+                     "PIXAR, XV thumbnail or TGA image")
 
 
 def read_image(path: str):
     """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
     reader above; PNG, JPEG, BMP, DIB, TIFF (also BigTIFF), WebP, GIF, QOI,
-    netpbm, PCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7), PSD,
-    ICO, CUR, ICNS, JPEG 2000 (JP2 and raw codestream), BLP, MSP, SPIDER,
-    SUN raster, XBM, XPM and TGA decoded here (by their magic bytes,
-    SPIDER by its header, TGA by its extension), their colours (palettes
-    expanded, bilevel images 0 / 255, gray repeated, alpha dropped) over
-    255 or 65535, sRGB -> linear (Image::Read's LinearColorEncoding
-    handling, util/image.cpp); a float TIFF or SPIDER image is kept as
-    stored, as EXR and PFM are.  Other formats raise, naming the
-    format."""
+    netpbm, PCX, DCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7),
+    PSD, ICO, CUR, ICNS, JPEG 2000 (JP2 and raw codestream), BLP, MSP,
+    SPIDER, SUN raster, XBM, XPM, FITS, FLI / FLC, FTEX, GBR, IMT, IPTC,
+    McIDAS, PhotoCD, PIXAR, XV thumbnail and TGA decoded here (by
+    _decode_image, in PIL's order of plugins; TGA by its extension), their
+    colours (palettes expanded, bilevel images 0 / 255, gray repeated,
+    alpha dropped) by png_unit's rule for the samples' dtype: uint8 over
+    255, uint16 over 65535 and int32 (PIL's mode I: FITS BITPIX 32,
+    4-byte McIDAS) over 2**31 - 1, then sRGB -> linear (Image::Read's
+    LinearColorEncoding handling, util/image.cpp); a float TIFF, SPIDER
+    or FITS image is kept as stored, as EXR and PFM are.  Other formats
+    raise, naming the format."""
     if path.endswith(".exr"):
         img, _names, attrs = read_exr(path)
         return np.asarray(img[:, :, :3], np.float32), attrs

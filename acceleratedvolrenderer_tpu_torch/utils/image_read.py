@@ -68,23 +68,26 @@ def _pcx_tokens(a: np.ndarray):
     return value, np.where(run, a[pos] & 0x3F, 1)
 
 
-def decode_pcx(data: bytes) -> np.ndarray:
-    """A PCX file's samples (see the module docstring): (H, W, 1) for 1-bit
-    and gray, (H, W, 3) for 24-bit and palette files."""
-    if not is_pcx(data) or len(data) < 128:
+def decode_pcx(data: bytes, offset: int = 0) -> np.ndarray:
+    """The samples of a PCX file, or of the PCX image at offset in a DCX
+    file (see the module docstring): (H, W, 1) for 1-bit and gray, (H, W,
+    3) for 24-bit and palette files.  PIL takes an 8-bit image's palette
+    from the end of the file, whatever the offset, and so does this."""
+    head = data[offset:offset + 128]
+    if not is_pcx(head) or len(head) < 128:
         raise ValueError("not a PCX file")
-    x0, y0, x1, y1 = struct.unpack_from("<4H", data, 4)
+    x0, y0, x1, y1 = struct.unpack_from("<4H", head, 4)
     w, h = x1 + 1 - x0, y1 + 1 - y0
     if w <= 0 or h <= 0:
         raise ValueError("PCX: bad image size")
-    version, bits, planes = data[1], data[3], data[65]
-    (provided,) = struct.unpack_from("<H", data, 66)
+    version, bits, planes = head[1], head[3], head[65]
+    (provided,) = struct.unpack_from("<H", head, 66)
     palette = None
     if bits == 1 and planes == 1:
         kind = "1"
     elif bits == 1 and planes in (2, 4):
         kind = "planes"                 # PIL's P;2L / P;4L, 16 colours
-        palette = np.frombuffer(data, np.uint8, 48, 16).reshape(16, 3)
+        palette = np.frombuffer(head, np.uint8, 48, 16).reshape(16, 3)
     elif version == 5 and bits == 8 and planes == 1:
         kind = "L"
         tail = data[-769:]
@@ -101,7 +104,8 @@ def decode_pcx(data: bytes) -> np.ndarray:
     if provided != stride:
         stride += stride % 2
     line = planes * stride
-    value, count = _pcx_tokens(np.frombuffer(data, np.uint8, offset=128))
+    value, count = _pcx_tokens(np.frombuffer(data, np.uint8,
+                                             offset=offset + 128))
     ends = np.cumsum(count)
     if not len(ends) or ends[-1] < h * line:
         raise ValueError("PCX: truncated data")

@@ -9,8 +9,8 @@ phases that need neither phase 8's scene nor its frames (5-7, 12, 13,
 15-17, 19-22, 24, 26, 29's small legs, 30 and 37, in that order from 24,
 15 and 37)
 run in a second process, this script with --side (side_main), beside the
-rest (8, 9, 14, 18, 23, 25, 28, 29's full-size legs, 27, 31-36, in that
-order), which waits for the side's phase 24 and 15 frames before phase 29
+rest (8, 9, 14, 18, 23, 25, 28, 29's full-size legs, 27, 31-36 and 38, in
+that order), which waits for the side's phase 24 and 15 frames before phase 29
 and for its end before the record.  The side's output is printed when it
 ends, and the wall line says how long after it the parent's phases
 ended; a failure in either process fails the script and ends the other.
@@ -399,13 +399,32 @@ ended; a failure in either process fails the script and ends the other.
      file there: its VP8 header's fields, its size within 10%, its PSNR
      (decode_webp) at most 0.5 dB under PIL's and its SHA-256 (the CPU
      tests find the bytes equal).
- 37. read formats (utils/image_read_more.py, in the side process): each
-     committed fixture of XBM, MSP (v1, v2), SPIDER, BLP (BLP1 palette and
-     JPEG, BLP2 palette and DXT1 / DXT3 / DXT5), SUN raster and XPM
-     (tests/data/images/, images.json's entries read by that module)
+ 37. read formats (utils/image_read_more.py and utils/image_read_pil.py,
+     in the side process): each committed fixture of XBM, MSP (v1, v2),
+     SPIDER, BLP (BLP1 palette and JPEG, BLP2 palette and DXT1 / DXT3 /
+     DXT5), SUN raster and XPM, and of DCX, PIXAR, FTEX (raw, DXT1), GBR
+     (v1, v2), XV thumbnail, McIDAS (2- and 4-byte), IMT, FITS (BITPIX 16,
+     -32, GZIP_1), IPTC (raw, JPEG) and FLC (BRUN, SS2)
+     (tests/data/images/, images.json's entries read by those modules)
      decoded once through image.py's _decode_image, held to the SHA-256 of
      its bytes and of PIL's samples (colours for bilevel and palette
-     images), its host seconds printed (scripts/more_read_formats.py).
+     images), its host seconds printed (scripts/more_read_formats.py and
+     scripts/pil_only_formats.py), as many as images.json records.
+ 38. PIL-only maps (utils/image_read_pil.py: PhotoCD through PIL's YCC;P
+     tables, FTEX through utils/bcn.py's BC1): (a) scripts/
+     pil_only_formats.py writes phase 32's sinusoid sky at PhotoCD's
+     768x512 (PIL_ONLY_SKY) as a PCD and the ground's decoded samples
+     (kept by phase 32) as a 1024x512 FTEX of DXT1 blocks, each file's
+     bytes and the port's decode held to images.json's SHA-256 of the
+     bytes and of PIL's samples, one decode each, host seconds printed;
+     (b) phase 32's file with the PCD as the infinite light's map and the
+     FTEX as the ground's imagemap, rendered by the CLI at 1280x720 spp 1
+     with the parser's warnings made errors, held as phase 34's frame is
+     (maps_frame): the parsed maps equal read_image's bit for bit, one
+     march launch per loop iteration and no gather or dma launch, the
+     march call BCN_CAPTURE_CALL equal to plain, the mean apart from
+     phase 32's uniform-sky frame's, the 32x24 version on the card and
+     the CPU within SURF_MEAN_TOL.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -429,6 +448,8 @@ call's `image_formats_max_abs_err`; `image_writers_max_abs_err`, phase
 `bcn_maps_launches`, the march launches of phase 34's frame, and its
 captured call's `bcn_maps_max_abs_err`; `j2k_maps_launches` and
 `j2k_maps_max_abs_err`, the same of phase 35's frame;
+`pil_only_maps_launches` and `pil_only_maps_max_abs_err`, the same of
+phase 38's frame;
 `more_image_writers_max_abs_err`, phase 36's largest read-back |diff| of
 a lossless file, no kernel's) and the result JSON.
 """
@@ -4839,17 +4860,67 @@ def phase_read_formats(card):
     """Phase 37 (see the module docstring), in the side process."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import more_read_formats as mrf
+    import pil_only_formats as pof
     import time_image_decode as tid
 
-    rows = mrf.decode_fixtures()
+    n_records = len(mrf.fixture_records()) + len(pof.fixture_records())
+    rows = mrf.decode_fixtures() + pof.decode_fixtures()
     print(f"read formats: host CPU {tid.cpu_line()}; {card}", flush=True)
     for name, secs, shape, ok in rows:
         print(f"read formats: {name} {tuple(shape)} decoded in {secs:.4f} s"
               f", {'at' if ok else 'NOT at'} PIL's SHA-256", flush=True)
     bad = [name for name, *_, ok in rows if not ok]
-    if len(rows) != 14 or bad:
-        raise AssertionError(f"read formats: {len(rows)} fixtures, {bad} "
-                             "differ from PIL's decode")
+    if not rows or len(rows) != n_records or bad:
+        raise AssertionError(f"read formats: {len(rows)} fixtures of "
+                             f"{n_records} recorded, {bad} differ from "
+                             "PIL's decode")
+
+
+PIL_ONLY_SKY = (768, 512)          # phase 38's PCD sky: PhotoCD's base size
+
+
+def phase_pil_only_maps(dev, keep, uniform_mean, card):
+    """Phase 38 (see the module docstring); keep holds phase 32's medium
+    file and ground samples.  Returns the frame's march launches and its
+    captured call's max |diff|."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import pil_only_formats as pof
+    import time_image_decode as tid
+
+    from acceleratedvolrenderer_tpu_torch.utils import image
+
+    record = json.loads((IMAGE_FIXTURES / "images.json").read_text())
+    print(f"PIL-only maps: host CPU {tid.cpu_line()}; {card}", flush=True)
+    files = pof.phase38_files(tid.sky(*PIL_ONLY_SKY, 255),
+                              np.load(Path(keep) / IMAGE_GROUND_SAMPLES))
+    work = Path(tempfile.mkdtemp())
+    try:
+        # (a) the files and the port's decodes at PIL's hashes
+        bad = []
+        for name, data in sorted(files.items()):
+            rec = record[name]
+            t = time.perf_counter()
+            px = image._decode_image(name, data)
+            secs = time.perf_counter() - t
+            ok = (hashlib.sha256(data).hexdigest() == rec["sha256_of_bytes"]
+                  and list(px.shape) == rec["shape"]
+                  and hashlib.sha256(np.ascontiguousarray(px).tobytes())
+                  .hexdigest() == rec["sha256_of_pil_samples"])
+            print(f"PIL-only maps (a): {name} {px.shape[1]}x{px.shape[0]}: "
+                  f"{len(data)} bytes, decode {secs:.3f} s; bytes and "
+                  f"samples {'at' if ok else 'NOT at'} images.json's "
+                  "hashes (PIL's)", flush=True)
+            if not ok:
+                bad.append(name)
+            (work / name).write_bytes(data)
+        if bad:
+            raise AssertionError(f"PIL-only maps: wrong files or decodes "
+                                 f"{bad}")
+        # (b) the frame: the PCD sky and the FTEX ground by the CLI
+        return maps_frame("PIL-only maps (b)", dev, keep, work, pof.PCD_SKY,
+                          pof.FTEX_GROUND, uniform_mean, card)
+    finally:
+        shutil.rmtree(work)
 
 
 def timed(name, fn, *args):
@@ -5047,6 +5118,10 @@ def main():
             card)
         march_rec["more_image_writers_max_abs_err"] = timed(
             "more image writers", phase_more_writers, keep.name, card)
+        (march_rec["pil_only_maps_launches"],
+         march_rec["pil_only_maps_max_abs_err"]) = timed(
+            "PIL-only maps", phase_pil_only_maps, dev, keep.name,
+            uniform_mean, card)
         parent_end = time.time()
         keep.cleanup()
         side_out = timed("side process", side.finish)

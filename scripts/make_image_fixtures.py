@@ -66,6 +66,16 @@ bilevel and palette images, as the port reads them), PIL's mode and the
 shape; tests/test_torch_image_formats_pil_more.py and chip_smoke.py's
 side process hold the port's decodes to them.
 
+It writes the committed fixtures of the formats utils/image_read_pil.py
+reads (pil_only_files: DCX, PIXAR, FTEX raw and DXT1, GBR v1 and v2,
+XV thumbnail, McIDAS, IMT, FITS, IPTC and FLC, each of the ground's first
+128x96 samples, by scripts/pil_only_formats.py's writers; PIL writes none
+of these), recorded as more_read_files's are.  It also records, without
+committing them, chip_smoke.py phase 38's maps (pil_only_formats.
+phase38_files: phase 32's sinusoid sky at 768x512 as PhotoCD, the
+ground's decoded samples as FTEX DXT1), each under its name with
+`rebuilt_by` and the SHA-256 of its bytes and of PIL's samples.
+
 Rerunning it rewrites both WebP files (the same bytes with PIL 12.1.0's
 libwebp); the CPU tests tests/test_torch_image_formats_webp.py::
 test_committed_fixtures_hashes and tests/test_torch_image_formats_bcn.py::
@@ -91,6 +101,7 @@ import time_image_decode as tid  # noqa: E402
 from chip_smoke import (PDF_GMTIME, icon_entries, pdf_clock,  # noqa: E402
                         png_idat_stream, psnr_rgb)
 import more_read_formats as mrf  # noqa: E402
+import pil_only_formats as pof  # noqa: E402
 
 GROUND_BC7 = "ground_1024x512_bc7.dds"
 MORE_READ_CROP = (128, 96)
@@ -334,6 +345,100 @@ def more_read_records(ground_px):
     return out
 
 
+def pil_only_files(ground_px):
+    """{name: bytes} of the committed fixtures of the formats
+    utils/image_read_pil.py reads, made of the ground's first 128x96
+    samples (its gray: PIL's convert("L")), by pil_only_formats's writers:
+    a DCX of two RGB PCX pages (the crop, then upside down), PIXAR, FTEX
+    raw and DXT1, GBR v1 (gray) and v2 (RGBA, alpha a diagonal ramp), an
+    XV thumbnail, McIDAS of 2-byte (gray times 257, 4-byte line prefixes)
+    and 4-byte samples (gray times 2**23, less 2**30), IMT, FITS of
+    BITPIX 16 (gray times 257), -32 (gray over 7) and GZIP_1 (ZBITPIX 32),
+    IPTC raw (3 layers, the gray in band 1) and JPEG (PIL's gray JPEG at
+    quality 90), and FLC frames over PIL's 256-colour quantization: a
+    COLOR_256 and BRUN frame, and a COLOR_64, BLACK and SS2 one."""
+    from acceleratedvolrenderer_tpu_torch.utils.image_write import \
+        encode_pcx
+
+    w, h = MORE_READ_CROP
+    px = np.ascontiguousarray(ground_px[:h, :w])
+    im = Image.fromarray(px)
+    gray = np.asarray(im.convert("L"))
+    pal = im.quantize(256)
+    idx = np.asarray(pal)
+    colours = np.array(pal.getpalette()[:768], np.uint8).reshape(-1, 3)
+    yy, xx = np.mgrid[0:h, 0:w]
+    rgba = np.concatenate([px, ((xx + yy) * 255 // (w + h - 2)).astype(
+        np.uint8)[..., None]], -1)
+    g = gray.astype(np.int64)
+    blank = np.zeros_like(idx)
+    return {
+        "ground_128x96.dcx": pof.dcx_file([encode_pcx(px),
+                                           encode_pcx(px[::-1])]),
+        "ground_128x96.pxr": pof.pixar_file(px),
+        "ground_128x96_rgb.ftu": pof.ftex_rgb(px),
+        "ground_128x96_dxt1.ftc": pof.ftex_dxt1(px),
+        "ground_128x96_v1.gbr": pof.gbr_file(gray, version=1),
+        "ground_128x96_rgba.gbr": pof.gbr_file(rgba, version=2),
+        "ground_128x96.xvthumb": pof.xvthumb_file(pof.rgb_to_332(px)),
+        "ground_128x96_2byte.area": pof.mcidas_file(g * 257, 2, prefix=4),
+        "ground_128x96_4byte.area": pof.mcidas_file(g * 2 ** 23 - 2 ** 30,
+                                                    4),
+        "ground_128x96.imt": pof.imt_file(gray),
+        "ground_128x96_16.fits": pof.fits_file(g * 257, 16),
+        "ground_128x96_float.fits": pof.fits_file(g / 7.0, -32),
+        "ground_128x96_gzip.fits": pof.fits_gzip_file(g, 32),
+        "ground_128x96_raw.iim": pof.iptc_file(gray.tobytes(), w, h,
+                                               layers=3, band=1),
+        "ground_128x96_jpeg.iim": pof.iptc_file(_pil_bytes(
+            Image.fromarray(gray), "JPEG", quality=90), w, h,
+            compression=5),
+        "ground_128x96_brun.flc": pof.fli_file(w, h, [[
+            pof.fli_color(colours), pof.fli_brun(idx)]]),
+        "ground_128x96_ss2.flc": pof.fli_file(w, h, [[
+            pof.fli_color(colours, shift=2, kind=11), pof.fli_black(),
+            pof.fli_ss2(blank, idx)]]),
+    }
+
+
+def pil_samples(data):
+    """PIL's samples of a file as the port gives them (colours for mode 1
+    and P, a channel axis for one band, native byte order) and PIL's
+    mode."""
+    im = Image.open(io.BytesIO(data))
+    mode = im.mode
+    if mode in ("1", "P"):
+        im = im.convert("L" if mode == "1" else "RGB")
+    a = np.asarray(im)
+    a = a[..., None] if a.ndim == 2 else a
+    return np.ascontiguousarray(a.astype(a.dtype.newbyteorder("="))), mode
+
+
+def pil_only_records(ground_px):
+    """Write the fixtures of pil_only_files; their images.json records, as
+    more_read_records's; and the records of phase 38's maps (not
+    written), with `rebuilt_by`."""
+    out = {}
+    files = {name: (pof.READ_BY, data)
+             for name, data in pil_only_files(ground_px).items()}
+    files.update((name, (None, data)) for name, data in pof.phase38_files(
+        tid.sky(768, 512, 255), ground_px).items())
+    for name, (read_by, data) in files.items():
+        a, mode = pil_samples(data)
+        rec = {"sha256_of_bytes": hashlib.sha256(data).hexdigest(),
+               "sha256_of_pil_samples": hashlib.sha256(
+                   a.tobytes()).hexdigest(),
+               "pil_mode": mode, "shape": list(a.shape), "bytes": len(data)}
+        if read_by:
+            (OUT / name).write_bytes(data)
+            out[name] = dict(read_by=read_by, **rec)
+        else:
+            out[name] = dict(rebuilt_by="scripts/pil_only_formats.py", **rec)
+        print(f"{name}: {len(data)} bytes, PIL mode {mode}, samples "
+              f"{list(a.shape)}")
+    return out
+
+
 def main():
     OUT.mkdir(parents=True, exist_ok=True)
     files = {"sky_2048x1024_q90.webp": tid.sky(2048, 1024, 255),
@@ -362,8 +467,10 @@ def main():
     record.update(block_map_records(OUT / "ground_1024x512_q90.webp"))
     record.update(jpeg2000_records(OUT / "sky_2048x1024_q90.webp",
                                    OUT / "ground_1024x512_q90.webp"))
-    record.update(more_read_records(np.asarray(Image.open(
-        OUT / "ground_1024x512_q90.webp").convert("RGB"))))
+    ground_px = np.asarray(Image.open(
+        OUT / "ground_1024x512_q90.webp").convert("RGB"))
+    record.update(more_read_records(ground_px))
+    record.update(pil_only_records(ground_px))
     (OUT / "images.json").write_text(json.dumps(record, indent=1) + "\n")
 
 

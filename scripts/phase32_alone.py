@@ -2,13 +2,15 @@
 converts phase 32's map frame), 34 (block-compressed maps, which reuses
 phase 32's medium file, ground samples and 8-bit TIFF and holds its
 frame's mean against phase 32's uniform sky's), 35 (JPEG 2000 maps,
-which reuses the medium file and the mean) and 36 (more image writers,
-which converts phase 35's frame) alone on the CUDA
+which reuses the medium file and the mean), 36 (more image writers,
+which converts phase 35's frame) and 38 (PIL-only maps, which reuses the
+medium file, the ground samples and the mean) alone on the CUDA
 card, with the phases they need: 8 (the 1280x720 cloud over the 256^3
 grid), 14 (its wave frame) and 28 (the grid through a .nvdb and
 nanovdb2pbrt into the block phase 32 Includes, and the CLI's frame
-written as PNG), then 37 (the XBM, MSP, SPIDER, BLP, SUN and XPM
-fixtures' decodes, which the full script runs in its side process).
+written as PNG), then 37 (the decodes of the committed fixtures of
+utils/image_read_more.py's and utils/image_read_pil.py's formats, which
+the full script runs in its side process).
 
     python3 scripts/phase32_alone.py [--frame-out PATH]
 
@@ -59,6 +61,8 @@ def main():
                        uniform_mean, card))
         print(cs.timed("more image writers", cs.phase_more_writers, keep,
                        card))
+        print(cs.timed("PIL-only maps", cs.phase_pil_only_maps, dev, keep,
+                       uniform_mean, card))
     cs.timed("read formats", cs.phase_read_formats, card)
     return 0
 

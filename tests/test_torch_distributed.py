@@ -17,14 +17,20 @@ port's sharded regen renderer across the process boundary
   blocked in a collective, is killed).
 - test_scaling: the 64x64 sphere medium at spp 4, a world of 1 (1,024
   lanes) and of 2 (512 lanes per rank): the images agree within 3e-5 and
-  T(2) <= 1.25 T(1), each T the best of 3 runs after a warm-up, timed
-  inside the ranks (process start-up and set-up excluded).  T is the
-  rank's CPU seconds (time.process_time), not its wall seconds: under
-  xdist the two one-thread ranks share cores with other workers, and a
-  rank descheduled there would fail a wall-clock bound with no fault in
-  the code.  The bound so holds the work sharding adds to a rank (the
-  slice's set-up, the lanes' tail, the film's all-reduce); the wall
-  seconds are printed beside it.
+  T(2) <= 1.25 T(1), each T the best of 5 runs after a warm-up in each
+  of SCALING_ROUNDS launches, the launches of the two worlds alternated,
+  timed inside the ranks (process start-up and set-up excluded).  T is
+  the render thread's CPU seconds (time.thread_time), not its wall
+  seconds: under xdist the two one-thread ranks share cores with other
+  workers, and a rank descheduled there would fail a wall-clock bound
+  with no fault in the code.  At this size a rank's work is its loop's
+  per-iteration overhead more than its lanes, so T(2) / T(1) sits near
+  1.0 (0.95-1.16 measured on an idle 8-core host), and a slow spell
+  that falls on one world's three runs alone once took it past 1.25;
+  the best over more runs and over alternated launches does not hang
+  on one spell.  The bound so holds the work sharding adds to a rank
+  (the slice's set-up, the lanes' tail, the film's all-reduce); the
+  wall seconds are printed beside it.
 """
 import time
 
@@ -46,6 +52,8 @@ from torch_port_util import arrays_from_jax_scene
 torch.set_num_threads(2)
 
 JAX_SHARE = 0.99
+# test_scaling's launches, alternated world 1, world 2, world 1, ...
+SCALING_ROUNDS = 2
 
 
 def test_two_process_distributed_matches_single(tmp_path):
@@ -78,19 +86,22 @@ def test_two_process_distributed_matches_single(tmp_path):
 def test_sharding_overhead_and_agreement(tmp_path):
     arrays = arrays_from_jax_scene(
         jpresets.sphere_medium(res=64, height=64, spp=4, max_depth=4))
-    times, wall, imgs = {}, {}, {}
-    for n in (1, 2):
-        kw = dict(n_lanes=max(1024 // n, 128), spp=4)
-        ranks = torch_shard_worker.Launch(
-            {"s": arrays}, [("t", "timed_film", "s", kw)], n,
-            tmp_path).results()
-        times[n] = max(r["t"]["cpu_seconds"] for r in ranks)
-        wall[n] = max(r["t"]["seconds"] for r in ranks)
-        imgs[n] = ranks[0]["t"]["film"]
+    times, wall, imgs = {1: [], 2: []}, {1: [], 2: []}, {}
+    for r in range(SCALING_ROUNDS):
+        for n in (1, 2):
+            kw = dict(n_lanes=max(1024 // n, 128), spp=4)
+            out = tmp_path / f"round{r}_world{n}"
+            out.mkdir()
+            ranks = torch_shard_worker.Launch(
+                {"s": arrays}, [("t", "timed_film", "s", kw)], n,
+                out).results()
+            times[n].append(max(x["t"]["cpu_seconds"] for x in ranks))
+            wall[n].append(max(x["t"]["seconds"] for x in ranks))
+            imgs[n] = ranks[0]["t"]["film"]
     np.testing.assert_allclose(imgs[2], imgs[1], atol=3e-5)
     # the reference's bound: >= 85% efficiency allows ~1.18x, +25% for
     # host timing jitter
-    assert times[2] <= times[1] * 1.25, (times, wall)
+    assert min(times[2]) <= min(times[1]) * 1.25, (times, wall)
 
 
 def test_initialize_asks_for_a_group_only_when_told(monkeypatch):

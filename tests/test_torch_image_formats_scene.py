@@ -193,7 +193,8 @@ def test_readers_import_no_image_library():
     root = Path(__file__).resolve().parents[1]
     files = sorted((root / "acceleratedvolrenderer_tpu_torch").rglob("*.py"))
     files += [root / "chip_smoke.py", root / "scripts/time_image_decode.py",
-              root / "scripts/phase32_alone.py"]
+              root / "scripts/phase32_alone.py",
+              root / "scripts/pil_only_formats.py"]
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:PIL|tifffile|libtiff|"
                          r"webp|imageio|cv2)\b", re.M)
     hits = [str(f) for f in files if pattern.search(f.read_text())]

@@ -7,8 +7,10 @@ BMP; DIB under 12-, 40-, 108- and 124-byte headers; RLE and 16-bit SGI;
 scripts/time_image_decode.py's writers, whose procedural images and GIF,
 QOI, netpbm and LZW writers are imported here too, as are
 scripts/block_maps.py's (block-compressed and palette DDS, PSD, BigTIFF,
-ICO and CUR) and scripts/more_read_formats.py's (XBM, MSP, SPIDER, BLP,
-SUN raster, XPM), so that the tests take their files from this one module.
+ICO and CUR), scripts/more_read_formats.py's (XBM, MSP, SPIDER, BLP,
+SUN raster, XPM) and scripts/pil_only_formats.py's (DCX, PIXAR, FTEX, GBR,
+XV thumbnail, McIDAS, IMT, FITS, IPTC, FLI / FLC, PhotoCD), so that the
+tests take their files from this one module.
 """
 import io
 import struct
@@ -31,6 +33,11 @@ from block_maps import (  # noqa: E402,F401
 from more_read_formats import (  # noqa: E402,F401
     blp1_jpeg, blp1_palette, blp2_blocks, blp2_palette, dxt_blocks,
     msp_v1, msp_v2, spider_file, sun_file, xbm_file, xpm_file)
+from pil_only_formats import (  # noqa: E402,F401
+    dcx_file, fits_file, fits_gzip_file, fli_black, fli_brun, fli_chunk,
+    fli_color, fli_copy, fli_file, fli_lc, fli_pstamp, fli_ss2, ftex_dxt1,
+    ftex_file, ftex_rgb, gbr_file, imt_file, iptc_file, mcidas_file,
+    pcd_file, pcd_of_rgb, pixar_file, rgb_to_332, xvthumb_file)
 
 
 # ---------------------------------------------------------------- JPEG
