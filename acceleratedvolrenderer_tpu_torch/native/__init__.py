@@ -2,7 +2,8 @@
 acceleratedvolrenderer_tpu/native/__init__.py: merge_points and KDTree of
 the graph layer, and the LZ4 block codec of utils/blosc.py; and, the
 port's own, the JPEG 2000 tier 1 of utils/jpeg2000.py, j2k_t1.cpp, and
-the VP8 encoder of utils/webp_write.py, vp8_enc.cpp).
+the VP8 encoder of utils/webp_write.py, vp8_enc.cpp, and the AV1 intra
+decoder of utils/avif.py, av1_dec.cpp).
 
 Each source is compiled with g++ on first use (not at import) into its own
 library under build/native/ at the repository root, with the reference's
@@ -19,7 +20,10 @@ so does utils/jpeg2000_write.py, whose plain-Python twin (utils/j2k_t1.py's
 encode_blocks) is far too slow for a frame and holds the C++ encoder in
 the tests only.  vp8_enc.cpp, the lossy WebP encoder of
 utils/webp_write.py, has no fallback and no twin: vp8_enc_library raises
-when it cannot be built or loaded.
+when it cannot be built or loaded.  av1_dec.cpp, the AV1 decoder of
+utils/avif.py, includes its tables from av1_tables.h (written by
+scripts/av1_tables.py) and has no fallback either: av1_library raises,
+naming g++, when it cannot be built.
 """
 from __future__ import annotations
 
@@ -40,6 +44,10 @@ J2K_SRC = SRC.with_name("j2k_t1.cpp")
 J2K_LIB_PATH = BUILD_DIR / "libavrt_j2k_t1.so"
 VP8_SRC = SRC.with_name("vp8_enc.cpp")
 VP8_LIB_PATH = BUILD_DIR / "libavrt_vp8_enc.so"
+AV1_SRC = SRC.with_name("av1_dec.cpp")
+AV1_LIB_PATH = BUILD_DIR / "libavrt_av1_dec.so"
+# headers a source includes: the library is rebuilt when one is newer
+DEPENDS = {"av1_dec.cpp": ("av1_tables.h",)}
 CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
@@ -49,16 +57,20 @@ _lz4_tried = False
 _j2k_lib = None
 _j2k_tried = False
 _vp8_lib = None
+_av1_lib = None
 # what a failed build of each source leaves its callers
 NO_FALLBACK = {"kdtree.cpp": "the graph layer has no fallback merge: ",
                "j2k_t1.cpp": "JPEG 2000 writing has no fallback encoder: ",
-               "vp8_enc.cpp": "WebP writing has no fallback encoder: "}
+               "vp8_enc.cpp": "WebP writing has no fallback encoder: ",
+               "av1_dec.cpp": "AVIF reading has no fallback decoder: "}
 
 
 def _build(lib_path: Path, src: Path = SRC):
     """Compile `src` into lib_path (atomically) when it is missing or
     older than the source; raises RuntimeError when g++ fails."""
-    if lib_path.exists() and lib_path.stat().st_mtime >= src.stat().st_mtime:
+    deps = [src] + [src.with_name(h) for h in DEPENDS.get(src.name, ())]
+    if lib_path.exists() and all(lib_path.stat().st_mtime >= d.stat().st_mtime
+                                 for d in deps):
         return
     lib_path.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
@@ -357,3 +369,55 @@ def vp8_encode(y, u, v, tables, segment, params):
         if n >= 0:
             return dst[:n].tobytes()
         cap = -n
+
+
+def av1_library():
+    """The loaded AV1 decoder library (av1_dec.cpp), built on first use;
+    raises RuntimeError (naming g++) when it cannot be built, as AVIF
+    reading has no fallback."""
+    global _av1_lib
+    with _lock:
+        if _av1_lib is not None:
+            return _av1_lib
+        _build(AV1_LIB_PATH, AV1_SRC)
+        lib = ctypes.CDLL(str(AV1_LIB_PATH))
+        lib.avrt_av1_decode.restype = ctypes.c_int
+        lib.avrt_av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64] + [
+            ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+            ctypes.c_int]
+        _av1_lib = lib
+        return lib
+
+
+def av1_decode(data: bytes, seq: dict, frame: dict, tiles):
+    """The (Y, U, V) uint8 planes of an AV1 intra frame (av1_dec.cpp);
+    U and V are None for 4:0:0.  seq, frame and tiles are
+    utils/avif.py's parse_av1."""
+    lib = av1_library()
+    w, h = frame["w"], frame["h"]
+    ssx, ssy = seq["ss"]
+    params = np.array(
+        [w, h, ssx, ssy, seq["mono"], seq["use128"], seq["filter_intra"],
+         seq["edge_filter"], frame["disable_cdf_update"], frame["base_q"],
+         *frame["dq"], frame["lossless"], *frame["lf"],
+         frame["lf_sharpness"], frame["lf_delta_enabled"],
+         frame["lf_ref_deltas"][0], *frame["lr_type"], *frame["lr_size"],
+         frame["tx_mode"], frame["reduced_tx_set"],
+         len(frame["col_starts"]) - 1, len(frame["row_starts"]) - 1],
+        np.int32)
+    cols = np.array(frame["col_starts"], np.int32)
+    rows = np.array(frame["row_starts"], np.int32)
+    t = np.array(tiles, np.int64).reshape(-1, 3)
+    y = np.zeros((h, w), np.uint8)
+    cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
+    u = np.zeros((ch, cw), np.uint8)
+    v = np.zeros((ch, cw), np.uint8)
+    err = ctypes.create_string_buffer(256)
+    r = lib.avrt_av1_decode(data, len(data), _ptr(params), _ptr(cols),
+                            _ptr(rows), _ptr(t), len(t), _ptr(y), _ptr(u),
+                            _ptr(v), err, len(err))
+    if r != 0:
+        raise ValueError(f"avif: AV1 decode failed: {err.value.decode()}")
+    if seq["mono"]:
+        return y, None, None
+    return y, u, v

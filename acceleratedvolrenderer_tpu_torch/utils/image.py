@@ -1744,11 +1744,11 @@ _NETPBM_EXT = (".pbm", ".pgm", ".ppm", ".pnm")
 
 def _decode_image(path: str, data: bytes) -> np.ndarray:
     """Samples (H, W, C) of a PNG, JPEG, BMP, DIB, TIFF (also BigTIFF),
-    WebP, GIF, QOI, netpbm, PCX, DCX, SGI, IM, DDS (uncompressed, palette
-    and BC1-BC7), PSD, ICO, CUR, ICNS, JPEG 2000 (JP2 or raw codestream),
-    BLP, MSP, SPIDER, SUN raster, XBM, XPM, FITS, FLI / FLC, FTEX, GBR,
-    IMT, IPTC, McIDAS, PhotoCD, PIXAR, XV thumbnail or (by its extension)
-    TGA file, each recognised as PIL recognises it and, TGA aside, in
+    WebP, GIF, QOI, netpbm, AVIF (utils/avif.py), PCX, DCX, SGI, IM, DDS
+    (uncompressed, palette and BC1-BC7), PSD, ICO, CUR, ICNS, JPEG 2000
+    (JP2 or raw codestream), BLP, MSP, SPIDER, SUN raster, XBM, XPM, FITS,
+    FLI / FLC, FTEX, GBR, IMT, IPTC, McIDAS, PhotoCD, PIXAR, XV thumbnail
+    or (by its extension) TGA file, each recognised as PIL recognises it and, TGA aside, in
     PIL's order of plugins (an uncompressed TGA starts with CUR's magic
     bytes).  IMT, IPTC and PhotoCD files have no magic bytes at the start
     and GBR files a loose test: where PIL's plugin declines such a file
@@ -1756,7 +1756,7 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
     samples, int32 for 32-bit integer ones (FITS, McIDAS), float32 for a
     float TIFF, SPIDER or FITS image; raises ValueError naming any other
     format."""
-    from . import image_read, image_read_more as more, jpeg2000
+    from . import avif, image_read, image_read_more as more, jpeg2000
     from . import image_read_pil as pil
 
     ext = path.lower()
@@ -1789,6 +1789,10 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
     if data[:1] == b"P" and data[1:2] in b"1234567" and len(data) > 2 and (
             data[2:3].isspace() or ext.endswith(_NETPBM_EXT)):
         return decode_netpbm(data)
+    # PIL's AVIF plugin comes first of those not pre-initialised
+    if avif.is_avif(data) and (px := pil.attempt(avif.decode_avif,
+                                                 data)) is not None:
+        return px
     if data[:4] in (b"BLP1", b"BLP2"):
         return more.decode_blp(data)
     if image_read.is_pcx(data):
@@ -1849,17 +1853,17 @@ def _decode_image(path: str, data: bytes) -> np.ndarray:
         if data.startswith(magic):
             raise ValueError(f"{path}: {name} images are not read")
     raise ValueError(f"{path}: not an EXR, PNG, JPEG, BMP, DIB, TIFF, WebP, "
-                     "GIF, QOI, netpbm, PCX, DCX, SGI, IM, DDS, PSD, ICO, "
-                     "CUR, ICNS, JPEG 2000, BLP, MSP, SPIDER, SUN, XBM, XPM, "
-                     "FITS, FLI, FTEX, GBR, IMT, IPTC, McIDAS, PhotoCD, "
+                     "GIF, QOI, netpbm, AVIF, PCX, DCX, SGI, IM, DDS, PSD, "
+                     "ICO, CUR, ICNS, JPEG 2000, BLP, MSP, SPIDER, SUN, XBM, "
+                     "XPM, FITS, FLI, FTEX, GBR, IMT, IPTC, McIDAS, PhotoCD, "
                      "PIXAR, XV thumbnail or TGA image")
 
 
 def read_image(path: str):
     """Generic loader -> (rgb (H, W, 3) float32, attrs dict): EXR by the
     reader above; PNG, JPEG, BMP, DIB, TIFF (also BigTIFF), WebP, GIF, QOI,
-    netpbm, PCX, DCX, SGI, IM, DDS (uncompressed, palette and BC1-BC7),
-    PSD, ICO, CUR, ICNS, JPEG 2000 (JP2 and raw codestream), BLP, MSP,
+    netpbm, AVIF, PCX, DCX, SGI, IM, DDS (uncompressed, palette and
+    BC1-BC7), PSD, ICO, CUR, ICNS, JPEG 2000 (JP2 and raw codestream), BLP, MSP,
     SPIDER, SUN raster, XBM, XPM, FITS, FLI / FLC, FTEX, GBR, IMT, IPTC,
     McIDAS, PhotoCD, PIXAR, XV thumbnail and TGA decoded here (by
     _decode_image, in PIL's order of plugins; TGA by its extension), their

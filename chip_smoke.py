@@ -405,11 +405,15 @@ ended; a failure in either process fails the script and ends the other.
      DXT5), SUN raster and XPM, and of DCX, PIXAR, FTEX (raw, DXT1), GBR
      (v1, v2), XV thumbnail, McIDAS (2- and 4-byte), IMT, FITS (BITPIX 16,
      -32, GZIP_1), IPTC (raw, JPEG) and FLC (BRUN, SS2)
-     (tests/data/images/, images.json's entries read by those modules)
-     decoded once through image.py's _decode_image, held to the SHA-256 of
-     its bytes and of PIL's samples (colours for bilevel and palette
-     images), its host seconds printed (scripts/more_read_formats.py and
-     scripts/pil_only_formats.py), as many as images.json records.
+     (tests/data/images/, images.json's entries read by those modules),
+     and the six 128x96 AVIF crops of scripts/avif_maps.py (RGBA with
+     premultiplied alpha, 4:4:4, 4:0:0, limited range, lossless, speed
+     10; utils/avif.py with the C++ AV1 decoder native/av1_dec.cpp built
+     by g++ here) decoded once through image.py's _decode_image, held to
+     the SHA-256 of its bytes and of PIL's samples (colours for bilevel
+     and palette images), its host seconds printed
+     (scripts/more_read_formats.py, scripts/pil_only_formats.py and
+     scripts/avif_maps.py), as many as images.json records.
  38. PIL-only maps (utils/image_read_pil.py: PhotoCD through PIL's YCC;P
      tables, FTEX through utils/bcn.py's BC1): (a) scripts/
      pil_only_formats.py writes phase 32's sinusoid sky at PhotoCD's
@@ -425,6 +429,22 @@ ended; a failure in either process fails the script and ends the other.
      march call BCN_CAPTURE_CALL equal to plain, the mean apart from
      phase 32's uniform-sky frame's, the 32x24 version on the card and
      the CPU within SURF_MEAN_TOL.
+ 39. AVIF maps (utils/avif.py, the AV1 intra decoder native/av1_dec.cpp
+     built by g++ here, its tables from native/av1_tables.h): (a) the
+     committed AVIF_SKY (PIL's defaults on the WebP sky's samples: 4x2
+     tiles of 128x128 superblocks) and AVIF_GROUND (speed 4 on the WebP
+     ground's: self-guided and Wiener restoration) decoded once each,
+     held to images.json's SHA-256 of the bytes, the shape and the
+     SHA-256 of PIL's samples, host seconds and us per pixel printed,
+     the sky under AVIF_SKY_BAR_S; (b) phase 32's file with the sky as
+     the infinite light's map and the ground as the ground's imagemap,
+     rendered by the CLI at 1280x720 spp 1 with the parser's warnings
+     made errors, held as phase 34's frame is (maps_frame): the parsed
+     maps equal read_image's bit for bit, one march launch per loop
+     iteration and no gather or dma launch, the march call
+     BCN_CAPTURE_CALL equal to plain, the mean apart from phase 32's
+     uniform-sky frame's, the 32x24 version on the card and the CPU
+     within SURF_MEAN_TOL.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -449,7 +469,8 @@ call's `image_formats_max_abs_err`; `image_writers_max_abs_err`, phase
 captured call's `bcn_maps_max_abs_err`; `j2k_maps_launches` and
 `j2k_maps_max_abs_err`, the same of phase 35's frame;
 `pil_only_maps_launches` and `pil_only_maps_max_abs_err`, the same of
-phase 38's frame;
+phase 38's frame; `avif_maps_launches` and `avif_maps_max_abs_err`, the
+same of phase 39's frame;
 `more_image_writers_max_abs_err`, phase 36's largest read-back |diff| of
 a lossless file, no kernel's) and the result JSON.
 """
@@ -4859,12 +4880,15 @@ def phase_more_writers(keep, card):
 def phase_read_formats(card):
     """Phase 37 (see the module docstring), in the side process."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import avif_maps
     import more_read_formats as mrf
     import pil_only_formats as pof
     import time_image_decode as tid
 
-    n_records = len(mrf.fixture_records()) + len(pof.fixture_records())
-    rows = mrf.decode_fixtures() + pof.decode_fixtures()
+    n_records = (len(mrf.fixture_records()) + len(pof.fixture_records())
+                 + len(avif_maps.AVIF_SMALL))
+    rows = (mrf.decode_fixtures() + pof.decode_fixtures()
+            + avif_maps.decode_fixtures())
     print(f"read formats: host CPU {tid.cpu_line()}; {card}", flush=True)
     for name, secs, shape, ok in rows:
         print(f"read formats: {name} {tuple(shape)} decoded in {secs:.4f} s"
@@ -4919,6 +4943,54 @@ def phase_pil_only_maps(dev, keep, uniform_mean, card):
         # (b) the frame: the PCD sky and the FTEX ground by the CLI
         return maps_frame("PIL-only maps (b)", dev, keep, work, pof.PCD_SKY,
                           pof.FTEX_GROUND, uniform_mean, card)
+    finally:
+        shutil.rmtree(work)
+
+
+AVIF_SKY_BAR_S = 10.0     # host seconds phase 39's 2048x1024 sky may take
+
+
+def phase_avif_maps(dev, keep, uniform_mean, card):
+    """Phase 39 (see the module docstring); keep holds phase 32's medium
+    file.  Returns the frame's march launches and its captured call's
+    max |diff|."""
+    from acceleratedvolrenderer_tpu_torch import native
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import avif_maps
+    import time_image_decode as tid
+
+    print(f"AVIF maps: host CPU {tid.cpu_line()}; {card}", flush=True)
+    t0 = time.time()
+    native.av1_library()
+    print(f"AVIF maps: C++ AV1 decoder built or loaded in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    # (a) each map decoded once, held to the hashes of its bytes and of
+    # PIL's samples
+    records = avif_maps.fixture_records()
+    bad = []
+    for name in (avif_maps.AVIF_SKY, avif_maps.AVIF_GROUND):
+        data, px, secs = avif_maps.decode(name)
+        ok = avif_maps.held(name, data, px, records[name])
+        print(f"AVIF maps (a): {name} {px.shape[1]}x{px.shape[0]}: "
+              f"{len(data)} bytes, decode {secs:.3f} s "
+              f"({1e6 * secs / (px.shape[0] * px.shape[1]):.3f} us/pixel); "
+              f"bytes and samples {'at' if ok else 'NOT at'} images.json's "
+              "hashes (PIL's)", flush=True)
+        if not ok:
+            bad.append(name)
+        if name == avif_maps.AVIF_SKY and secs >= AVIF_SKY_BAR_S:
+            bad.append(f"{name} in {secs:.2f} s (bar {AVIF_SKY_BAR_S} s)")
+    if bad:
+        raise AssertionError(f"AVIF maps: wrong or slow decodes {bad}")
+    # (b) the frame: the AVIF sky and ground by the CLI
+    work = Path(tempfile.mkdtemp())
+    try:
+        for name in (avif_maps.AVIF_SKY, avif_maps.AVIF_GROUND):
+            shutil.copy(IMAGE_FIXTURES / name, work / name)
+        return maps_frame("AVIF maps (b)", dev, keep, work,
+                          avif_maps.AVIF_SKY, avif_maps.AVIF_GROUND,
+                          uniform_mean, card)
     finally:
         shutil.rmtree(work)
 
@@ -5122,6 +5194,10 @@ def main():
          march_rec["pil_only_maps_max_abs_err"]) = timed(
             "PIL-only maps", phase_pil_only_maps, dev, keep.name,
             uniform_mean, card)
+        (march_rec["avif_maps_launches"],
+         march_rec["avif_maps_max_abs_err"]) = timed(
+            "AVIF maps", phase_avif_maps, dev, keep.name, uniform_mean,
+            card)
         parent_end = time.time()
         keep.cleanup()
         side_out = timed("side process", side.finish)

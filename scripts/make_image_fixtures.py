@@ -76,6 +76,15 @@ phase38_files: phase 32's sinusoid sky at 768x512 as PhotoCD, the
 ground's decoded samples as FTEX DXT1), each under its name with
 `rebuilt_by` and the SHA-256 of its bytes and of PIL's samples.
 
+It writes the AVIF fixtures of scripts/avif_maps.py (chip_smoke.py phase
+39's sky and ground, and six 128x96 crops for phase 37), each of PIL's
+AVIF writer on the WebP fixtures' decoded samples, recorded with
+`read_by` (utils/avif.py), `pil_save` (the save parameters), the SHA-256
+of its bytes and of PIL's samples and the shape.  With --avif it writes
+only these and merges their records into the existing images.json:
+
+    python3 scripts/make_image_fixtures.py --avif
+
 Rerunning it rewrites both WebP files (the same bytes with PIL 12.1.0's
 libwebp); the CPU tests tests/test_torch_image_formats_webp.py::
 test_committed_fixtures_hashes and tests/test_torch_image_formats_bcn.py::
@@ -100,6 +109,7 @@ import block_maps  # noqa: E402
 import time_image_decode as tid  # noqa: E402
 from chip_smoke import (PDF_GMTIME, icon_entries, pdf_clock,  # noqa: E402
                         png_idat_stream, psnr_rgb)
+import avif_maps  # noqa: E402
 import more_read_formats as mrf  # noqa: E402
 import pil_only_formats as pof  # noqa: E402
 
@@ -439,7 +449,33 @@ def pil_only_records(ground_px):
     return out
 
 
+def avif_records(sky_webp, ground_webp):
+    """Write the AVIF fixtures; their images.json records."""
+    files = avif_maps.make_files(
+        np.asarray(Image.open(sky_webp).convert("RGB")),
+        np.asarray(Image.open(ground_webp).convert("RGB")))
+    out = {}
+    for name, data in files.items():
+        (OUT / name).write_bytes(data)
+        a = np.asarray(Image.open(io.BytesIO(data)))
+        out[name] = {"read_by": avif_maps.READ_BY,
+                     "pil_save": avif_maps.AVIF_FILES[name][1],
+                     "sha256_of_bytes": hashlib.sha256(data).hexdigest(),
+                     "sha256_of_pil_samples": hashlib.sha256(
+                         np.ascontiguousarray(a).tobytes()).hexdigest(),
+                     "shape": list(a.shape), "bytes": len(data)}
+        print(f"{name}: {len(data)} bytes, PIL samples {list(a.shape)}")
+    return out
+
+
 def main():
+    if sys.argv[1:] == ["--avif"]:
+        path = OUT / "images.json"
+        record = json.loads(path.read_text())
+        record.update(avif_records(OUT / "sky_2048x1024_q90.webp",
+                                   OUT / "ground_1024x512_q90.webp"))
+        path.write_text(json.dumps(record, indent=1) + "\n")
+        return
     OUT.mkdir(parents=True, exist_ok=True)
     files = {"sky_2048x1024_q90.webp": tid.sky(2048, 1024, 255),
              "ground_1024x512_q90.webp": ground(1024, 512)}
@@ -471,6 +507,8 @@ def main():
         OUT / "ground_1024x512_q90.webp").convert("RGB"))
     record.update(more_read_records(ground_px))
     record.update(pil_only_records(ground_px))
+    record.update(avif_records(OUT / "sky_2048x1024_q90.webp",
+                               OUT / "ground_1024x512_q90.webp"))
     (OUT / "images.json").write_text(json.dumps(record, indent=1) + "\n")
 
 

@@ -246,7 +246,7 @@ UNREAD = {
     "pfm": (".pfm", lambda: b"PF\n2 1\n-1.0\n" + bytes(24), "PFM"),
     "unknown": (".xyz", lambda: b"\x00\x01\x02\x03" * 8,
                 "not an EXR, PNG, JPEG, BMP, DIB, TIFF, WebP, GIF, QOI, "
-                "netpbm, PCX, DCX, SGI, IM, DDS, PSD, ICO, CUR, ICNS, JPEG "
+                "netpbm, AVIF, PCX, DCX, SGI, IM, DDS, PSD, ICO, CUR, ICNS, JPEG "
                 "2000, BLP, MSP, SPIDER, SUN, XBM, XPM, FITS, FLI, FTEX, GBR, "
                 "IMT, IPTC, McIDAS, PhotoCD, PIXAR, XV thumbnail or TGA "
                 "image"),
