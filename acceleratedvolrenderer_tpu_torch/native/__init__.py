@@ -383,16 +383,19 @@ def av1_library():
         lib = ctypes.CDLL(str(AV1_LIB_PATH))
         lib.avrt_av1_decode.restype = ctypes.c_int
         lib.avrt_av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64] + [
-            ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+            ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
             ctypes.c_int]
         _av1_lib = lib
         return lib
 
 
-def av1_decode(data: bytes, seq: dict, frame: dict, tiles):
+def av1_decode(data: bytes, seq: dict, frame: dict, tiles, stats=None):
     """The (Y, U, V) uint8 planes of an AV1 intra frame (av1_dec.cpp);
     U and V are None for 4:0:0.  seq, frame and tiles are
-    utils/avif.py's parse_av1."""
+    utils/avif.py's parse_av1.  A dict given as stats gets the decoder's
+    counts: `delta_q_blocks` (blocks whose delta_qindex is not 0) and
+    `cdef_blocks` (64x64 blocks that read a cdef_idx, where CDEF has a
+    strength that is not 0)."""
     lib = av1_library()
     w, h = frame["w"], frame["h"]
     ssx, ssy = seq["ss"]
@@ -403,8 +406,11 @@ def av1_decode(data: bytes, seq: dict, frame: dict, tiles):
          frame["lf_sharpness"], frame["lf_delta_enabled"],
          frame["lf_ref_deltas"][0], *frame["lr_type"], *frame["lr_size"],
          frame["tx_mode"], frame["reduced_tx_set"],
-         len(frame["col_starts"]) - 1, len(frame["row_starts"]) - 1],
-        np.int32)
+         len(frame["col_starts"]) - 1, len(frame["row_starts"]) - 1,
+         frame["cdef"], frame["cdef_damping"], frame["cdef_bits"],
+         *frame["cdef_y_pri"], *frame["cdef_y_sec"], *frame["cdef_uv_pri"],
+         *frame["cdef_uv_sec"], *frame["qm_level"],
+         frame["delta_q_present"], frame["delta_q_res"]], np.int32)
     cols = np.array(frame["col_starts"], np.int32)
     rows = np.array(frame["row_starts"], np.int32)
     t = np.array(tiles, np.int64).reshape(-1, 3)
@@ -412,12 +418,16 @@ def av1_decode(data: bytes, seq: dict, frame: dict, tiles):
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
     u = np.zeros((ch, cw), np.uint8)
     v = np.zeros((ch, cw), np.uint8)
+    counts = np.zeros(2, np.int32)
     err = ctypes.create_string_buffer(256)
     r = lib.avrt_av1_decode(data, len(data), _ptr(params), _ptr(cols),
                             _ptr(rows), _ptr(t), len(t), _ptr(y), _ptr(u),
-                            _ptr(v), err, len(err))
+                            _ptr(v), _ptr(counts), err, len(err))
     if r != 0:
         raise ValueError(f"avif: AV1 decode failed: {err.value.decode()}")
+    if stats is not None:
+        stats.update(delta_q_blocks=int(counts[0]),
+                     cdef_blocks=int(counts[1]))
     if seq["mono"]:
         return y, None, None
     return y, u, v

@@ -4,15 +4,16 @@
 // prediction mode (DC, directional with the edge filter and upsampling,
 // SMOOTH*, PAETH, filter intra, CfL), the coefficient syntax, the
 // inverse transforms (DCT 4-64, ADST 4-16, identity, Walsh-Hadamard),
-// the deblocking filter and loop restoration (Wiener, self-guided).
-// utils/avif.py parses the OBUs and the frame header and refuses the
-// tools this decoder does not implement (CDEF, quantizer matrices,
-// segmentation, block-level deltas, palette, intra block copy, superres,
-// film grain, more than 8 bits).
+// quantizer matrices and block-level delta q, the deblocking filter,
+// CDEF and loop restoration (Wiener, self-guided), for 4:2:0, 4:2:2,
+// 4:4:4 and 4:0:0.  utils/avif.py parses the OBUs and the frame header
+// and refuses the tools this decoder does not implement (segmentation,
+// block-level delta lf, palette, intra block copy, superres, film grain,
+// more than 8 bits).
 //
 // Entry point: avrt_av1_decode(data, size, params, col_starts,
-// row_starts, tiles, ntiles, y, u, v, err, errlen) -> 0 or -1 with a
-// message in err.  params: see the P_* indices below.
+// row_starts, tiles, ntiles, y, u, v, stats, err, errlen) -> 0 or -1 with
+// a message in err.  params: see the P_* indices below; stats: see S_*.
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
@@ -89,8 +90,14 @@ enum {
   P_DISABLE_CDF_UPDATE, P_BASE_Q, P_DQ, P_LOSSLESS = P_DQ + 5, P_LF,
   P_LF_SHARPNESS = P_LF + 4, P_LF_DELTA_ENABLED, P_LF_INTRA_DELTA,
   P_LR_TYPE, P_LR_SIZE = P_LR_TYPE + 3, P_TX_MODE = P_LR_SIZE + 3,
-  P_REDUCED_TX_SET, P_TILE_COLS, P_TILE_ROWS, P_COUNT
+  P_REDUCED_TX_SET, P_TILE_COLS, P_TILE_ROWS,
+  P_CDEF, P_CDEF_DAMPING, P_CDEF_BITS, P_CDEF_Y_PRI, P_CDEF_Y_SEC = P_CDEF_Y_PRI + 8,
+  P_CDEF_UV_PRI = P_CDEF_Y_SEC + 8, P_CDEF_UV_SEC = P_CDEF_UV_PRI + 8,
+  P_QM_LEVEL = P_CDEF_UV_SEC + 8, P_DELTA_Q_PRESENT = P_QM_LEVEL + 3,
+  P_DELTA_Q_RES, P_COUNT
 };
+// stats: blocks whose delta_qindex was not 0, 64x64 blocks with a cdef_idx
+enum { S_DELTA_Q_BLOCKS, S_CDEF_BLOCKS, S_COUNT };
 
 int block_of(int w, int h) {
   for (int i = 0; i < BLOCK_SIZES; i++)
@@ -158,6 +165,7 @@ struct Cdfs {
   uint16_t base_eob[5][2][4][4];
   uint16_t base[5][2][42][5];
   uint16_t br[5][2][21][5];
+  uint16_t delta_q[5];
 
   void init(int base_q) {
     int q = base_q <= 20 ? 0 : base_q <= 60 ? 1 : base_q <= 120 ? 2 : 3;
@@ -191,6 +199,7 @@ struct Cdfs {
     CP(base_eob, AV1_COEFF_BASE_EOB[q]);
     CP(base, AV1_COEFF_BASE[q]);
     CP(br, AV1_COEFF_BR[q]);
+    CP(delta_q, AV1_DELTA_Q);
 #undef CP
   }
 };
@@ -560,6 +569,17 @@ struct Decoder {
       cfl_u, cfl_v, tx_size, max_luma_w, max_luma_h;
   int tx_type_cur;
   int32_t quant[1024];
+  // block-level delta q: the tile's CurrentQIndex, and whether this
+  // superblock may still read a delta
+  int cur_q, read_deltas;
+  int stats[S_COUNT];
+  // quantizer matrices: each plane's level (15: flat) and the offset of
+  // each coded size's weights in AV1_QUANTIZER_MATRIX
+  int qm_level[3], qm_offset[TX_SIZES_ALL];
+  // CDEF: cdef_idx of each 64x64 (-1: not read), the deblocked planes
+  std::vector<int8_t> cdef_idx;
+  int cdef_stride;
+  std::vector<uint8_t> deblocked[3];
   // restoration
   int lr_type[3], lr_size[3];
   std::vector<uint8_t> lr_unit_type[3];
@@ -621,6 +641,15 @@ struct Decoder {
       left_dc[pl].assign((sbh >> sy) / 4 + 64, 0);
     }
     size_t n = (size_t)mi_rows * mi_cols;
+    cdef_stride = (mi_cols + 15) >> 4;
+    cdef_idx.assign((size_t)cdef_stride * ((mi_rows + 15) >> 4), -1);
+    for (int pl = 0; pl < 3; pl++)
+      qm_level[pl] = lossless ? 15 : p[P_QM_LEVEL + pl];
+    for (int t = 0, off = 0; t < TX_SIZES_ALL; t++) {
+      qm_offset[t] = off;
+      if (adjusted_tx(t) == t) off += TXW[t] * TXH[t];
+    }
+    std::memset(stats, 0, sizeof(stats));
     mi_size.assign(n, 0);
     y_mode.assign(n, 0);
     uv_mode.assign(n, 0);
@@ -652,6 +681,7 @@ struct Decoder {
     mi_col_end = col_starts[tcol + 1];
     cdf.init(base_q);
     sd.init(data, size, !p[P_DISABLE_CDF_UPDATE]);
+    cur_q = base_q;
     for (int pl = 0; pl < planes; pl++) {
       std::fill(above_level[pl].begin(), above_level[pl].end(), 0);
       std::fill(above_dc[pl].begin(), above_dc[pl].end(), 0);
@@ -670,6 +700,10 @@ struct Decoder {
         std::fill(left_dc[pl].begin(), left_dc[pl].end(), 0);
       }
       for (int c = mi_col_start; c < mi_col_end; c += sb4) {
+        read_deltas = p[P_DELTA_Q_PRESENT];
+        for (int y = r; y < r + sb4 && y < mi_rows; y += 16)
+          for (int x = c; x < c + sb4 && x < mi_cols; x += 16)
+            cdef_idx[(size_t)(y >> 4) * cdef_stride + (x >> 4)] = -1;
         clear_block_decoded(r, c);
         read_lr(r, c, sb_size);
         decode_partition(r, c, sb_size);
@@ -836,6 +870,9 @@ struct Decoder {
     if (avail_u) ctx += skips[mi_idx(mi_row - 1, mi_col)];
     if (avail_l) ctx += skips[mi_idx(mi_row, mi_col - 1)];
     skip = sd.read(cdf.skip[ctx], 2);
+    read_cdef();
+    read_delta_qindex();
+    read_deltas = 0;
     int above = avail_u ? y_mode[mi_idx(mi_row - 1, mi_col)] : (int)DC_PRED;
     int left = avail_l ? y_mode[mi_idx(mi_row, mi_col - 1)] : (int)DC_PRED;
     ymode = sd.read(cdf.kf_y_mode[INTRA_MODE_CTX[above]][INTRA_MODE_CTX[left]], 13);
@@ -871,6 +908,35 @@ struct Decoder {
         std::max(BW[mi_sz], BH[mi_sz]) <= 32) {
       use_fi = sd.read(cdf.use_fi[mi_sz], 2);
       if (use_fi) fi_mode = sd.read(cdf.fi_mode, 5);
+    }
+  }
+
+  // 5.11.56: one cdef_idx per 64x64, read at its first non-skip block
+  void read_cdef() {
+    if (skip || !p[P_CDEF]) return;
+    int8_t &idx = cdef_idx[(size_t)(mi_row >> 4) * cdef_stride + (mi_col >> 4)];
+    if (idx != -1) return;
+    idx = (int8_t)sd.literal(p[P_CDEF_BITS]);
+    int w4 = BW[mi_sz] >> 2, h4 = BH[mi_sz] >> 2;
+    for (int y = mi_row; y < mi_row + h4 && y < mi_rows; y += 16)
+      for (int x = mi_col; x < mi_col + w4 && x < mi_cols; x += 16)
+        cdef_idx[(size_t)(y >> 4) * cdef_stride + (x >> 4)] = idx;
+  }
+
+  // 5.11.34: delta_qindex at the first block of each superblock, unless
+  // that block is the whole superblock and skipped
+  void read_delta_qindex() {
+    if (!read_deltas) return;
+    if (mi_sz == (use128 ? BLOCK_128X128 : BLOCK_64X64) && skip) return;
+    int a = sd.read(cdf.delta_q, 4);
+    if (a == 3) {
+      int rem = sd.literal(3) + 1;
+      a = sd.literal(rem) + (1 << rem) + 1;
+    }
+    if (a) {
+      int d = sd.literal(1) ? -a : a;
+      cur_q = clip3(1, 255, cur_q + d * (1 << p[P_DELTA_Q_RES]));
+      stats[S_DELTA_Q_BLOCKS]++;
     }
   }
 
@@ -1480,11 +1546,17 @@ struct Decoder {
     int tw = std::min(32, w), th = std::min(32, h);
     const int *dq = p + P_DQ;
     int qdc, qac;
-    auto dcq = [&](int d) { return (int)AV1_DC_QLOOKUP[clip3(0, 255, base_q + d)]; };
-    auto acq = [&](int d) { return (int)AV1_AC_QLOOKUP[clip3(0, 255, base_q + d)]; };
+    auto dcq = [&](int d) { return (int)AV1_DC_QLOOKUP[clip3(0, 255, cur_q + d)]; };
+    auto acq = [&](int d) { return (int)AV1_AC_QLOOKUP[clip3(0, 255, cur_q + d)]; };
     if (plane == 0) { qdc = dcq(dq[0]); qac = acq(0); }
     else if (plane == 1) { qdc = dcq(dq[1]); qac = acq(dq[2]); }
     else { qdc = dcq(dq[3]); qac = acq(dq[4]); }
+    int ttype = compute_tx_type(plane, txsz);
+    // 7.12.3: the matrix weighs 2-D transforms' steps (AOM_QM_BITS 5)
+    const uint8_t *qm = nullptr;
+    if (qm_level[plane] < 15 && ttype < IDTX)
+      qm = AV1_QUANTIZER_MATRIX[qm_level[plane]][plane > 0] +
+           qm_offset[adjusted_tx(txsz)];
     static int32_t res[64][64];
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) res[i][j] = 0;
@@ -1493,13 +1565,13 @@ struct Decoder {
         int v = quant[i * tw + j];
         if (!v) continue;
         int q = (i == 0 && j == 0) ? qdc : qac;
+        if (qm) q = round2((int64_t)q * qm[j * th + i], 5);
         uint32_t m = (uint32_t)std::abs(v);
         int64_t d = ((int64_t)m * q) & 0xFFFFFF;
         d /= dqdenom;
         if (v < 0) d = -d;
         res[i][j] = clip3(-32768, 32767, (int)d);
       }
-    int ttype = compute_tx_type(plane, txsz);
     int rk = row_kind(ttype), ck = col_kind(ttype);
     int rowshift = lossless ? 0 : ROW_SHIFT[txsz];
     int colshift = lossless ? 0 : 4;
@@ -1748,14 +1820,150 @@ struct Decoder {
     }
   }
 
-  // ------------------------------------------------------------ loop restoration
-  std::vector<uint8_t> lr_src[3];   // the deblocked planes
+  // ------------------------------------------------------------ CDEF
+  // 7.15: each 8x8 of the deblocked frame (kept in `deblocked`, which
+  // loop restoration reads above and below its stripes) filtered along
+  // its luma direction into the frame
+  void cdef() {
+    bool any = p[P_CDEF_BITS] != 0;
+    for (int i = 0; i < 8; i++)
+      any |= p[P_CDEF_Y_PRI + i] || p[P_CDEF_Y_SEC + i] ||
+             p[P_CDEF_UV_PRI + i] || p[P_CDEF_UV_SEC + i];
+    if (!p[P_CDEF] || !any) return;
+    for (int pl = 0; pl < planes; pl++) deblocked[pl] = frame[pl].px;
+    for (int8_t idx : cdef_idx) stats[S_CDEF_BLOCKS] += idx != -1;
+    for (int r = 0; r < mi_rows; r += 2)
+      for (int c = 0; c < mi_cols; c += 2) {
+        int idx = cdef_idx[(size_t)(r >> 4) * cdef_stride + (c >> 4)];
+        if (idx == -1) continue;
+        if (skips[mi_idx(r, c)] && skips[mi_idx(r + 1, c)] &&
+            skips[mi_idx(r, c + 1)] && skips[mi_idx(r + 1, c + 1)])
+          continue;
+        cdef_block(r, c, idx);
+      }
+  }
 
+  void cdef_block(int r, int c, int idx) {
+    int var, ydir = cdef_direction(r, c, &var);
+    int pri = p[P_CDEF_Y_PRI + idx], sec = p[P_CDEF_Y_SEC + idx];
+    int dir = pri ? ydir : 0;
+    int vs = (var >> 6) ? std::min(log2i(var >> 6), 12) : 0;
+    pri = var ? (pri * (4 + vs) + 8) >> 4 : 0;
+    int damping = p[P_CDEF_DAMPING];
+    cdef_filter(0, r, c, pri, sec, damping, dir);
+    if (planes == 1) return;
+    pri = p[P_CDEF_UV_PRI + idx];
+    sec = p[P_CDEF_UV_SEC + idx];
+    dir = pri ? AV1_CDEF_UV_DIR[ssx][ssy][ydir] : 0;
+    cdef_filter(1, r, c, pri, sec, damping - 1, dir);
+    cdef_filter(2, r, c, pri, sec, damping - 1, dir);
+  }
+
+  int cdef_direction(int r, int c, int *var) {
+    int cost[8] = {0}, partial[8][15] = {{0}};
+    int x0 = c * 4, y0 = r * 4;
+    const std::vector<uint8_t> &src = deblocked[0];
+    int stride = frame[0].stride;
+    for (int i = 0; i < 8; i++)
+      for (int j = 0; j < 8; j++) {
+        int x = src[(size_t)(y0 + i) * stride + x0 + j] - 128;
+        partial[0][i + j] += x;
+        partial[1][i + j / 2] += x;
+        partial[2][i] += x;
+        partial[3][3 + i - j / 2] += x;
+        partial[4][7 + i - j] += x;
+        partial[5][3 - i / 2 + j] += x;
+        partial[6][j] += x;
+        partial[7][i / 2 + j] += x;
+      }
+    const int32_t *div = AV1_CDEF_DIV_TABLE;
+    for (int i = 0; i < 8; i++) {
+      cost[2] += partial[2][i] * partial[2][i];
+      cost[6] += partial[6][i] * partial[6][i];
+    }
+    cost[2] *= div[8];
+    cost[6] *= div[8];
+    for (int i = 0; i < 7; i++) {
+      cost[0] += (partial[0][i] * partial[0][i] +
+                  partial[0][14 - i] * partial[0][14 - i]) * div[i + 1];
+      cost[4] += (partial[4][i] * partial[4][i] +
+                  partial[4][14 - i] * partial[4][14 - i]) * div[i + 1];
+    }
+    cost[0] += partial[0][7] * partial[0][7] * div[8];
+    cost[4] += partial[4][7] * partial[4][7] * div[8];
+    for (int i = 1; i < 8; i += 2) {
+      for (int j = 0; j < 5; j++) cost[i] += partial[i][3 + j] * partial[i][3 + j];
+      cost[i] *= div[8];
+      for (int j = 0; j < 3; j++)
+        cost[i] += (partial[i][j] * partial[i][j] +
+                    partial[i][10 - j] * partial[i][10 - j]) * div[2 * j + 2];
+    }
+    int best = 0, ydir = 0;
+    for (int j = 0; j < 8; j++)
+      if (cost[j] > best) {
+        best = cost[j];
+        ydir = j;
+      }
+    *var = (best - cost[(ydir + 4) & 7]) >> 10;
+    return ydir;
+  }
+
+  static int constrain(int diff, int threshold, int damping) {
+    if (!threshold) return 0;
+    int adj = std::max(0, damping - log2i(threshold));
+    int v = std::min(std::abs(diff), std::max(0, threshold - (std::abs(diff) >> adj)));
+    return diff < 0 ? -v : v;
+  }
+
+  void cdef_filter(int plane, int r, int c, int pri, int sec, int damping, int dir) {
+    static const int PRI_TAPS[2][2] = {{4, 2}, {3, 3}}, SEC_TAPS[2][2] = {{2, 1}, {2, 1}};
+    int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+    int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
+    int w = 8 >> sx, h = 8 >> sy;
+    const std::vector<uint8_t> &src = deblocked[plane];
+    Plane &fp = frame[plane];
+    // available: inside the frame's 4x4 grid (MiRows x MiCols)
+    int ymax = (mi_rows * 4) >> sy, xmax = (mi_cols * 4) >> sx;
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int x = src[(size_t)(y0 + i) * fp.stride + x0 + j];
+        int sum = 0, mx = x, mn = x;
+        for (int k = 0; k < 2; k++)
+          for (int sign = -1; sign <= 1; sign += 2)
+            for (int t = 0; t < 3; t++) {   // the primary tap, then two secondary
+              int d = t == 0 ? dir : (dir + (t == 1 ? -2 : 2)) & 7;
+              int yy = y0 + i + sign * AV1_CDEF_DIRECTIONS[d][k][0];
+              int xx = x0 + j + sign * AV1_CDEF_DIRECTIONS[d][k][1];
+              if (yy < 0 || xx < 0 || yy >= ymax || xx >= xmax) continue;
+              int pv = src[(size_t)yy * fp.stride + xx];
+              if (t == 0)
+                sum += PRI_TAPS[pri & 1][k] * constrain(pv - x, pri, damping);
+              else
+                sum += SEC_TAPS[pri & 1][k] * constrain(pv - x, sec, damping);
+              mx = std::max(pv, mx);
+              mn = std::min(pv, mn);
+            }
+        fp.at(y0 + i, x0 + j) = (uint8_t)clip3(mn, mx, x + ((8 + sum - (sum < 0)) >> 4));
+      }
+  }
+
+  // ------------------------------------------------------------ loop restoration
+  std::vector<uint8_t> lr_src[3];   // the planes loop restoration filters
+
+  // 7.17.6's get_source_sample: rows above and below the stripe come from
+  // the deblocked frame (before CDEF)
   int src_sample(int plane, int x, int y, int stripe0, int stripe1, int pex, int pey) {
     x = std::max(0, std::min(pex, x));
     y = std::max(0, std::min(pey, y));
-    if (y < stripe0) y = std::max(stripe0 - 2, y);
-    else if (y > stripe1) y = std::min(stripe1 + 2, y);
+    const std::vector<uint8_t> &outside = deblocked[plane].empty() ? lr_src[plane] : deblocked[plane];
+    if (y < stripe0) {
+      y = std::max(stripe0 - 2, y);
+      return outside[(size_t)y * frame[plane].stride + x];
+    }
+    if (y > stripe1) {
+      y = std::min(stripe1 + 2, y);
+      return outside[(size_t)y * frame[plane].stride + x];
+    }
     return lr_src[plane][(size_t)y * frame[plane].stride + x];
   }
 
@@ -1894,7 +2102,7 @@ extern "C" int avrt_av1_decode(const uint8_t *data, int64_t size,
                                const int32_t *params, const int32_t *col_starts,
                                const int32_t *row_starts, const int64_t *tiles,
                                int ntiles, uint8_t *y, uint8_t *u, uint8_t *v,
-                               char *err, int errlen) {
+                               int32_t *stats, char *err, int errlen) {
   try {
     auto *d = new Decoder();
     std::unique_ptr<Decoder> hold(d);
@@ -1906,7 +2114,9 @@ extern "C" int avrt_av1_decode(const uint8_t *data, int64_t size,
       d->decode_tile(data + off, sz, (int)num);
     }
     d->loop_filter();
+    d->cdef();
     d->loop_restoration();
+    std::memcpy(stats, d->stats, sizeof(d->stats));
     uint8_t *out[3] = {y, u, v};
     for (int pl = 0; pl < d->planes; pl++) {
       Plane &fp = d->frame[pl];

@@ -6,13 +6,14 @@ numpy.
 decode_avif(data) returns np.asarray(PIL.Image.open(file)): uint8 (H, W, 3),
 or (H, W, 4) where the file has an alpha item.  It reads the still images
 that PIL's own writer makes through its parameters (quality, speed,
-subsampling 4:2:0 / 4:4:4 / 4:0:0, range, tiles, alpha premultiplied or
-not, ICC profile, EXIF orientation).  AV1 tools that PIL reads but its
-writer does not make by those parameters raise a ValueError that names
-the tool (CDEF, quantizer matrices, film grain, palette and intra block
-copy, segmentation, block-level delta q / delta lf, superres, more than 8
-bits, non-uniform tile spacing), and so do a `grid` item and an image
-sequence.
+subsampling 4:2:0 / 4:2:2 / 4:4:4 / 4:0:0, range, tiles, alpha
+premultiplied or not, ICC profile, EXIF orientation), the AV1 tools
+common encoders leave on (CDEF, quantizer matrices, block-level delta q),
+the BT.601, BT.709 and BT.2020 NCL matrices, `grid` items and frame 0 of
+an image sequence.  What it does not read raises a ValueError that names
+it (film grain, palette and intra block copy, segmentation, block-level
+delta lf, superres, more than 8 bits, non-uniform tile spacing, item
+construction method 2, other matrices).
 """
 from __future__ import annotations
 
@@ -181,6 +182,60 @@ def _nclx(data, props):
     return None
 
 
+def _parse_trak(data, s, e):
+    """One track of a moov box: its id, references, first sample entry
+    (its kind and its property boxes) and the offset and size of its
+    first sample."""
+    t = {"id": 0, "tref": {}, "entry": None, "props": {}, "sample0": None}
+    for kind, a, b in _boxes(data, s, e):
+        r = _Reader(data, a, b)
+        if kind == b"tkhd":
+            ver, _ = r.full()
+            r.u(16 if ver == 1 else 8)
+            t["id"] = r.u(4)
+        elif kind == b"tref":
+            for k2, a2, b2 in _boxes(data, a, b):
+                t["tref"][k2] = [int.from_bytes(data[i:i + 4], "big")
+                                 for i in range(a2, b2 - 3, 4)]
+        elif kind == b"mdia":
+            _parse_mdia(data, a, b, t)
+    return t
+
+
+def _parse_mdia(data, s, e, t):
+    size0 = chunk0 = None
+    for kind, a, b in _boxes(data, s, e):
+        if kind == b"minf":
+            for k2, a2, b2 in _boxes(data, a, b):
+                if k2 != b"stbl":
+                    continue
+                for k3, a3, b3 in _boxes(data, a2, b2):
+                    r = _Reader(data, a3, b3)
+                    if k3 == b"stsd":
+                        r.full()
+                        for k4, a4, b4 in list(_boxes(data, a3 + 8, b3))[:1]:
+                            t["entry"] = k4
+                            if k4 == b"av01":   # VisualSampleEntry: 78 bytes
+                                for k5, a5, b5 in _boxes(data, a4 + 78, b4):
+                                    t["props"].setdefault(k5, (a5, b5))
+                    elif k3 == b"stsz":
+                        r.full()
+                        size, count = r.u(4), r.u(4)
+                        if count:
+                            size0 = size or r.u(4)
+                    elif k3 in (b"stco", b"co64"):
+                        r.full()
+                        if r.u(4):
+                            chunk0 = r.u(4 if k3 == b"stco" else 8)
+    if size0 is not None and chunk0 is not None:  # sample 0 opens chunk 1
+        t["sample0"] = (chunk0, size0)
+
+
+def _parse_moov(data, s, e):
+    return [_parse_trak(data, a, b) for kind, a, b in _boxes(data, s, e)
+            if kind == b"trak"]
+
+
 # ---------------------------------------------------------------------------
 # AV1 OBUs and headers (AV1 specification sections 5.3, 5.5, 5.9, 5.11.1)
 # ---------------------------------------------------------------------------
@@ -239,7 +294,8 @@ def _obus(d: bytes):
 
 
 def _sequence_header(b: _Bits) -> dict:
-    s = {}
+    # bit positions of the fields tests flip to make refused streams
+    s = {"bit_of": {"seq_profile": b.bit}}
     s["profile"] = b.f(3)
     b.f(1)                                  # still_picture
     s["reduced"] = b.f(1)
@@ -296,8 +352,7 @@ def _sequence_header(b: _Bits) -> dict:
             if s["screen_content"] > 0 else 2
         if order_hint:
             s["order_hint_bits"] = b.f(3) + 1
-    # bit positions of the fields tests flip to make refused streams
-    s["bit_of"] = {"enable_superres": b.bit}
+    s["bit_of"]["enable_superres"] = b.bit
     s["superres"], s["cdef"], s["restoration"] = b.f(1), b.f(1), b.f(1)
     s["bit_of"]["high_bitdepth"] = b.bit
     high = b.f(1)
@@ -332,8 +387,6 @@ def _sequence_header(b: _Bits) -> dict:
         if s["ss"] == (1, 1):
             b.f(2)
         s["separate_uv_dq"] = b.f(1)
-    if s["ss"] == (1, 0):
-        _refuse("AV1 4:2:2")
     s["mono"] = mono
     s["film_grain_present"] = b.f(1)
     return s
@@ -436,13 +489,20 @@ def _frame_header(b: _Bits, s: dict) -> dict:
         dq[1], dq[2] = _delta_q(b), _delta_q(b)
         dq[3], dq[4] = (_delta_q(b), _delta_q(b)) if diff else (dq[1], dq[2])
     f["dq"] = dq
-    if b.f(1):
-        _refuse("AV1 quantizer matrices")
+    f["qm_level"] = [15, 15, 15]            # 15: flat, no matrix
+    if b.f(1):                              # using_qmatrix
+        qy, qu = b.f(4), b.f(4)
+        f["qm_level"] = [qy, qu, b.f(4) if s["separate_uv_dq"] else qu]
     f["bit_of"]["segmentation_enabled"] = b.bit
     if b.f(1):
         _refuse("AV1 segmentation")
-    if f["base_q"] > 0 and b.f(1):
-        _refuse("AV1 block-level delta q and delta lf")
+    # delta_q_params, delta_lf_params (5.9.17, 5.9.18)
+    f["delta_q_present"] = b.f(1) if f["base_q"] > 0 else 0
+    f["delta_q_res"] = b.f(2) if f["delta_q_present"] else 0
+    if f["delta_q_present"]:
+        f["bit_of"]["delta_lf_present"] = b.bit
+        if b.f(1):
+            _refuse("AV1 block-level delta lf")
     lossless = f["base_q"] == 0 and not any(dq)
     f["lossless"] = int(lossless)
     # loop_filter_params (5.9.11)
@@ -464,12 +524,18 @@ def _frame_header(b: _Bits, s: dict) -> dict:
                     b.su(7)
     f["lf"] = lf
     # cdef_params (5.9.19)
-    if not lossless and s["cdef"]:
-        b.f(2)
-        bits = b.f(2)
-        strengths = [b.f(6) if s["mono"] else b.f(12) for _ in range(1 << bits)]
-        if bits or any(strengths):
-            _refuse("AV1 CDEF")
+    f["cdef"] = int(not lossless and s["cdef"])
+    f["cdef_damping"], f["cdef_bits"] = 3, 0
+    for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"):
+        f["cdef_" + k] = [0] * 8
+    if f["cdef"]:
+        f["cdef_damping"] = b.f(2) + 3
+        f["cdef_bits"] = b.f(2)
+        for i in range(1 << f["cdef_bits"]):
+            for k in ("y", "uv") if not s["mono"] else ("y",):
+                f[f"cdef_{k}_pri"][i] = b.f(4)
+                sec = b.f(2)
+                f[f"cdef_{k}_sec"][i] = 4 if sec == 3 else sec
     # lr_params (5.9.20)
     f["lr_type"] = [0, 0, 0]
     f["lr_size"] = [64, 64, 64]
@@ -557,12 +623,17 @@ def decode_av1(d: bytes):
 # YUV -> RGB (libavif 1.3.0 through libyuv 1909)
 # ---------------------------------------------------------------------------
 
-# libyuv's BT.601 constants: (YG, YB, UB, UG, VG, VR) of kYuvJPEGConstants
-# (full range) and kYuvI601Constants (limited range)
-_LIBYUV_601 = {1: (16320, 32, 113, 22, 46, 90),
-               0: (18997, -1160, 128, 25, 52, 102)}
-# matrix_coefficients that libavif converts with the BT.601 constants
-_BT601 = (2, 5, 6)
+# libyuv's YuvConstants, (YG, YB, UB, UG, VG, VR), by the
+# matrix_coefficients that libavif hands to libyuv and by full range (1) or
+# limited (0): kYuvJPEG / kYuvI601 (BT.601: 2 unspecified, 5, 6),
+# kYuvF709 / kYuvH709 (BT.709: 1), kYuvF2020 / kYuvV2020 (BT.2020 NCL: 9)
+_BT601 = {1: (16320, 32, 113, 22, 46, 90),
+          0: (18997, -1160, 128, 25, 52, 102)}
+_BT709 = {1: (16320, 32, 119, 12, 30, 101),
+          0: (18997, -1160, 128, 14, 34, 115)}
+_BT2020 = {1: (16320, 32, 120, 11, 37, 94),
+           0: (19003, -1160, 128, 12, 42, 107)}
+_LIBYUV = {2: _BT601, 5: _BT601, 6: _BT601, 1: _BT709, 9: _BT2020}
 
 
 def _upsample_taps(n: int, vertical: bool):
@@ -587,6 +658,7 @@ def _upsample_taps(n: int, vertical: bool):
 
 
 def _upsample(c: np.ndarray, h: int, w: int) -> np.ndarray:
+    """A 4:2:0 chroma plane at (h, w): libyuv's bilinear 2x2 filter."""
     ya, yb, wya, wyb, my = _upsample_taps(h, True)
     xa, xb, wxa, wxb, mx = _upsample_taps(w, False)
     c = c.astype(np.int32)
@@ -601,9 +673,17 @@ def _upsample(c: np.ndarray, h: int, w: int) -> np.ndarray:
     return out
 
 
-def _yuv_pixels(y, u, v, full_range: int) -> np.ndarray:
-    """libyuv's YuvPixel with the BT.601 constants: uint8 (..., 3)."""
-    yg, yb, ub, ug, vg, vr = _LIBYUV_601[full_range]
+def _upsample_h(c: np.ndarray, w: int) -> np.ndarray:
+    """A 4:2:2 chroma plane at width w: libyuv's linear 2x filter along
+    rows only (I422ToRGB24MatrixFilter, ScaleRowUp2_Linear)."""
+    xa, xb, wxa, wxb, _ = _upsample_taps(w, False)
+    c = c.astype(np.int32)
+    return (wxa * c[:, xa] + wxb * c[:, xb] + 2) >> 2
+
+
+def _yuv_pixels(y, u, v, constants) -> np.ndarray:
+    """libyuv's YuvPixel with one set of YuvConstants: uint8 (..., 3)."""
+    yg, yb, ub, ug, vg, vr = constants
     y = y.astype(np.int32)       # y * 0x0101 * yg < 2**31
     u = u.astype(np.int32)
     v = v.astype(np.int32)
@@ -629,20 +709,25 @@ def yuv_to_rgb(y, u, v, seq: dict, nclx, alpha, premultiplied: bool):
     """The RGB(A) samples PIL gets from libavif's avifImageYUVToRGB."""
     matrix, full = nclx if nclx is not None else (seq["cicp"][2],
                                                   seq["full_range"])
-    if matrix not in _BT601:
-        _refuse(f"AVIF matrix_coefficients {matrix} (only BT.601)")
+    if matrix not in _LIBYUV:
+        _refuse(f"AVIF matrix_coefficients {matrix} (only BT.601, BT.709 "
+                "and BT.2020 NCL)")
+    constants = _LIBYUV[matrix][full]
     h, w = y.shape
     if u is None:
         if full:
-            rgb = _yuv_pixels(y, np.full_like(y, 128), np.full_like(y, 128), 1)
+            rgb = _yuv_pixels(y, np.full_like(y, 128), np.full_like(y, 128),
+                              constants)
         else:   # libavif's own float path for limited-range 4:0:0
             g = np.floor((y.astype(np.float64) - 16) * 255 / 219 + 0.5)
             rgb = np.repeat(np.clip(g, 0, 255).astype(np.uint8)[..., None],
                             3, -1)
     else:
-        if u.shape != (h, w):
+        if u.shape[0] != h:
             u, v = _upsample(u, h, w), _upsample(v, h, w)
-        rgb = _yuv_pixels(y, u, v, full)
+        elif u.shape[1] != w:
+            u, v = _upsample_h(u, w), _upsample_h(v, w)
+        rgb = _yuv_pixels(y, u, v, constants)
     if alpha is None:
         return rgb
     a, a_full = alpha
@@ -660,34 +745,76 @@ def yuv_to_rgb(y, u, v, seq: dict, nclx, alpha, premultiplied: bool):
     return np.concatenate([rgb, a[..., None]], -1)
 
 
-def decode_avif(data: bytes) -> np.ndarray:
-    """np.asarray(PIL.Image.open(...)) of an AVIF file; raises
-    image_read_pil.Declined where libavif cannot parse the container (PIL
-    then tries its next plugin), ValueError naming the tool where the
-    file uses one this port does not read."""
-    if not is_avif(data):
-        _decline("not an AVIF file")
-    meta = None
-    for kind, s, e in _boxes(data, 0, len(data)):
-        if kind == b"meta":
-            meta = _parse_meta(data, s, e)
-        elif kind == b"moov":
-            _refuse("an AVIF image sequence (moov)")
-    if meta is None or meta["pitm"] is None:
-        _decline("no primary item")
+def _tile_planes(data, meta, iid):
+    """The Y, U, V planes and the sequence header of one av01 item."""
+    if meta["items"].get(iid) != b"av01":
+        _decline(f"item {iid} is {meta['items'].get(iid)!r}, not av01")
+    return decode_av1(_item_data(data, meta, iid))
+
+
+def _grid_planes(data, meta, iid):
+    """The planes of a `grid` item (ISO/IEC 23008-12 6.6.2.3): its dimg
+    tiles, in the order iref lists them, decoded, stitched row by row and
+    cropped to the output size, with libavif's checks."""
+    payload = _item_data(data, meta, iid)
+    r = _Reader(payload, 0, len(payload))
+    if r.u(1) != 0:
+        _decline("grid version is not 0")
+    n = 4 if r.u(1) & 1 else 2
+    rows, cols = r.u(1) + 1, r.u(1) + 1
+    out_w, out_h = r.u(n), r.u(n)
+    ids = [to for k, frm, to in meta["iref"] if k == b"dimg" and frm == iid]
+    if len(ids) != rows * cols:
+        _decline(f"grid of {rows}x{cols} with {len(ids)} tiles")
+    tiles = [_tile_planes(data, meta, t) for t in ids]
+    (y0, u0, _), seq = tiles[0]
+    th, tw = y0.shape
+    key = (seq["ss"], seq["mono"], seq["full_range"])
+    if any(t[0][0].shape != (th, tw) or (t[1]["ss"], t[1]["mono"],
+                                          t[1]["full_range"]) != key
+           for t in tiles):
+        _decline("grid tiles differ in size or format")
+    ssx, ssy = seq["ss"]
+    if (tw * cols < out_w or th * rows < out_h or tw * (cols - 1) >= out_w
+            or th * (rows - 1) >= out_h or tw < 64 or th < 64
+            or (not seq["mono"] and ssx and (out_w % 2 or tw % 2))
+            or (not seq["mono"] and ssy and (out_h % 2 or th % 2))):
+        raise ValueError(f"avif: grid of {rows}x{cols} {tw}x{th} tiles "
+                         f"for {out_w}x{out_h} breaks MIAF's rules "
+                         "(libavif refuses the grid)")
+    planes = []
+    for k in range(1 if seq["mono"] else 3):
+        sx, sy = (ssx, ssy) if k else (0, 0)
+        full = np.concatenate([np.concatenate(
+            [tiles[r * cols + c][0][k] for c in range(cols)], 1)
+            for r in range(rows)], 0)
+        planes.append(np.ascontiguousarray(
+            full[:(out_h + sy) >> sy, :(out_w + sx) >> sx]))
+    planes += [None] * (3 - len(planes))
+    return planes, seq
+
+
+def _image_planes(data, meta, iid):
+    if meta["items"].get(iid) == b"grid":
+        return _grid_planes(data, meta, iid)
+    return _tile_planes(data, meta, iid)
+
+
+def _decode_item(data, meta):
+    """The primary item (av01 or grid) and its alpha item, as libavif's
+    AVIF_DECODER_SOURCE_PRIMARY_ITEM reads them."""
     prim = meta["pitm"]
     kind = meta["items"].get(prim)
-    if kind == b"grid":
-        _refuse("an AVIF grid item")
-    if kind != b"av01":
-        _decline(f"the primary item is {kind!r}, not av01")
+    if kind not in (b"av01", b"grid"):
+        _decline(f"the primary item is {kind!r}, not av01 or grid")
     props = _item_props(data, meta, prim)
-    (y, u, v), seq = decode_av1(_item_data(data, meta, prim))
+    (y, u, v), seq = _image_planes(data, meta, prim)
     nclx = _nclx(data, props)
     alpha = None
     alpha_id = None
     for k, frm, to in meta["iref"]:
-        if k == b"auxl" and to == prim and meta["items"].get(frm) == b"av01":
+        if (k == b"auxl" and to == prim
+                and meta["items"].get(frm) in (b"av01", b"grid")):
             aprops = _item_props(data, meta, frm)
             if b"auxC" in aprops:
                 s, e = aprops[b"auxC"]
@@ -696,8 +823,59 @@ def decode_avif(data: bytes) -> np.ndarray:
                     alpha_id = frm
     premultiplied = False
     if alpha_id is not None:
-        (alpha, _, _), aseq = decode_av1(_item_data(data, meta, alpha_id))
+        (alpha, _, _), aseq = _image_planes(data, meta, alpha_id)
         alpha = (alpha, aseq["full_range"])
         premultiplied = any(k == b"prem" and frm == prim and to == alpha_id
                             for k, frm, to in meta["iref"])
     return yuv_to_rgb(y, u, v, seq, nclx, alpha, premultiplied)
+
+
+def _decode_track(data, tracks):
+    """Frame 0 of the colour track (the first av01 track that is not an
+    auxiliary one) and of its alpha track, as libavif's
+    AVIF_DECODER_SOURCE_TRACKS reads them."""
+    def sample0(t):
+        if t["sample0"] is None:
+            _decline(f"track {t['id']} has no samples")
+        off, n = t["sample0"]
+        return decode_av1(data[off:off + n])
+
+    av01 = [t for t in tracks if t["id"] and t["entry"] == b"av01"]
+    colour = [t for t in av01 if b"auxl" not in t["tref"]]
+    if not colour:
+        _decline("no av01 track")
+    col = colour[0]
+    (y, u, v), seq = sample0(col)
+    nclx = _nclx(data, col["props"])
+    alpha, premultiplied = None, False
+    for t in av01:
+        if col["id"] in t["tref"].get(b"auxl", []):
+            (a, _, _), aseq = sample0(t)
+            alpha = (a, aseq["full_range"])
+            premultiplied = t["id"] in col["tref"].get(b"prem", [])
+            break
+    return yuv_to_rgb(y, u, v, seq, nclx, alpha, premultiplied)
+
+
+def decode_avif(data: bytes) -> np.ndarray:
+    """np.asarray(PIL.Image.open(...)) of an AVIF file; raises
+    image_read_pil.Declined where libavif cannot parse the container (PIL
+    then tries its next plugin), ValueError naming the tool where the
+    file uses one this port does not read.  Like libavif's
+    AVIF_DECODER_SOURCE_AUTO it reads frame 0 of the tracks of an `avis`
+    file (or of a file of another major brand than `avif` that has
+    tracks), and the primary item otherwise."""
+    if not is_avif(data):
+        _decline("not an AVIF file")
+    meta, tracks = None, []
+    for kind, s, e in _boxes(data, 0, len(data)):
+        if kind == b"meta":
+            meta = _parse_meta(data, s, e)
+        elif kind == b"moov":
+            tracks = _parse_moov(data, s, e)
+    major = data[8:12]
+    if major == b"avis" or (major != b"avif" and tracks):
+        return _decode_track(data, tracks)
+    if meta is None or meta["pitm"] is None:
+        _decline("no primary item")
+    return _decode_item(data, meta)

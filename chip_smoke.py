@@ -406,10 +406,13 @@ ended; a failure in either process fails the script and ends the other.
      (v1, v2), XV thumbnail, McIDAS (2- and 4-byte), IMT, FITS (BITPIX 16,
      -32, GZIP_1), IPTC (raw, JPEG) and FLC (BRUN, SS2)
      (tests/data/images/, images.json's entries read by those modules),
-     and the six 128x96 AVIF crops of scripts/avif_maps.py (RGBA with
-     premultiplied alpha, 4:4:4, 4:0:0, limited range, lossless, speed
-     10; utils/avif.py with the C++ AV1 decoder native/av1_dec.cpp built
-     by g++ here) decoded once through image.py's _decode_image, held to
+     and the fourteen 128x96 AVIF crops of scripts/avif_maps.py (RGBA
+     with premultiplied alpha, 4:4:4, 4:0:0, limited range, lossless,
+     speed 10; CDEF, quantizer matrices, block-level delta q, 4:2:2,
+     BT.709, BT.2020 limited range, a 2x2 grid of 64x64 tiles, frame 0 of
+     a two-frame sequence; utils/avif.py with the C++ AV1 decoder
+     native/av1_dec.cpp built by g++ here) decoded once through image.py's
+     _decode_image, held to
      the SHA-256 of its bytes and of PIL's samples (colours for bilevel
      and palette images), its host seconds printed
      (scripts/more_read_formats.py, scripts/pil_only_formats.py and
@@ -445,6 +448,16 @@ ended; a failure in either process fails the script and ends the other.
      BCN_CAPTURE_CALL equal to plain, the mean apart from phase 32's
      uniform-sky frame's, the 32x24 version on the card and the CPU
      within SURF_MEAN_TOL.
+ 40. AVIF tools maps (avif_maps_phase, as phase 39): (a) the committed
+     TOOLS_SKY (a 2x1 grid of 1024x1024 tiles, each PIL's file at
+     quality 75, speed 6, with CDEF, quantizer matrices and block-level
+     delta q, composed by scripts/avif_maps.py) and TOOLS_GROUND (4:2:2
+     with CDEF, its colr matrix BT.709) decoded once each, held to
+     images.json's hashes, host seconds and us per pixel printed, the sky
+     under AVIF_SKY_BAR_S; (b) phase 32's file with them as the infinite
+     light's map and the ground's imagemap, rendered by the CLI at
+     1280x720 spp 1 with the parser's warnings made errors, held through
+     maps_frame as phase 39's frame is.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -470,7 +483,8 @@ captured call's `bcn_maps_max_abs_err`; `j2k_maps_launches` and
 `j2k_maps_max_abs_err`, the same of phase 35's frame;
 `pil_only_maps_launches` and `pil_only_maps_max_abs_err`, the same of
 phase 38's frame; `avif_maps_launches` and `avif_maps_max_abs_err`, the
-same of phase 39's frame;
+same of phase 39's frame; `avif_tools_maps_launches` and
+`avif_tools_maps_max_abs_err`, the same of phase 40's frame;
 `more_image_writers_max_abs_err`, phase 36's largest read-back |diff| of
 a lossless file, no kernel's) and the result JSON.
 """
@@ -4885,10 +4899,11 @@ def phase_read_formats(card):
     import pil_only_formats as pof
     import time_image_decode as tid
 
+    avif_small = avif_maps.AVIF_SMALL + avif_maps.TOOL_SMALL
     n_records = (len(mrf.fixture_records()) + len(pof.fixture_records())
-                 + len(avif_maps.AVIF_SMALL))
+                 + len(avif_small))
     rows = (mrf.decode_fixtures() + pof.decode_fixtures()
-            + avif_maps.decode_fixtures())
+            + avif_maps.decode_fixtures(avif_small))
     print(f"read formats: host CPU {tid.cpu_line()}; {card}", flush=True)
     for name, secs, shape, ok in rows:
         print(f"read formats: {name} {tuple(shape)} decoded in {secs:.4f} s"
@@ -4947,52 +4962,68 @@ def phase_pil_only_maps(dev, keep, uniform_mean, card):
         shutil.rmtree(work)
 
 
-AVIF_SKY_BAR_S = 10.0     # host seconds phase 39's 2048x1024 sky may take
+AVIF_SKY_BAR_S = 10.0     # host seconds a 2048x1024 AVIF sky may take
 
 
-def phase_avif_maps(dev, keep, uniform_mean, card):
-    """Phase 39 (see the module docstring); keep holds phase 32's medium
-    file.  Returns the frame's march launches and its captured call's
-    max |diff|."""
+def avif_maps_phase(what, maps, dev, keep, uniform_mean, card):
+    """Phases 39 and 40: (a) the committed AVIF sky and ground (maps: the
+    names of scripts/avif_maps.py's constants that hold their file names)
+    decoded once each, held to images.json's hashes, the sky under
+    AVIF_SKY_BAR_S; (b) their frame through maps_frame.  Returns the
+    frame's march launches and its captured call's max |diff|."""
     from acceleratedvolrenderer_tpu_torch import native
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import avif_maps
     import time_image_decode as tid
 
-    print(f"AVIF maps: host CPU {tid.cpu_line()}; {card}", flush=True)
+    sky, ground = (getattr(avif_maps, m) for m in maps)
+    print(f"{what}: host CPU {tid.cpu_line()}; {card}", flush=True)
     t0 = time.time()
     native.av1_library()
-    print(f"AVIF maps: C++ AV1 decoder built or loaded in "
+    print(f"{what}: C++ AV1 decoder built or loaded in "
           f"{time.time() - t0:.2f} s", flush=True)
     # (a) each map decoded once, held to the hashes of its bytes and of
     # PIL's samples
     records = avif_maps.fixture_records()
     bad = []
-    for name in (avif_maps.AVIF_SKY, avif_maps.AVIF_GROUND):
+    for name in (sky, ground):
         data, px, secs = avif_maps.decode(name)
         ok = avif_maps.held(name, data, px, records[name])
-        print(f"AVIF maps (a): {name} {px.shape[1]}x{px.shape[0]}: "
+        print(f"{what} (a): {name} {px.shape[1]}x{px.shape[0]}: "
               f"{len(data)} bytes, decode {secs:.3f} s "
               f"({1e6 * secs / (px.shape[0] * px.shape[1]):.3f} us/pixel); "
               f"bytes and samples {'at' if ok else 'NOT at'} images.json's "
               "hashes (PIL's)", flush=True)
         if not ok:
             bad.append(name)
-        if name == avif_maps.AVIF_SKY and secs >= AVIF_SKY_BAR_S:
+        if name == sky and secs >= AVIF_SKY_BAR_S:
             bad.append(f"{name} in {secs:.2f} s (bar {AVIF_SKY_BAR_S} s)")
     if bad:
-        raise AssertionError(f"AVIF maps: wrong or slow decodes {bad}")
+        raise AssertionError(f"{what}: wrong or slow decodes {bad}")
     # (b) the frame: the AVIF sky and ground by the CLI
     work = Path(tempfile.mkdtemp())
     try:
-        for name in (avif_maps.AVIF_SKY, avif_maps.AVIF_GROUND):
+        for name in (sky, ground):
             shutil.copy(IMAGE_FIXTURES / name, work / name)
-        return maps_frame("AVIF maps (b)", dev, keep, work,
-                          avif_maps.AVIF_SKY, avif_maps.AVIF_GROUND,
+        return maps_frame(f"{what} (b)", dev, keep, work, sky, ground,
                           uniform_mean, card)
     finally:
         shutil.rmtree(work)
+
+
+def phase_avif_maps(dev, keep, uniform_mean, card):
+    """Phase 39 (see the module docstring); keep holds phase 32's medium
+    file."""
+    return avif_maps_phase("AVIF maps", ("AVIF_SKY", "AVIF_GROUND"), dev,
+                           keep, uniform_mean, card)
+
+
+def phase_avif_tools_maps(dev, keep, uniform_mean, card):
+    """Phase 40 (see the module docstring); keep holds phase 32's medium
+    file."""
+    return avif_maps_phase("AVIF tools maps", ("TOOLS_SKY", "TOOLS_GROUND"),
+                           dev, keep, uniform_mean, card)
 
 
 def timed(name, fn, *args):
@@ -5198,6 +5229,10 @@ def main():
          march_rec["avif_maps_max_abs_err"]) = timed(
             "AVIF maps", phase_avif_maps, dev, keep.name, uniform_mean,
             card)
+        (march_rec["avif_tools_maps_launches"],
+         march_rec["avif_tools_maps_max_abs_err"]) = timed(
+            "AVIF tools maps", phase_avif_tools_maps, dev, keep.name,
+            uniform_mean, card)
         parent_end = time.time()
         keep.cleanup()
         side_out = timed("side process", side.finish)

@@ -102,6 +102,15 @@ def scan(w, h):
     return out
 
 
+# the specification's Cdef_Directions ((dy, dx) of each direction's two
+# taps) and Cdef_Uv_Dir[subsampling_x][subsampling_y][direction]
+CDEF_DIRECTIONS = [[(-1, 1), (-2, 2)], [(0, 1), (-1, 2)], [(0, 1), (0, 2)],
+                   [(0, 1), (1, 2)], [(1, 1), (2, 2)], [(1, 0), (2, 1)],
+                   [(1, 0), (2, 0)], [(1, 0), (2, -1)]]
+CDEF_UV_DIR = [[[0, 1, 2, 3, 4, 5, 6, 7], [1, 2, 2, 2, 3, 4, 6, 0]],
+               [[7, 0, 2, 4, 5, 6, 6, 6], [0, 1, 2, 3, 4, 5, 6, 7]]]
+
+
 def build(lib) -> dict:
     t = {}
     # --- default CDFs (libaom's copies, dav1d's where aom's are folded)
@@ -184,6 +193,44 @@ def build(lib) -> dict:
     t["cos128"] = np.array(cos, np.int32)
     if lib.arr(0x4515AC, np.int32, (4,)).tolist() != [1321, 2482, 3344, 3803]:
         raise SystemExit("av1_tables: sinpi")
+    # CDEF (spec 7.15): the direction offsets (dy, dx) of Cdef_Directions
+    # and Cdef_Uv_Dir, held to dav1d's copies (offsets in a 12-wide
+    # buffer; the directions of 4:2:2 and 4:4:0) and libaom's (144 wide)
+    dirs = np.array(CDEF_DIRECTIONS, np.int8)
+    pad = [6, 7] + list(range(8)) + [0, 1]
+    if (lib.arr(0x471840, np.int8, (12, 2)).tolist()
+            != [[dy * 12 + dx for dy, dx in CDEF_DIRECTIONS[d]] for d in pad]
+            or lib.arr(0x44D7B0, np.int32, (12, 2)).tolist()
+            != [[dy * 144 + dx for dy, dx in CDEF_DIRECTIONS[d]]
+                for d in pad]):
+        raise SystemExit("av1_tables: CDEF directions")
+    t["cdef_directions"] = dirs
+    uv = np.array(CDEF_UV_DIR, np.uint8)
+    if (lib.arr(0x4854D0, np.uint8, (2, 8)).tolist() != [uv[0][0].tolist(),
+                                                       uv[1][0].tolist()]
+            or lib.arr(0x44D780, np.int32, (8,)).tolist() != uv[1][0].tolist()
+            or lib.arr(0x44D760, np.int32, (8,)).tolist() != uv[0][1].tolist()
+            or uv[0][0].tolist() != uv[1][1].tolist()):
+        raise SystemExit("av1_tables: Cdef_Uv_Dir")
+    t["cdef_uv_dir"] = uv
+    div = lib.arr(0x44D820, np.int32, (9,))
+    if div.tolist() != [0, 840, 420, 280, 210, 168, 140, 120, 105]:
+        raise SystemExit("av1_tables: CDEF Div_Table")
+    t["cdef_div_table"] = div
+    # Quantizer_Matrix (spec 7.12.3): libaom's iwt_matrix_ref, levels 0-14
+    # (15 is flat), luma and chroma, each the 14 coded sizes of at most
+    # 32x32 one after another (3,344 weights)
+    qm = lib.arr(0x3E3D20, np.uint8, (15, 2, 3344))
+    if (qm[0, 0, :16].tolist() != [32, 43, 73, 97, 43, 67, 94, 110, 73, 94,
+                                   137, 150, 97, 110, 150, 200]
+            or qm[14].min() < 30 or qm[14].max() > 32
+            or lib.arr(0x3E3D20 + qm.size, np.uint8, (4,)).tolist()
+            != [32, 24, 14, 11]):     # libaom's wt_matrix_ref follows
+        raise SystemExit("av1_tables: Quantizer_Matrix")
+    t["quantizer_matrix"] = qm
+    # the delta q CDF (Default_Delta_Q_Cdf)
+    t["delta_q"] = aom_cdfs(lib, 0x4427C0, (), 5, 4)
+    _spec_probe(t["delta_q"], (), [28160, 32120, 32677])
     # scans of every coded size: the library holds each (its raster or
     # its transpose) among its copies
     sizes = [(4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16),
@@ -204,8 +251,8 @@ _CTYPE = {np.uint16: "uint16_t", np.int16: "int16_t", np.uint8: "uint8_t",
 def render(t: dict) -> str:
     lines = ["// Generated by scripts/av1_tables.py: the AV1 intra decoder's",
              "// tables (default CDFs as 32768 - cdf, a 0 and a counter per",
-             "// CDF; quantizer lookups; prediction and filter constants;",
-             "// scan orders).  Do not edit.",
+             "// CDF; quantizer lookups and matrices; prediction and filter",
+             "// constants; scan orders).  Do not edit.",
              "#pragma once", "#include <cstdint>", ""]
     for name, a in t.items():
         a = np.asarray(a)

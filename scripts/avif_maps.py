@@ -10,18 +10,25 @@ held to images.json's hashes of PIL's decode.
     39's ground texture;
   - six 128x96 crops of the ground (AVIF_SMALL): RGBA with premultiplied
     alpha, 4:4:4, 4:0:0, limited range, lossless (quality 100) and speed
-    10, decoded by chip_smoke.py's side process (phase 37).
+    10, decoded by chip_smoke.py's side process (phase 37);
+  - TOOL_FILES, the tools common encoders use: phase 40's grid sky of
+    two 1024x1024 tiles with CDEF, quantizer matrices and delta q
+    (TOOLS_SKY) and 4:2:2 BT.709 ground with CDEF (TOOLS_GROUND), and
+    eight 128x96 crops of one tool each (TOOL_SMALL, phase 37).
 
 scripts/make_image_fixtures.py --avif writes them (make_files) and their
-records; tests/test_torch_image_formats_avif.py holds them to PIL.
+records; tests/test_torch_image_formats_avif.py and
+tests/test_torch_image_formats_avif_tools.py hold them to PIL.
 
     python3 scripts/avif_maps.py      # decode each fixture, print seconds
+                                      # and the AV1 stage's
 """
 from __future__ import annotations
 
 import hashlib
 import io
 import json
+import struct
 import time
 from pathlib import Path
 
@@ -47,6 +54,43 @@ AVIF_FILES = {
 }
 AVIF_SMALL = tuple(n for n in AVIF_FILES if n not in (AVIF_SKY, AVIF_GROUND))
 
+# The AV1 and HEIF tools common encoders use (chip_smoke.py phase 40 and
+# its crops): name: (source, recipe).  A recipe is PIL's save parameters
+# ("pil_save") and what the script does to PIL's file: "grid" (rows,
+# columns, width, height: PIL saves each tile, compose_grid joins them),
+# "nclx_matrix" (the colr box's matrix_coefficients set to it) or
+# "frames" (PIL's save_all of that many crops side by side in the
+# ground).  "crop128" is the ground's first 128x128.
+TOOLS = {"enable-cdef": "1", "enable-qm": "1", "deltaq-mode": "2"}
+TOOLS_SKY = "sky_2048x1024_grid_cdef.avif"
+TOOLS_GROUND = "ground_1024x512_422_bt709.avif"
+TOOL_FILES = {
+    TOOLS_SKY: ("sky", {"pil_save": {"quality": 75, "speed": 6,
+                                     "advanced": TOOLS},
+                        "grid": [1, 2, 2048, 1024]}),
+    TOOLS_GROUND: ("ground", {"pil_save": {"subsampling": "4:2:2",
+                                           "advanced": {"enable-cdef": "1"}},
+                              "nclx_matrix": 1}),
+    "ground_128x96_cdef.avif": ("crop", {"pil_save": {
+        "quality": 60, "speed": 4, "advanced": {"enable-cdef": "1"}}}),
+    "ground_128x96_qm.avif": ("crop", {"pil_save": {
+        "advanced": {"enable-qm": "1"}}}),
+    "ground_128x96_deltaq.avif": ("crop", {"pil_save": {
+        "advanced": {"deltaq-mode": "2"}}}),
+    "ground_128x96_422.avif": ("crop", {"pil_save": {
+        "subsampling": "4:2:2"}}),
+    "ground_128x96_bt709.avif": ("crop", {"pil_save": {},
+                                          "nclx_matrix": 1}),
+    "ground_128x96_bt2020_limited.avif": ("crop", {
+        "pil_save": {"range": "limited"}, "nclx_matrix": 9}),
+    "ground_128x96_grid.avif": ("crop128", {"pil_save": {},
+                                            "grid": [2, 2, 128, 96]}),
+    "ground_128x96_sequence.avif": ("ground", {"pil_save": {},
+                                               "frames": 2}),
+}
+TOOL_SMALL = tuple(n for n in TOOL_FILES if n not in (TOOLS_SKY,
+                                                       TOOLS_GROUND))
+
 
 def alpha(h, w):
     """The RGBA fixture's alpha: a ramp with a transparent and an opaque
@@ -63,22 +107,195 @@ def sources(sky_px, ground_px):
     crop = np.ascontiguousarray(ground_px[:h, :w, :3])
     return {"sky": sky_px[..., :3], "ground": ground_px[..., :3],
             "crop": crop,
+            "crop128": np.ascontiguousarray(ground_px[:w, :w, :3]),
             "rgba": np.concatenate([crop, alpha(h, w)[..., None]], -1)}
 
 
-def make_files(sky_px, ground_px):
-    """{name: bytes} of PIL's AVIF files (needs PIL)."""
+def pil_file(px, **kw):
+    """PIL's AVIF file of uint8 (h, w, 3 or 4) samples (needs PIL)."""
     from PIL import Image
 
+    buf = io.BytesIO()
+    Image.fromarray(px, "RGBA" if px.shape[-1] == 4 else "RGB").save(
+        buf, "AVIF", **kw)
+    return buf.getvalue()
+
+
+def set_nclx_matrix(data, matrix):
+    """data with its (first) colr nclx box's matrix_coefficients set."""
+    i = data.index(b"colrnclx") + 12
+    return data[:i] + struct.pack(">H", matrix) + data[i + 2:]
+
+
+def pil_sequence(frames, **kw):
+    """PIL's save_all AVIF file of the frames (needs PIL)."""
+    from PIL import Image
+
+    ims = [Image.fromarray(f) for f in frames]
+    buf = io.BytesIO()
+    ims[0].save(buf, "AVIF", save_all=True, append_images=ims[1:], **kw)
+    return buf.getvalue()
+
+
+def grid_file(px, rows, cols, width, height, **kw):
+    """px cut into rows x cols tiles, each saved by PIL with kw, composed
+    into a grid cropped to width x height."""
+    th, tw = px.shape[0] // rows, px.shape[1] // cols
+    return compose_grid([pil_file(np.ascontiguousarray(
+        px[r * th:(r + 1) * th, c * tw:(c + 1) * tw]), **kw)
+        for r in range(rows) for c in range(cols)], rows, cols, width,
+        height, premultiplied=kw.get("alpha_premultiplied", False))
+
+
+def tool_file(px, recipe):
+    """The file of one TOOL_FILES recipe from its source samples."""
+    kw = recipe["pil_save"]
+    if "grid" in recipe:
+        return grid_file(px, *recipe["grid"], **kw)
+    if "frames" in recipe:
+        w, h = CROP
+        return pil_sequence([np.ascontiguousarray(px[:h, k * w:(k + 1) * w])
+                             for k in range(recipe["frames"])], **kw)
+    data = pil_file(px, **kw)
+    if "nclx_matrix" in recipe:
+        data = set_nclx_matrix(data, recipe["nclx_matrix"])
+    return data
+
+
+def recipe(name):
+    """A fixture's record of how it was made: PIL's save parameters, and
+    for TOOL_FILES what the script did to PIL's file."""
+    if name in AVIF_FILES:
+        return {"pil_save": AVIF_FILES[name][1]}
+    return TOOL_FILES[name][1]
+
+
+def make_files(sky_px, ground_px):
+    """{name: bytes} of every AVIF fixture (needs PIL)."""
     src = sources(sky_px, ground_px)
     out = {}
     for name, (which, kw) in AVIF_FILES.items():
-        buf = io.BytesIO()
-        px = src[which]
-        Image.fromarray(px, "RGBA" if px.shape[-1] == 4 else "RGB").save(
-            buf, "AVIF", **kw)
-        out[name] = buf.getvalue()
+        out[name] = pil_file(src[which], **kw)
+    for name, (which, rec) in TOOL_FILES.items():
+        out[name] = tool_file(src[which], rec)
     return out
+
+
+# ---------------------------------------------------------------- grids
+
+def _box(kind, payload):
+    return struct.pack(">I4s", 8 + len(payload), kind) + payload
+
+
+def _full(kind, version, flags, payload):
+    return _box(kind, bytes([version]) + flags.to_bytes(3, "big") + payload)
+
+
+def _items(data):
+    """The colour and alpha AV1 streams of one of PIL's still AVIF files,
+    each with its property boxes (whole, header included)."""
+    from acceleratedvolrenderer_tpu_torch.utils import avif
+
+    meta = next(avif._parse_meta(data, s, e)
+                for kind, s, e in avif._boxes(data, 0, len(data))
+                if kind == b"meta")
+    out = {}
+    alpha = {frm for k, frm, to in meta["iref"] if k == b"auxl"}
+    for iid in meta["items"]:
+        props = [data[s - 8:e] for kind, (s, e)
+                 in avif._item_props(data, meta, iid).items()
+                 if kind != b"ispe"]
+        out["alpha" if iid in alpha else "colour"] = (
+            avif._item_data(data, meta, iid), props)
+    return out
+
+
+def compose_grid(files, rows, cols, width, height, premultiplied=False):
+    """An AVIF file whose primary item is a `grid` of rows x cols tiles
+    cropped to width x height, as libavif writes a grid: the ImageGrid
+    payload in `idat` (construction method 1), the tiles hidden av01
+    items in `mdat` named by `dimg` in raster order, ispe on every item,
+    the colour properties on the grid, av1C on the tiles.  files: PIL's
+    still AVIF files of the tiles, row by row, all of one size; where they
+    have alpha, the alpha tiles make a second grid (auxl, and prem where
+    premultiplied)."""
+    from acceleratedvolrenderer_tpu_torch.utils import avif
+
+    tiles = [_items(f) for f in files]
+    first = avif.decode_avif(files[0])
+    th, tw = first.shape[:2]
+    planes = ["colour"] + (["alpha"] if "alpha" in tiles[0] else [])
+    n = rows * cols
+    # item ids: grids 1 (colour), 2 (alpha); tiles from 3 on
+    grid_ids = {pl: 1 + i for i, pl in enumerate(planes)}
+    tile_ids = {pl: [3 + i * n + k for k in range(n)]
+                for i, pl in enumerate(planes)}
+    big = width > 0xFFFF or height > 0xFFFF
+    payload = bytes([0, int(big), rows - 1, cols - 1]) + (
+        struct.pack(">II" if big else ">HH", width, height))
+    props, assoc = [], {}
+
+    def prop(raw, essential=False):
+        if raw not in props:
+            props.append(raw)
+        return (0x80 if essential else 0) | (props.index(raw) + 1)
+
+    def ispe(w, h):
+        return _full(b"ispe", 0, 0, struct.pack(">II", w, h))
+
+    for pl in planes:
+        tprops = tiles[0][pl][1]
+        grid_props = [p for p in tprops if p[4:8] != b"av1C"]
+        assoc[grid_ids[pl]] = [prop(ispe(width, height))] + [
+            prop(p, p[4:8] == b"auxC") for p in grid_props]
+        for k, t in enumerate(tiles):
+            assoc[tile_ids[pl][k]] = [prop(ispe(tw, th))] + [
+                prop(p, p[4:8] == b"av1C") for p in t[pl][1]
+                if p[4:8] in (b"av1C", b"pixi")]
+    order = [grid_ids[pl] for pl in planes] + [i for pl in planes
+                                               for i in tile_ids[pl]]
+    streams = {tile_ids[pl][k]: t[pl][0] for pl in planes
+               for k, t in enumerate(tiles)}
+
+    def meta(mdat_at):
+        infe = b"".join(_full(b"infe", 2, 0 if i in grid_ids.values() else 1,
+                              struct.pack(">HH", i, 0)
+                              + (b"grid" if i in grid_ids.values()
+                                 else b"av01") + b"\0") for i in order)
+        iloc, at, idat_at = [], mdat_at, 0
+        for i in order:
+            if i in grid_ids.values():
+                iloc.append(struct.pack(">HHHHII", i, 1, 0, 1, idat_at,
+                                        len(payload)))
+                idat_at += len(payload)
+            else:
+                iloc.append(struct.pack(">HHHHII", i, 0, 0, 1, at,
+                                        len(streams[i])))
+                at += len(streams[i])
+        refs = [_box(b"dimg", struct.pack(">HH", grid_ids[pl], n) + b"".join(
+            struct.pack(">H", i) for i in tile_ids[pl])) for pl in planes]
+        if "alpha" in grid_ids:
+            refs.append(_box(b"auxl", struct.pack(">HHH", 2, 1, 1)))
+            if premultiplied:
+                refs.append(_box(b"prem", struct.pack(">HHH", 1, 1, 2)))
+        ipma = struct.pack(">I", len(order)) + b"".join(
+            struct.pack(">HB", i, len(assoc[i])) + bytes(assoc[i])
+            for i in order)
+        return _full(b"meta", 0, 0, b"".join([
+            _full(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 13),
+            _full(b"pitm", 0, 0, struct.pack(">H", 1)),
+            _full(b"iloc", 1, 0, bytes([0x44, 0x00])
+                  + struct.pack(">H", len(order)) + b"".join(iloc)),
+            _full(b"iinf", 0, 0, struct.pack(">H", len(order)) + infe),
+            _full(b"iref", 0, 0, b"".join(refs)),
+            _box(b"iprp", _box(b"ipco", b"".join(props))
+                 + _full(b"ipma", 0, 0, ipma)),
+            _box(b"idat", payload * len(planes))]))
+
+    ftyp = _box(b"ftyp", b"avif" + b"\0" * 4 + b"avifmif1miaf")
+    head = len(ftyp) + len(meta(0)) + 8
+    mdat = b"".join(streams[i] for i in order if i in streams)
+    return ftyp + meta(head) + _box(b"mdat", mdat)
 
 
 def fixture_records():
@@ -116,12 +333,29 @@ def decode_fixtures(names=AVIF_SMALL):
     return out
 
 
+def av1_seconds(name):
+    """Seconds of one fixture's AV1 stage alone: its primary item's planes
+    (each tile's C++ decode and, for a grid, the stitch); the rest of
+    decode()'s seconds are the container and the colour stage."""
+    from acceleratedvolrenderer_tpu_torch.utils import avif
+
+    data = (FIXTURES / name).read_bytes()
+    meta = next(avif._parse_meta(data, s, e)
+                for kind, s, e in avif._boxes(data, 0, len(data))
+                if kind == b"meta")
+    t = time.perf_counter()
+    avif._image_planes(data, meta, meta["pitm"])
+    return time.perf_counter() - t
+
+
 def main():
     import time_image_decode as tid
 
     print(f"host CPU: {tid.cpu_line()}")
-    for name, secs, shape, ok in decode_fixtures(tuple(AVIF_FILES)):
-        print(f"{name}: {tuple(shape)} decoded in {secs:.4f} s, "
+    names = tuple(AVIF_FILES) + tuple(TOOL_FILES)
+    for name, secs, shape, ok in decode_fixtures(names):
+        print(f"{name}: {tuple(shape)} decoded in {secs:.4f} s (the AV1 "
+              f"stage {av1_seconds(name):.4f} s), "
               f"{'equal to PIL' if ok else 'WRONG'}")
 
 

@@ -77,11 +77,15 @@ ground's decoded samples as FTEX DXT1), each under its name with
 `rebuilt_by` and the SHA-256 of its bytes and of PIL's samples.
 
 It writes the AVIF fixtures of scripts/avif_maps.py (chip_smoke.py phase
-39's sky and ground, and six 128x96 crops for phase 37), each of PIL's
-AVIF writer on the WebP fixtures' decoded samples, recorded with
-`read_by` (utils/avif.py), `pil_save` (the save parameters), the SHA-256
-of its bytes and of PIL's samples and the shape.  With --avif it writes
-only these and merges their records into the existing images.json:
+39's sky and ground and six 128x96 crops for phase 37; phase 40's grid
+sky and 4:2:2 ground and eight crops of one tool each), each of PIL's
+AVIF writer on the WebP fixtures' decoded samples (phase 40's composed
+into a grid, given another matrix or saved as a sequence by the
+script), recorded with `read_by` (utils/avif.py), `pil_save` (the save
+parameters) and what the script did (`grid`, `nclx_matrix`, `frames`),
+the SHA-256 of its bytes and of PIL's samples and the shape.  With
+--avif it writes only these and merges their records into the existing
+images.json:
 
     python3 scripts/make_image_fixtures.py --avif
 
@@ -459,7 +463,7 @@ def avif_records(sky_webp, ground_webp):
         (OUT / name).write_bytes(data)
         a = np.asarray(Image.open(io.BytesIO(data)))
         out[name] = {"read_by": avif_maps.READ_BY,
-                     "pil_save": avif_maps.AVIF_FILES[name][1],
+                     **avif_maps.recipe(name),
                      "sha256_of_bytes": hashlib.sha256(data).hexdigest(),
                      "sha256_of_pil_samples": hashlib.sha256(
                          np.ascontiguousarray(a).tobytes()).hexdigest(),

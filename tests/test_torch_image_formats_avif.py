@@ -6,14 +6,20 @@ Every committed AVIF fixture, and files PIL's writer makes here from
 seeded numpy images across its parameters (quality, speed 0-10 and so
 both loop-restoration filters, subsampling, range, tiles, modes, alpha
 premultiplied or not, ICC profile, EXIF orientation, sizes whose blocks
-cross the frame's edge), decode with max |diff| 0.  Files that use an AV1
-tool PIL's writer does not make by its parameters raise a ValueError
-naming it; read_image equals the JAX package's; and no module of the port
-imports PIL or reads Pillow's bundled libraries.  The 32x24 frame under
-an AVIF sky over an AVIF ground is test_torch_image_formats_avif_scene.py.
+cross the frame's edge), decode with max |diff| 0.  Files that use a tool
+the port does not read (film grain, palette and intra block copy,
+segmentation, superres, more than 8 bits, non-uniform tiles, block-level
+delta lf, construction method 2, matrices other than BT.601, BT.709 and
+BT.2020) raise a ValueError naming it; read_image equals the JAX
+package's; and no module of the port imports PIL or reads Pillow's
+bundled libraries.  The tools common encoders use (4:2:2, CDEF, quantizer
+matrices, delta q, BT.709 / BT.2020, grids, sequences) are
+test_torch_image_formats_avif_tools.py; the 32x24 frame under an AVIF
+sky over an AVIF ground is test_torch_image_formats_avif_scene.py.
 """
 import hashlib
 import io
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -214,41 +220,43 @@ def _superres(data):
     return _flip(out, fbits["render_and_frame_size_different"])
 
 
-def _grid(data):
-    meta = _meta(data)
-    i = data.index(b"av01", data.index(b"iinf"))
-    assert meta["items"][meta["pitm"]] == b"av01"
-    return data[:i] + b"grid" + data[i + 4:]
-
-
-def _sequence():
-    frames = [Image.fromarray(_image(32, 48, seed=s)) for s in (1, 2)]
-    buf = io.BytesIO()
-    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:])
-    return buf.getvalue()
-
-
 def _base():
     return _save(Image.fromarray(_image(64, 80)))
 
 
+def _delta_lf():
+    """A delta q file with delta_lf_present set."""
+    data = _save(Image.fromarray(_image(64, 80)),
+                 advanced={"deltaq-mode": "2"})
+    return _flip(data, _bits(data)[1]["delta_lf_present"])
+
+
+def _twelve_bit():
+    """The base file's sequence header made profile 2 at 12 bits: the
+    profile's bits, high_bitdepth and the bit after it (twelve_bit)."""
+    sbits = _bits(_base())[0]
+    data = _flip(_base(), sbits["seq_profile"] + 1)     # seq_profile 2
+    data = _flip(data, sbits["high_bitdepth"])
+    return _flip(data, sbits["high_bitdepth"] + 1)
+
+
+def _grid_method_2():
+    """A grid whose ImageGrid item says construction method 2."""
+    px = _image(128, 128, seed=3)
+    data = avif_maps.grid_file(px, 2, 2, 128, 128)
+    i = data.index(struct.pack(">HHHH", 1, 1, 0, 1), data.index(b"iloc"))
+    return data[:i] + struct.pack(">HH", 1, 2) + data[i + 4:]
+
+
 # case: (the file, the words of the ValueError)
 REFUSED = {
-    # (aom leaves CDEF's strengths at 0 on some images: this one it uses)
-    "cdef": (lambda: _save(Image.fromarray(_image(64, 80, seed=2)),
-                           advanced={"enable-cdef": "1"}), "CDEF"),
-    "quantizer_matrices": (lambda: _save(Image.fromarray(_image(64, 80)),
-                                         advanced={"enable-qm": "1"}),
-                           "quantizer matrices"),
     "film_grain": (lambda: _save(Image.fromarray(_image(64, 80)),
                                  advanced={"film-grain-test": "1"}),
                    "film grain"),
     "screen_content": (lambda: _save(Image.fromarray(_image(64, 80)),
                                      advanced={"tune-content": "screen"}),
                        "palette, intra block copy"),
-    "block_delta_q": (lambda: _save(Image.fromarray(_image(64, 80)),
-                                    advanced={"deltaq-mode": "2"}),
-                      "block-level delta q"),
+    "block_delta_lf": (_delta_lf, "block-level delta lf"),
     "segmentation": (lambda: _flip(_base(), _bits(_base())[1][
         "segmentation_enabled"]), "segmentation"),
     "superres": (lambda: _superres(_base()), "superres"),
@@ -256,8 +264,10 @@ REFUSED = {
         "high_bitdepth"]), "more than 8 bits"),
     "non_uniform_tiles": (lambda: _flip(_base(), _bits(_base())[1][
         "uniform_tile_spacing_flag"], 0), "non-uniform tile spacing"),
-    "grid_item": (lambda: _grid(_base()), "grid item"),
-    "image_sequence": (_sequence, r"image sequence \(moov\)"),
+    "twelve_bit": (_twelve_bit, "12-bit AV1"),
+    "matrix_4": (lambda: avif_maps.set_nclx_matrix(_base(), 4),
+                 "matrix_coefficients 4"),
+    "grid_construction_method_2": (_grid_method_2, "construction method 2"),
 }
 
 
@@ -273,8 +283,7 @@ def test_refused_tools_are_named(case, tmp_path):
 def test_pil_reads_the_advanced_files_the_port_refuses():
     """The refusals are of files PIL reads: the port leaves them, it does
     not misread them."""
-    for case in ("cdef", "quantizer_matrices", "film_grain",
-                 "screen_content", "block_delta_q"):
+    for case in ("film_grain", "screen_content", "matrix_4"):
         assert _pil(REFUSED[case][0]()).shape == (64, 80, 3)
 
 
@@ -303,7 +312,8 @@ def test_committed_fixtures_hashes():
     """Every committed AVIF fixture: its bytes and PIL's samples at
     images.json's records, and the port's decode equal to PIL's."""
     recs = _records()
-    assert sorted(recs) == sorted(avif_maps.AVIF_FILES)
+    assert sorted(recs) == sorted({**avif_maps.AVIF_FILES,
+                                   **avif_maps.TOOL_FILES})
     for name, rec in recs.items():
         data = (FIXTURES / name).read_bytes()
         assert hashlib.sha256(data).hexdigest() == rec["sha256_of_bytes"]
@@ -311,7 +321,7 @@ def test_committed_fixtures_hashes():
         assert list(want.shape) == rec["shape"]
         assert hashlib.sha256(want.tobytes()).hexdigest() == rec[
             "sha256_of_pil_samples"]
-        assert rec["pil_save"] == avif_maps.AVIF_FILES[name][1]
+        assert rec["pil_save"] == avif_maps.recipe(name)["pil_save"]
         _same_as_pil(data, name)
 
 
