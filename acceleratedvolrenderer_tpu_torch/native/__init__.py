@@ -389,13 +389,44 @@ def av1_library():
         return lib
 
 
+def _grain_params(g) -> list:
+    """film_grain_params (utils/avif.py's frame["grain"], None where the
+    frame applies none) in av1_dec.cpp's P_FG_* layout: apply, seed, the
+    luma points (14 value, scaling pairs), chroma_scaling_from_luma, the
+    Cb and Cr points (10 pairs each), the scaling shift, the AR lag, the
+    AR coefficients (24 luma, 25 Cb, 25 Cr), the AR shift, the grain
+    scale shift, the Cb and Cr multipliers and offsets, overlap_flag and
+    clip_to_restricted_range."""
+    if g is None:
+        return [0] * 160
+
+    def points(pts, n):
+        flat = [v for p in pts for v in p]
+        return [len(pts)] + flat + [0] * (2 * n - len(flat))
+
+    def pad(v, n):
+        return list(v) + [0] * (n - len(v))
+
+    return ([1, g["seed"]] + points(g["y"], 14) + [g["from_luma"]]
+            + points(g["cb"], 10) + points(g["cr"], 10)
+            + [g["scaling_shift"], g["lag"]] + pad(g["ar_y"], 24)
+            + pad(g["ar_cb"], 25) + pad(g["ar_cr"], 25)
+            + [g["ar_shift"], g["grain_scale_shift"]]
+            + [g[k] for k in ("cb_mult", "cb_luma_mult", "cb_offset",
+                              "cr_mult", "cr_luma_mult", "cr_offset")]
+            + [g["overlap"], g["clip"]])
+
+
 def av1_decode(data: bytes, seq: dict, frame: dict, tiles, stats=None):
-    """The (Y, U, V) uint8 planes of an AV1 intra frame (av1_dec.cpp);
-    U and V are None for 4:0:0.  seq, frame and tiles are
-    utils/avif.py's parse_av1.  A dict given as stats gets the decoder's
-    counts: `delta_q_blocks` (blocks whose delta_qindex is not 0) and
-    `cdef_blocks` (64x64 blocks that read a cdef_idx, where CDEF has a
-    strength that is not 0)."""
+    """The (Y, U, V) uint8 planes of an AV1 intra frame (av1_dec.cpp),
+    film grain applied where the frame asks for it; U and V are None for
+    4:0:0.  seq, frame and tiles are utils/avif.py's parse_av1.  A dict
+    given as stats gets the decoder's counts: `delta_q_blocks` (blocks
+    whose delta_qindex is not 0), `cdef_blocks` (64x64 blocks that read
+    a cdef_idx, where CDEF has a strength that is not 0),
+    `palette_blocks` (blocks predicted from a palette in some plane),
+    `palette_uv_blocks` (those with a chroma palette) and
+    `intrabc_blocks` (blocks copied by intra block copy)."""
     lib = av1_library()
     w, h = frame["w"], frame["h"]
     ssx, ssy = seq["ss"]
@@ -410,7 +441,9 @@ def av1_decode(data: bytes, seq: dict, frame: dict, tiles, stats=None):
          frame["cdef"], frame["cdef_damping"], frame["cdef_bits"],
          *frame["cdef_y_pri"], *frame["cdef_y_sec"], *frame["cdef_uv_pri"],
          *frame["cdef_uv_sec"], *frame["qm_level"],
-         frame["delta_q_present"], frame["delta_q_res"]], np.int32)
+         frame["delta_q_present"], frame["delta_q_res"], frame["screen"],
+         frame["intrabc"], int(seq["cicp"][2] == 0),
+         *_grain_params(frame["grain"])], np.int32)
     cols = np.array(frame["col_starts"], np.int32)
     rows = np.array(frame["row_starts"], np.int32)
     t = np.array(tiles, np.int64).reshape(-1, 3)
@@ -418,7 +451,7 @@ def av1_decode(data: bytes, seq: dict, frame: dict, tiles, stats=None):
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
     u = np.zeros((ch, cw), np.uint8)
     v = np.zeros((ch, cw), np.uint8)
-    counts = np.zeros(2, np.int32)
+    counts = np.zeros(5, np.int32)
     err = ctypes.create_string_buffer(256)
     r = lib.avrt_av1_decode(data, len(data), _ptr(params), _ptr(cols),
                             _ptr(rows), _ptr(t), len(t), _ptr(y), _ptr(u),
@@ -427,7 +460,10 @@ def av1_decode(data: bytes, seq: dict, frame: dict, tiles, stats=None):
         raise ValueError(f"avif: AV1 decode failed: {err.value.decode()}")
     if stats is not None:
         stats.update(delta_q_blocks=int(counts[0]),
-                     cdef_blocks=int(counts[1]))
+                     cdef_blocks=int(counts[1]),
+                     palette_blocks=int(counts[2]),
+                     intrabc_blocks=int(counts[3]),
+                     palette_uv_blocks=int(counts[4]))
     if seq["mono"]:
         return y, None, None
     return y, u, v

@@ -2,14 +2,16 @@
 // the AV1 bitstream specification (sections 5.11 and 7): the symbol
 // decoder with CDF adaptation, the partition tree, every intra
 // prediction mode (DC, directional with the edge filter and upsampling,
-// SMOOTH*, PAETH, filter intra, CfL), the coefficient syntax, the
-// inverse transforms (DCT 4-64, ADST 4-16, identity, Walsh-Hadamard),
-// quantizer matrices and block-level delta q, the deblocking filter,
-// CDEF and loop restoration (Wiener, self-guided), for 4:2:0, 4:2:2,
-// 4:4:4 and 4:0:0.  utils/avif.py parses the OBUs and the frame header
-// and refuses the tools this decoder does not implement (segmentation,
-// block-level delta lf, palette, intra block copy, superres, film grain,
-// more than 8 bits).
+// SMOOTH*, PAETH, filter intra, CfL), the screen content tools (palette
+// prediction and intra block copy, with its motion vector stack, the
+// inter transform sets and the transform tree), the coefficient syntax,
+// the inverse transforms (DCT 4-64, ADST and FLIPADST 4-16, identity,
+// Walsh-Hadamard), quantizer matrices and block-level delta q, the
+// deblocking filter, CDEF, loop restoration (Wiener, self-guided) and
+// film grain synthesis (as dav1d applies it), for 4:2:0, 4:2:2, 4:4:4
+// and 4:0:0.  utils/avif.py parses the OBUs and the frame header and
+// refuses the tools this decoder does not implement (segmentation,
+// block-level delta lf, superres, more than 8 bits).
 //
 // Entry point: avrt_av1_decode(data, size, params, col_starts,
 // row_starts, tiles, ntiles, y, u, v, stats, err, errlen) -> 0 or -1 with
@@ -80,7 +82,18 @@ const int MODE_TO_TXFM[14] = {
     DCT_DCT,   ADST_DCT,  DCT_ADST,  DCT_DCT,   ADST_ADST, ADST_DCT, DCT_ADST,
     DCT_ADST,  ADST_DCT,  ADST_ADST, ADST_DCT,  DCT_ADST,  ADST_ADST, DCT_DCT};
 
-enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2 };
+// inter sets: 1 all 16 types, 2 the 12 without 1-D ADSTs, 3 DCT and IDTX
+enum { TX_SET_DCTONLY, TX_SET_INTRA_1, TX_SET_INTRA_2, TX_SET_INTER_3 = 3 };
+const int INTER_SET1_INV[16] = {
+    IDTX,         V_DCT,         H_DCT,         V_ADST,
+    H_ADST,       V_FLIPADST,    H_FLIPADST,    DCT_DCT,
+    ADST_DCT,     DCT_ADST,      FLIPADST_DCT,  DCT_FLIPADST,
+    ADST_ADST,    FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const int INTER_SET2_INV[12] = {
+    IDTX,     V_DCT,        H_DCT,        DCT_DCT,
+    ADST_DCT, DCT_ADST,     FLIPADST_DCT, DCT_FLIPADST,
+    ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const int INTER_SET3_INV[2] = {IDTX, DCT_DCT};
 enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 
@@ -94,10 +107,21 @@ enum {
   P_CDEF, P_CDEF_DAMPING, P_CDEF_BITS, P_CDEF_Y_PRI, P_CDEF_Y_SEC = P_CDEF_Y_PRI + 8,
   P_CDEF_UV_PRI = P_CDEF_Y_SEC + 8, P_CDEF_UV_SEC = P_CDEF_UV_PRI + 8,
   P_QM_LEVEL = P_CDEF_UV_SEC + 8, P_DELTA_Q_PRESENT = P_QM_LEVEL + 3,
-  P_DELTA_Q_RES, P_COUNT
+  P_DELTA_Q_RES, P_SCREEN, P_INTRABC, P_MC_IDENTITY,
+  // film_grain_params (native/__init__.py's _grain_params)
+  P_FG_APPLY, P_FG_SEED, P_FG_NUM_Y, P_FG_Y, P_FG_FROM_LUMA = P_FG_Y + 28,
+  P_FG_NUM_CB, P_FG_CB, P_FG_NUM_CR = P_FG_CB + 20, P_FG_CR,
+  P_FG_SCALING_SHIFT = P_FG_CR + 20, P_FG_LAG, P_FG_AR_Y,
+  P_FG_AR_CB = P_FG_AR_Y + 24, P_FG_AR_CR = P_FG_AR_CB + 25,
+  P_FG_AR_SHIFT = P_FG_AR_CR + 25, P_FG_GRAIN_SCALE_SHIFT, P_FG_CB_MULT,
+  P_FG_CB_LUMA_MULT, P_FG_CB_OFFSET, P_FG_CR_MULT, P_FG_CR_LUMA_MULT,
+  P_FG_CR_OFFSET, P_FG_OVERLAP, P_FG_CLIP, P_COUNT
 };
-// stats: blocks whose delta_qindex was not 0, 64x64 blocks with a cdef_idx
-enum { S_DELTA_Q_BLOCKS, S_CDEF_BLOCKS, S_COUNT };
+// stats: blocks whose delta_qindex was not 0, 64x64 blocks with a
+// cdef_idx, blocks with a palette (in any plane, in chroma), intra block
+// copy blocks
+enum { S_DELTA_Q_BLOCKS, S_CDEF_BLOCKS, S_PALETTE_BLOCKS, S_INTRABC_BLOCKS,
+       S_PALETTE_UV_BLOCKS, S_COUNT };
 
 int block_of(int w, int h) {
   for (int i = 0; i < BLOCK_SIZES; i++)
@@ -166,6 +190,23 @@ struct Cdfs {
   uint16_t base[5][2][42][5];
   uint16_t br[5][2][21][5];
   uint16_t delta_q[5];
+  uint16_t palette_y_mode[7][3][3];
+  uint16_t palette_uv_mode[2][3];
+  uint16_t palette_y_size[7][8];
+  uint16_t palette_uv_size[7][8];
+  uint16_t palette_y_color[7][5][9];
+  uint16_t palette_uv_color[7][5][9];
+  uint16_t intrabc[3];
+  uint16_t txfm_split[21][3];
+  uint16_t inter_set1[4][17];
+  uint16_t inter_set2[4][13];
+  uint16_t inter_set3[4][3];
+  // the motion vector context of intra block copy (MV_INTRABC_CONTEXT)
+  uint16_t mv_joint[5];
+  uint16_t mv_class[2][12];
+  uint16_t mv_sign[2][3];
+  uint16_t mv_class0_bit[2][3];
+  uint16_t mv_bit[2][10][3];
 
   void init(int base_q) {
     int q = base_q <= 20 ? 0 : base_q <= 60 ? 1 : base_q <= 120 ? 2 : 3;
@@ -200,6 +241,22 @@ struct Cdfs {
     CP(base, AV1_COEFF_BASE[q]);
     CP(br, AV1_COEFF_BR[q]);
     CP(delta_q, AV1_DELTA_Q);
+    CP(palette_y_mode, AV1_PALETTE_Y_MODE);
+    CP(palette_uv_mode, AV1_PALETTE_UV_MODE);
+    CP(palette_y_size, AV1_PALETTE_Y_SIZE);
+    CP(palette_uv_size, AV1_PALETTE_UV_SIZE);
+    CP(palette_y_color, AV1_PALETTE_Y_COLOR);
+    CP(palette_uv_color, AV1_PALETTE_UV_COLOR);
+    CP(intrabc, AV1_INTRABC);
+    CP(txfm_split, AV1_TXFM_SPLIT);
+    CP(inter_set1, AV1_INTER_TX_SET1);
+    CP(inter_set2, AV1_INTER_TX_SET2);
+    CP(inter_set3, AV1_INTER_TX_SET3);
+    CP(mv_joint, AV1_MV_JOINT);
+    CP(mv_class, AV1_MV_CLASS);
+    CP(mv_sign, AV1_MV_SIGN);
+    CP(mv_class0_bit, AV1_MV_CLASS0_BIT);
+    CP(mv_bit, AV1_MV_BIT);
 #undef CP
   }
 };
@@ -273,6 +330,12 @@ struct SymbolDecoder {
     int v = 0;
     for (int i = 0; i < n; i++) v = (v << 1) | boolean();
     return v;
+  }
+  // NS(n): a value below n in as few literal bits as it needs
+  int ns(int n) {
+    int w = log2i(n) + 1, m = (1 << w) - n;
+    int v = literal(w - 1);
+    return v < m ? v : (v << 1) - m + literal(1);
   }
 };
 
@@ -554,7 +617,7 @@ struct Decoder {
   std::vector<int> col_starts, row_starts;
   Plane frame[3];
   // per 4x4 luma position
-  std::vector<uint8_t> mi_size, y_mode, uv_mode, skips, tx_sizes;
+  std::vector<uint8_t> mi_size, y_mode, uv_mode, skips;
   std::vector<uint8_t> lf_tx[3];     // per 4x4 of each plane
   int lf_stride[3];
   // tile state
@@ -567,8 +630,21 @@ struct Decoder {
   int mi_row, mi_col, mi_sz, has_chroma, avail_u, avail_l, avail_u_chroma,
       avail_l_chroma, skip, ymode, uvmode, angle_y, angle_uv, use_fi, fi_mode,
       cfl_u, cfl_v, tx_size, max_luma_w, max_luma_h;
-  int tx_type_cur;
+  int tx_type_cur, plane_tx_type;
   int32_t quant[1024];
+  // screen content tools: per 4x4 luma position, whether the block is
+  // an intra block copy (an inter block), its DV (row, column in eighth
+  // samples), its InterTxSizes, the luma transform types, whether it
+  // has been decoded, and the palette sizes and colours (Y, U) the
+  // palette cache of later blocks reads
+  int screen, allow_intrabc;
+  std::vector<uint8_t> is_inter, inter_tx, tx_types, written;
+  std::vector<int32_t> mvs;
+  std::vector<uint8_t> pal_size[2], pal_colors[2];
+  // block: intra block copy and its DV, the palettes and colour maps
+  int use_intrabc, mv[2], pal_y, pal_uv;
+  uint8_t pal_colors_y[8], pal_colors_u[8], pal_colors_v[8];
+  uint8_t color_map_y[64][64], color_map_uv[64][64];
   // block-level delta q: the tile's CurrentQIndex, and whether this
   // superblock may still read a delta
   int cur_q, read_deltas;
@@ -650,11 +726,21 @@ struct Decoder {
       if (adjusted_tx(t) == t) off += TXW[t] * TXH[t];
     }
     std::memset(stats, 0, sizeof(stats));
+    screen = p[P_SCREEN];
+    allow_intrabc = p[P_INTRABC];
+    is_inter.assign(n, 0);
+    inter_tx.assign(n, 0);
+    tx_types.assign(n, 0);
+    written.assign(n, 0);
+    mvs.assign(2 * n, 0);
+    for (int k = 0; k < 2; k++) {
+      pal_size[k].assign(n, 0);
+      pal_colors[k].assign(8 * n, 0);
+    }
     mi_size.assign(n, 0);
     y_mode.assign(n, 0);
     uv_mode.assign(n, 0);
     skips.assign(n, 0);
-    tx_sizes.assign(n, 0);
     for (int pl = 0; pl < 3; pl++) {
       lr_type[pl] = pl < planes ? p[P_LR_TYPE + pl] : RESTORE_NONE;
       lr_size[pl] = p[P_LR_SIZE + pl];
@@ -848,7 +934,8 @@ struct Decoder {
       avail_u_chroma = avail_l_chroma = 0;
     }
     intra_frame_mode_info();
-    read_tx_size();
+    palette_tokens();
+    read_block_tx_size();
     if (skip) reset_block_context(bw4, bh4);
     for (int y = 0; y < bh4; y++) {
       if (r + y >= mi_rows) break;
@@ -858,10 +945,21 @@ struct Decoder {
         y_mode[i] = (uint8_t)ymode;
         if (has_chroma) uv_mode[i] = (uint8_t)uvmode;
         skips[i] = (uint8_t)skip;
-        tx_sizes[i] = (uint8_t)tx_size;
         mi_size[i] = (uint8_t)bsize;
+        is_inter[i] = (uint8_t)use_intrabc;
+        mvs[2 * i] = mv[0];
+        mvs[2 * i + 1] = mv[1];
+        written[i] = 1;
+        pal_size[0][i] = (uint8_t)pal_y;
+        pal_size[1][i] = (uint8_t)pal_uv;
+        std::memcpy(&pal_colors[0][8 * (size_t)i], pal_colors_y, 8);
+        std::memcpy(&pal_colors[1][8 * (size_t)i], pal_colors_u, 8);
       }
     }
+    stats[S_PALETTE_BLOCKS] += pal_y || pal_uv;
+    stats[S_INTRABC_BLOCKS] += use_intrabc;
+    stats[S_PALETTE_UV_BLOCKS] += pal_uv > 0;
+    if (use_intrabc) predict_intrabc();
     residual();
   }
 
@@ -873,6 +971,18 @@ struct Decoder {
     read_cdef();
     read_delta_qindex();
     read_deltas = 0;
+    use_intrabc = allow_intrabc ? sd.read(cdf.intrabc, 2) : 0;
+    mv[0] = mv[1] = 0;
+    pal_y = pal_uv = 0;
+    std::memset(pal_colors_y, 0, 8);
+    std::memset(pal_colors_u, 0, 8);
+    std::memset(pal_colors_v, 0, 8);
+    if (use_intrabc) {    // 5.11.7: an inter block whose reference is this frame
+      ymode = uvmode = DC_PRED;
+      angle_y = angle_uv = cfl_u = cfl_v = use_fi = 0;
+      intrabc_dv();
+      return;
+    }
     int above = avail_u ? y_mode[mi_idx(mi_row - 1, mi_col)] : (int)DC_PRED;
     int left = avail_l ? y_mode[mi_idx(mi_row, mi_col - 1)] : (int)DC_PRED;
     ymode = sd.read(cdf.kf_y_mode[INTRA_MODE_CTX[above]][INTRA_MODE_CTX[left]], 13);
@@ -903,8 +1013,10 @@ struct Decoder {
       if (mi_sz >= BLOCK_8X8 && is_directional(uvmode))
         angle_uv = sd.read(cdf.angle_delta[uvmode - V_PRED], 7) - 3;
     }
+    if (mi_sz >= BLOCK_8X8 && BW[mi_sz] <= 64 && BH[mi_sz] <= 64 && screen)
+      palette_mode_info();
     use_fi = 0;
-    if (p[P_FILTER_INTRA] && ymode == DC_PRED &&
+    if (p[P_FILTER_INTRA] && ymode == DC_PRED && pal_y == 0 &&
         std::max(BW[mi_sz], BH[mi_sz]) <= 32) {
       use_fi = sd.read(cdf.use_fi[mi_sz], 2);
       if (use_fi) fi_mode = sd.read(cdf.fi_mode, 5);
@@ -940,15 +1052,446 @@ struct Decoder {
     }
   }
 
-  void read_tx_size() {
+  // ------------------------------------------------------------ palette
+  // 5.11.46: the palette sizes and colours of a block of 8x8 to 64x64
+  void palette_mode_info() {
+    int bsize_ctx = log2i(BW[mi_sz] >> 2) + log2i(BH[mi_sz] >> 2) - 2;
+    if (ymode == DC_PRED) {
+      int ctx = 0;
+      if (avail_u && pal_size[0][mi_idx(mi_row - 1, mi_col)]) ctx++;
+      if (avail_l && pal_size[0][mi_idx(mi_row, mi_col - 1)]) ctx++;
+      if (sd.read(cdf.palette_y_mode[bsize_ctx][ctx], 2)) {
+        pal_y = sd.read(cdf.palette_y_size[bsize_ctx], 7) + 2;
+        read_palette_colors(0, pal_y, pal_colors_y);
+      }
+    }
+    if (has_chroma && uvmode == DC_PRED &&
+        sd.read(cdf.palette_uv_mode[pal_y > 0], 2)) {
+      pal_uv = sd.read(cdf.palette_uv_size[bsize_ctx], 7) + 2;
+      read_palette_colors(1, pal_uv, pal_colors_u);
+      if (sd.literal(1)) {       // delta_encode_palette_colors_v
+        int bits = 8 - 4 + sd.literal(2);
+        pal_colors_v[0] = (uint8_t)sd.literal(8);
+        for (int i = 1; i < pal_uv; i++) {
+          int d = sd.literal(bits);
+          if (d && sd.literal(1)) d = -d;
+          int v = pal_colors_v[i - 1] + d;
+          if (v < 0) v += 256;
+          if (v >= 256) v -= 256;
+          pal_colors_v[i] = clip1(v);
+        }
+      } else {
+        for (int i = 0; i < pal_uv; i++) pal_colors_v[i] = (uint8_t)sd.literal(8);
+      }
+    }
+  }
+
+  // Y (plane 0) or U colours: from the cache, then a literal, then
+  // ascending deltas (at least 1 for Y), sorted
+  void read_palette_colors(int plane, int n, uint8_t *colors) {
+    uint8_t cache[16];
+    int cache_n = palette_cache(plane, cache), idx = 0;
+    for (int i = 0; i < cache_n && idx < n; i++)
+      if (sd.literal(1)) colors[idx++] = cache[i];
+    if (idx < n) colors[idx++] = (uint8_t)sd.literal(8);
+    int bits = 0;
+    if (idx < n) bits = 8 - 3 + sd.literal(2);
+    for (; idx < n; idx++) {
+      int d = sd.literal(bits) + (plane == 0);
+      colors[idx] = clip1(colors[idx - 1] + d);
+      int range = 256 - colors[idx] - (plane == 0);
+      int ceil_log2 = range < 2 ? 0 : log2i(range - 1) + 1;
+      bits = std::min(bits, ceil_log2);
+    }
+    std::sort(colors, colors + n);
+  }
+
+  // get_palette_cache: the above (not across a 64-row edge) and left
+  // blocks' colours merged in order without repeats
+  int palette_cache(int plane, uint8_t *cache) {
+    int above_n = 0, left_n = 0;
+    const uint8_t *above = nullptr, *left = nullptr;
+    if (((mi_row * 4) % 64) && avail_u) {
+      int i = mi_idx(mi_row - 1, mi_col);
+      above_n = pal_size[plane][i];
+      above = &pal_colors[plane][8 * (size_t)i];
+    }
+    if (avail_l) {
+      int i = mi_idx(mi_row, mi_col - 1);
+      left_n = pal_size[plane][i];
+      left = &pal_colors[plane][8 * (size_t)i];
+    }
+    int ai = 0, li = 0, n = 0;
+    auto add = [&](int v) {
+      if (n == 0 || v != cache[n - 1]) cache[n++] = (uint8_t)v;
+    };
+    while (ai < above_n && li < left_n) {
+      int a = above[ai], l = left[li];
+      if (l < a) {
+        add(l);
+        li++;
+      } else {
+        add(a);
+        ai++;
+        if (l == a) li++;
+      }
+    }
+    for (; ai < above_n; ai++) add(above[ai]);
+    for (; li < left_n; li++) add(left[li]);
+    return n;
+  }
+
+  // 5.11.49: the colour index maps, in wavefront order
+  void palette_tokens() {
+    int bw = BW[mi_sz], bh = BH[mi_sz];
+    int onw = std::min(bw, (mi_cols - mi_col) * 4);
+    int onh = std::min(bh, (mi_rows - mi_row) * 4);
+    if (pal_y) color_map(color_map_y, pal_y, bw, bh, onw, onh, cdf.palette_y_color);
+    if (pal_uv) {
+      bw >>= ssx;
+      bh >>= ssy;
+      onw >>= ssx;
+      onh >>= ssy;
+      if (bw < 4) { bw += 2; onw += 2; }
+      if (bh < 4) { bh += 2; onh += 2; }
+      color_map(color_map_uv, pal_uv, bw, bh, onw, onh, cdf.palette_uv_color);
+    }
+  }
+
+  void color_map(uint8_t m[64][64], int n, int bw, int bh, int onw, int onh,
+                 uint16_t cdfs[7][5][9]) {
+    m[0][0] = (uint8_t)sd.ns(n);
+    for (int i = 1; i < onh + onw - 1; i++)
+      for (int j = std::min(i, onw - 1); j >= std::max(0, i - onh + 1); j--) {
+        int order[8];
+        int ctx = color_context(m, i - j, j, n, order);
+        m[i - j][j] = (uint8_t)order[sd.read(cdfs[n - 2][ctx], n)];
+      }
+    for (int i = 0; i < onh; i++)
+      for (int j = onw; j < bw; j++) m[i][j] = m[i][onw - 1];
+    for (int i = onh; i < bh; i++)
+      for (int j = 0; j < bw; j++) m[i][j] = m[onh - 1][j];
+  }
+
+  // get_palette_color_context: the neighbours' colours ranked by score,
+  // and the context of their hash
+  static int color_context(uint8_t m[64][64], int r, int c, int n, int *order) {
+    static const int HASH_CTX[9] = {-1, -1, 0, -1, -1, 4, 3, 2, 1};
+    int scores[8] = {0};
+    for (int i = 0; i < 8; i++) order[i] = i;
+    if (c > 0) scores[m[r][c - 1]] += 2;
+    if (r > 0 && c > 0) scores[m[r - 1][c - 1]] += 1;
+    if (r > 0) scores[m[r - 1][c]] += 2;
+    for (int i = 0; i < 3; i++) {
+      int best = scores[i], bi = i;
+      for (int j = i + 1; j < n; j++)
+        if (scores[j] > best) { best = scores[j]; bi = j; }
+      if (bi != i) {
+        int bo = order[bi];
+        for (int k = bi; k > i; k--) {
+          scores[k] = scores[k - 1];
+          order[k] = order[k - 1];
+        }
+        scores[i] = best;
+        order[i] = bo;
+      }
+    }
+    int ctx = HASH_CTX[scores[0] + scores[1] * 2 + scores[2] * 2];
+    if (ctx < 0) throw std::runtime_error("palette colour context");
+    return ctx;
+  }
+
+  void predict_palette(int plane, int startx, int starty, int x, int y, int txsz) {
+    const uint8_t *pal = plane == 0 ? pal_colors_y : (plane == 1 ? pal_colors_u : pal_colors_v);
+    uint8_t (*m)[64] = plane == 0 ? color_map_y : color_map_uv;
+    for (int i = 0; i < TXH[txsz]; i++)
+      for (int j = 0; j < TXW[txsz]; j++)
+        frame[plane].at(starty + i, startx + j) = pal[m[y * 4 + i][x * 4 + j]];
+  }
+
+  // ------------------------------------------------------------ intra block copy
+  // 7.10.2 for use_intrabc (RefFrame INTRA_FRAME, one list, no temporal
+  // candidates): the stack of the spatial neighbours' DVs, then
+  // assign_mv's choice and read_mv, then dav1d's clip of the DV to the
+  // decoded part of the tile
+  int stack_n, stack_mv[8][2], stack_w[8];
+
+  void add_candidate(int r, int c, int weight) {
+    int i = mi_idx(r, c);
+    if (!is_inter[i]) return;
+    int cand[2];
+    for (int k = 0; k < 2; k++) {      // lower_mv_precision, force_integer_mv
+      int v = mvs[2 * i + k], a = (std::abs(v) + 3) >> 3;
+      cand[k] = v > 0 ? a << 3 : -(a << 3);
+    }
+    for (int k = 0; k < stack_n; k++)
+      if (stack_mv[k][0] == cand[0] && stack_mv[k][1] == cand[1]) {
+        stack_w[k] += weight;
+        return;
+      }
+    if (stack_n < 8) {
+      stack_mv[stack_n][0] = cand[0];
+      stack_mv[stack_n][1] = cand[1];
+      stack_w[stack_n++] = weight;
+    }
+  }
+
+  void scan_row(int drow) {
+    int bw4 = BW[mi_sz] >> 2;
+    int end4 = std::min(std::min(bw4, mi_cols - mi_col), 16);
+    int dcol = 0;
+    if (std::abs(drow) > 1) {
+      drow += mi_row & 1;
+      dcol = 1 - (mi_col & 1);
+    }
+    for (int i = 0; i < end4;) {
+      int r = mi_row + drow, c = mi_col + dcol + i;
+      if (!is_inside(r, c)) break;
+      int len = std::min(bw4, BW[mi_size[mi_idx(r, c)]] >> 2);
+      if (std::abs(drow) > 1) len = std::max(2, len);
+      if (bw4 >= 16) len = std::max(4, len);
+      add_candidate(r, c, len * 2);
+      i += len;
+    }
+  }
+
+  void scan_col(int dcol) {
+    int bh4 = BH[mi_sz] >> 2;
+    int end4 = std::min(std::min(bh4, mi_rows - mi_row), 16);
+    int drow = 0;
+    if (std::abs(dcol) > 1) {
+      drow = 1 - (mi_row & 1);
+      dcol += mi_col & 1;
+    }
+    for (int i = 0; i < end4;) {
+      int r = mi_row + drow + i, c = mi_col + dcol;
+      if (!is_inside(r, c)) break;
+      int len = std::min(bh4, BH[mi_size[mi_idx(r, c)]] >> 2);
+      if (std::abs(dcol) > 1) len = std::max(2, len);
+      if (bh4 >= 16) len = std::max(4, len);
+      add_candidate(r, c, len * 2);
+      i += len;
+    }
+  }
+
+  void scan_point(int drow, int dcol) {
+    int r = mi_row + drow, c = mi_col + dcol;
+    if (is_inside(r, c) && written[mi_idx(r, c)]) add_candidate(r, c, 4);
+  }
+
+  void sort_stack(int start, int end) {
+    while (end > start) {
+      int new_end = start;
+      for (int i = start + 1; i < end; i++)
+        if (stack_w[i - 1] < stack_w[i]) {
+          std::swap(stack_w[i - 1], stack_w[i]);
+          std::swap(stack_mv[i - 1][0], stack_mv[i][0]);
+          std::swap(stack_mv[i - 1][1], stack_mv[i][1]);
+          new_end = i;
+        }
+      end = new_end;
+    }
+  }
+
+  int read_mv_component(int comp) {
+    int sign = sd.read(cdf.mv_sign[comp], 2);
+    int cls = sd.read(cdf.mv_class[comp], 11);
+    int mag;
+    if (cls == 0) {   // integer DVs: no fractional or high-precision bits
+      mag = ((sd.read(cdf.mv_class0_bit[comp], 2) << 3) | 7) + 1;
+    } else {
+      int d = 0;
+      for (int i = 0; i < cls; i++) d |= sd.read(cdf.mv_bit[comp][i], 2) << i;
+      mag = (2 << (cls + 2)) + ((d << 3) | 7) + 1;
+    }
+    return sign ? -mag : mag;
+  }
+
+  void intrabc_dv() {
+    int bw4 = BW[mi_sz] >> 2, bh4 = BH[mi_sz] >> 2;
+    stack_n = 0;
+    scan_row(-1);
+    scan_col(-1);
+    if (std::max(bw4, bh4) <= 16) scan_point(-1, bw4);
+    int nearest = stack_n;
+    // the specification adds REF_CAT_LEVEL to the nearest candidates'
+    // weights; the two groups are sorted apart, so it changes no order
+    scan_point(-1, -1);
+    scan_row(-3);
+    scan_col(-3);
+    if (bh4 > 1) scan_row(-5);
+    if (bw4 > 1) scan_col(-5);
+    sort_stack(0, nearest);
+    sort_stack(nearest, stack_n);
+    for (int i = 0; i < stack_n; i++) {   // clamp_mv_row / clamp_mv_col
+      int br = 128 + bh4 * 32, bc = 128 + bw4 * 32;
+      stack_mv[i][0] = clip3(-mi_row * 32 - br, (mi_rows - bh4 - mi_row) * 32 + br, stack_mv[i][0]);
+      stack_mv[i][1] = clip3(-mi_col * 32 - bc, (mi_cols - bw4 - mi_col) * 32 + bc, stack_mv[i][1]);
+    }
+    for (int i = stack_n; i < 2; i++) stack_mv[i][0] = stack_mv[i][1] = 0;
+    int pred[2] = {stack_mv[0][0], stack_mv[0][1]};
+    if (!pred[0] && !pred[1]) { pred[0] = stack_mv[1][0]; pred[1] = stack_mv[1][1]; }
+    if (!pred[0] && !pred[1]) {
+      int sb = use128 ? 32 : 16;
+      if (mi_row - sb < mi_row_start) {
+        pred[0] = 0;
+        pred[1] = -(sb * 4 + 256) * 8;    // INTRABC_DELAY_PIXELS
+      } else {
+        pred[0] = -(sb * 4 * 8);
+        pred[1] = 0;
+      }
+    }
+    int joint = sd.read(cdf.mv_joint, 4);
+    mv[0] = pred[0] + ((joint == 2 || joint == 3) ? read_mv_component(0) : 0);
+    mv[1] = pred[1] + ((joint == 1 || joint == 3) ? read_mv_component(1) : 0);
+    // dav1d's clip: inside the tile, out of the current superblock
+    int border_left = mi_col_start * 4, border_top = mi_row_start * 4;
+    if (has_chroma) {
+      if (bw4 < 2 && ssx) border_left += 4;
+      if (bh4 < 2 && ssy) border_top += 4;
+    }
+    int left = mi_col * 4 + (mv[1] >> 3), top = mi_row * 4 + (mv[0] >> 3);
+    int right = left + bw4 * 4, bottom = top + bh4 * 4;
+    int border_right = ((mi_col_end + (bw4 - 1)) & ~(bw4 - 1)) * 4;
+    if (left < border_left) {
+      right += border_left - left;
+      left = border_left;
+    } else if (right > border_right) {
+      left -= right - border_right;
+      right = border_right;
+    }
+    if (top < border_top) {
+      bottom += border_top - top;
+      top = border_top;
+    }
+    int sbl = 6 + use128;
+    int sbx = (mi_col >> (sbl - 2)) << sbl, sby = (mi_row >> (sbl - 2)) << sbl;
+    if (bottom > sby && right > sbx) {
+      if (top - border_top >= bottom - sby) {
+        top -= bottom - sby;
+        bottom = sby;
+      } else if (left - border_left >= right - sbx) {
+        left -= right - sbx;
+        right = sbx;
+      }
+    }
+    if (bottom > sby + (1 << sbl)) {
+      top -= bottom - (sby + (1 << sbl));
+      bottom = sby + (1 << sbl);
+    }
+    if (bottom > sby && right > sbx)
+      throw std::runtime_error("intra block copy DV inside the current superblock");
+    mv[1] = (left - mi_col * 4) * 8;
+    mv[0] = (top - mi_row * 4) * 8;
+  }
+
+  // 7.11.3 for intra block copy: each plane's block (one prediction: in
+  // an intra frame every block's RefFrame[0] is INTRA_FRAME) copied from
+  // the frame before filtering with the BILINEAR filter, InterRound0 3
+  // and InterRound1 11, positions clamped to the MiCols x MiRows area
+  void predict_intrabc() {
+    uint8_t pred[128][128];
+    for (int pl = 0; pl < 1 + 2 * has_chroma; pl++) {
+      int sx = pl ? ssx : 0, sy = pl ? ssy : 0;
+      int psz = plane_res_size(mi_sz, pl);
+      int w = BW[psz], h = BH[psz];
+      int x0 = (mi_col >> sx) * 4, y0 = (mi_row >> sy) * 4;
+      int dx = (2 * mv[1]) >> sx, dy = (2 * mv[0]) >> sy;   // sixteenths
+      int xi = x0 + (dx >> 4), yi = y0 + (dy >> 4), fx = dx & 15, fy = dy & 15;
+      int lastx = ((mi_cols * 4) >> sx) - 1, lasty = ((mi_rows * 4) >> sy) - 1;
+      Plane &fp = frame[pl];
+      auto ref = [&](int yy, int xx) {
+        return (int)fp.at(clip3(0, lasty, yy), clip3(0, lastx, xx));
+      };
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+          int inter[2];
+          for (int k = 0; k < 2; k++) {
+            int s = (128 - 8 * fx) * ref(yi + i + k, xi + j) + 8 * fx * ref(yi + i + k, xi + j + 1);
+            inter[k] = round2(s, 3);
+          }
+          pred[i][j] = clip1(round2((128 - 8 * fy) * inter[0] + 8 * fy * inter[1], 11));
+        }
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) fp.at(y0 + i, x0 + j) = pred[i][j];
+    }
+  }
+
+  // ------------------------------------------------------------ transform size
+  // 5.11.15: intra blocks and skipped intra block copies read tx_depth;
+  // the others read the transform tree (read_var_tx_size)
+  void read_block_tx_size() {
+    int bw4 = BW[mi_sz] >> 2, bh4 = BH[mi_sz] >> 2;
+    if (tx_mode == 2 && mi_sz > BLOCK_4X4 && use_intrabc && !skip && !lossless) {
+      int maxr = max_tx_rect(mi_sz);
+      for (int r = mi_row; r < mi_row + bh4; r += TXH[maxr] >> 2)
+        for (int c = mi_col; c < mi_col + bw4; c += TXW[maxr] >> 2)
+          read_var_tx_size(r, c, maxr, 0);
+      return;
+    }
+    read_tx_size(!skip || !use_intrabc);
+    set_inter_tx(mi_row, mi_col, bw4, bh4, tx_size);
+  }
+
+  void set_inter_tx(int r, int c, int w4, int h4, int t) {
+    for (int i = r; i < std::min(r + h4, mi_rows); i++)
+      for (int j = c; j < std::min(c + w4, mi_cols); j++) inter_tx[mi_idx(i, j)] = (uint8_t)t;
+  }
+
+  void read_var_tx_size(int r, int c, int t, int depth) {
+    if (r >= mi_rows || c >= mi_cols) return;
+    int split = 0;
+    if (t != TX_4X4 && depth != 2) {   // MAX_VARTX_DEPTH
+      int above = above_tx_width(r, c) < TXW[t], left = left_tx_height(r, c) < TXH[t];
+      int size = std::min(64, std::max(BW[mi_sz], BH[mi_sz]));
+      int maxsq = tx_of(size, size);
+      int ctx = (tx_sqr_up(t) != maxsq) * 3 + (TX_64X64 - maxsq) * 6 + above + left;
+      split = sd.read(cdf.txfm_split[ctx], 2);
+    }
+    if (split) {
+      int sub = SPLIT_TX[t];
+      for (int i = 0; i < TXH[t] >> 2; i += TXH[sub] >> 2)
+        for (int j = 0; j < TXW[t] >> 2; j += TXW[sub] >> 2)
+          read_var_tx_size(r + i, c + j, sub, depth + 1);
+    } else {
+      set_inter_tx(r, c, TXW[t] >> 2, TXH[t] >> 2, t);
+      tx_size = t;
+    }
+  }
+
+  int above_tx_width(int r, int c) {
+    if (r == mi_row) {
+      if (!avail_u) return 64;
+      int i = mi_idx(r - 1, c);
+      if (skips[i] && is_inter[i]) return BW[mi_size[i]];
+    }
+    return TXW[inter_tx[mi_idx(r - 1, c)]];
+  }
+  int left_tx_height(int r, int c) {
+    if (c == mi_col) {
+      if (!avail_l) return 64;
+      int i = mi_idx(r, c - 1);
+      if (skips[i] && is_inter[i]) return BH[mi_size[i]];
+    }
+    return TXH[inter_tx[mi_idx(r, c - 1)]];
+  }
+
+  void read_tx_size(bool allow_select) {
     if (lossless) { tx_size = TX_4X4; return; }
     int maxr = max_tx_rect(mi_sz);
     int depth_max = max_tx_depth(mi_sz);
     tx_size = maxr;
-    if (mi_sz > BLOCK_4X4 && tx_mode == 2) {
+    if (mi_sz > BLOCK_4X4 && allow_select && tx_mode == 2) {
+      // an inter neighbour counts with its block size
       int above_w = 0, left_h = 0;
-      if (avail_u) above_w = TXW[tx_sizes[mi_idx(mi_row - 1, mi_col)]];
-      if (avail_l) left_h = TXH[tx_sizes[mi_idx(mi_row, mi_col - 1)]];
+      if (avail_u) {
+        int i = mi_idx(mi_row - 1, mi_col);
+        above_w = is_inter[i] ? BW[mi_size[i]] : above_tx_width(mi_row, mi_col);
+      }
+      if (avail_l) {
+        int i = mi_idx(mi_row, mi_col - 1);
+        left_h = is_inter[i] ? BH[mi_size[i]] : left_tx_height(mi_row, mi_col);
+      }
       int ctx = (avail_u && above_w >= TXW[maxr]) + (avail_l && left_h >= TXH[maxr]);
       int cat = depth_max - 1;   // 0..3
       int nsym = depth_max > 1 ? 3 : 2;
@@ -974,6 +1517,10 @@ struct Decoder {
     for (int cy = 0; cy < hchunks; cy++)
       for (int cx = 0; cx < wchunks; cx++) {
         for (int pl = 0; pl < 1 + has_chroma * 2; pl++) {
+          if (use_intrabc && !lossless && pl == 0) {
+            inter_luma(cx, cy, sbmask);
+            continue;
+          }
           int txsz = lossless ? TX_4X4 : get_tx_size(pl, tx_size);
           int stepx = TXW[txsz] >> 2, stepy = TXH[txsz] >> 2;
           int psz = plane_res_size(mi_sz, pl);
@@ -986,6 +1533,27 @@ struct Decoder {
                               y + ((cy << 4) >> sy), sbmask);
         }
       }
+  }
+
+  // the luma transform tree of an inter block in one 64x64 chunk: each
+  // largest transform split down to the InterTxSizes it was read as
+  void inter_luma(int cx, int cy, int sbmask) {
+    int maxr = max_tx_rect(mi_sz);
+    int x1 = std::min(BW[mi_sz], cx * 64 + 64), y1 = std::min(BH[mi_sz], cy * 64 + 64);
+    for (int y = cy * 64; y < y1; y += TXH[maxr])
+      for (int x = cx * 64; x < x1; x += TXW[maxr])
+        tx_tree(mi_col * 4 + x, mi_row * 4 + y, maxr, sbmask);
+  }
+  void tx_tree(int px, int py, int t, int sbmask) {
+    if (px >= mi_cols * 4 || py >= mi_rows * 4) return;
+    if (inter_tx[mi_idx(py >> 2, px >> 2)] == t) {
+      transform_block(0, px, py, t, 0, 0, sbmask);
+      return;
+    }
+    if (t == TX_4X4) throw std::runtime_error("transform tree");
+    int sub = SPLIT_TX[t];
+    for (int i = 0; i < TXH[t]; i += TXH[sub])
+      for (int j = 0; j < TXW[t]; j += TXW[sub]) tx_tree(px + j, py + i, sub, sbmask);
   }
 
   void transform_block(int plane, int basex, int basey, int txsz, int x, int y,
@@ -1001,16 +1569,22 @@ struct Decoder {
     int mode = plane == 0 ? ymode : (is_cfl ? DC_PRED : uvmode);
     int log2w = log2i(TXW[txsz]), log2h = log2i(TXH[txsz]);
     int bdr = (sbrow >> sy), bdc = (sbcol >> sx);
-    int have_ar = block_decoded[plane][bdr - 1 + 1][bdc + stepx + 1];
-    int have_bl = block_decoded[plane][bdr + stepy + 1][bdc - 1 + 1];
-    predict_intra(plane, startx, starty,
-                  (plane == 0 ? avail_l : avail_l_chroma) || x > 0,
-                  (plane == 0 ? avail_u : avail_u_chroma) || y > 0, have_ar,
-                  have_bl, mode, log2w, log2h);
-    if (is_cfl) predict_cfl(plane, startx, starty, txsz);
-    if (plane == 0) {
-      max_luma_w = startx + stepx * 4;
-      max_luma_h = starty + stepy * 4;
+    if (!use_intrabc) {
+      if (plane == 0 ? pal_y : pal_uv) {
+        predict_palette(plane, startx, starty, x, y, txsz);
+      } else {
+        int have_ar = block_decoded[plane][bdr - 1 + 1][bdc + stepx + 1];
+        int have_bl = block_decoded[plane][bdr + stepy + 1][bdc - 1 + 1];
+        predict_intra(plane, startx, starty,
+                      (plane == 0 ? avail_l : avail_l_chroma) || x > 0,
+                      (plane == 0 ? avail_u : avail_u_chroma) || y > 0, have_ar,
+                      have_bl, mode, log2w, log2h);
+        if (is_cfl) predict_cfl(plane, startx, starty, txsz);
+      }
+      if (plane == 0) {
+        max_luma_w = startx + stepx * 4;
+        max_luma_h = starty + stepy * 4;
+      }
     }
     if (!skip) {
       int eob = coeffs(plane, startx, starty, txsz);
@@ -1317,16 +1891,34 @@ struct Decoder {
   int get_tx_set(int txsz) {
     int sq = tx_sqr(txsz), squp = tx_sqr_up(txsz);
     if (squp > TX_32X32) return TX_SET_DCTONLY;
+    if (use_intrabc) {
+      if (reduced_tx_set || squp == TX_32X32) return TX_SET_INTER_3;
+      return sq == TX_16X16 ? 2 : 1;
+    }
     if (squp == TX_32X32) return TX_SET_DCTONLY;
     if (reduced_tx_set) return TX_SET_INTRA_2;
     if (sq == TX_16X16) return TX_SET_INTRA_2;
     return TX_SET_INTRA_1;
   }
 
-  int compute_tx_type(int plane, int txsz) {
+  static bool in_inter_set(int set, int t) {
+    if (set == 1) return true;
+    if (set == 2) return t != V_ADST && t != H_ADST && t != V_FLIPADST && t != H_FLIPADST;
+    if (set == TX_SET_INTER_3) return t == IDTX || t == DCT_DCT;
+    return t == DCT_DCT;
+  }
+
+  // an inter block's chroma takes the type of its co-located luma 4x4
+  int compute_tx_type(int plane, int txsz, int startx, int starty) {
     if (lossless || tx_sqr_up(txsz) > TX_32X32) return DCT_DCT;
     if (plane == 0) return tx_type_cur;
     int set = get_tx_set(txsz);
+    if (use_intrabc) {
+      int x4 = std::max(mi_col, (startx >> 2) << ssx);
+      int y4 = std::max(mi_row, (starty >> 2) << ssy);
+      int t = tx_types[mi_idx(y4, x4)];
+      return in_inter_set(set, t) ? t : DCT_DCT;
+    }
     int t = MODE_TO_TXFM[uvmode];
     if (set == TX_SET_DCTONLY) return t == DCT_DCT ? t : DCT_DCT;
     if (set == TX_SET_INTRA_2 && (t == V_DCT || t == H_DCT)) return DCT_DCT;
@@ -1372,11 +1964,16 @@ struct Decoder {
     }
     int all_zero = sd.read(cdf.txb_skip[txszctx][ctx], 2);
     int eob = 0, cul = 0, dccat = 0;
-    if (all_zero) {
-      if (plane == 0) tx_type_cur = DCT_DCT;
-    } else {
-      if (plane == 0) read_tx_type(txsz);
-      int ttype = compute_tx_type(plane, txsz);
+    if (plane == 0) {
+      tx_type_cur = DCT_DCT;
+      if (!all_zero) read_tx_type(txsz);
+      for (int i = y4; i < std::min(y4 + h4, mi_rows); i++)
+        for (int j = x4; j < std::min(x4 + w4, mi_cols); j++)
+          tx_types[mi_idx(i, j)] = (uint8_t)tx_type_cur;
+    }
+    if (!all_zero) {
+      int ttype = compute_tx_type(plane, txsz, startx, starty);
+      plane_tx_type = ttype;
       int tclass = tx_class(ttype);
       const int16_t *scan;
       static int16_t mrow[1024], mcol[1024];
@@ -1525,7 +2122,12 @@ struct Decoder {
   void read_tx_type(int txsz) {
     int set = get_tx_set(txsz);
     tx_type_cur = DCT_DCT;
-    if (set > 0 && base_q > 0) {
+    if (set > 0 && base_q > 0 && use_intrabc) {
+      int sq = tx_sqr(txsz);
+      if (set == 1) tx_type_cur = INTER_SET1_INV[sd.read(cdf.inter_set1[sq], 16)];
+      else if (set == 2) tx_type_cur = INTER_SET2_INV[sd.read(cdf.inter_set2[sq], 12)];
+      else tx_type_cur = INTER_SET3_INV[sd.read(cdf.inter_set3[sq], 2)];
+    } else if (set > 0 && base_q > 0) {
       int dir = use_fi ? FILTER_INTRA_DIR[fi_mode] : ymode;
       int sq = tx_sqr(txsz);
       if (set == TX_SET_INTRA_1)
@@ -1551,7 +2153,7 @@ struct Decoder {
     if (plane == 0) { qdc = dcq(dq[0]); qac = acq(0); }
     else if (plane == 1) { qdc = dcq(dq[1]); qac = acq(dq[2]); }
     else { qdc = dcq(dq[3]); qac = acq(dq[4]); }
-    int ttype = compute_tx_type(plane, txsz);
+    int ttype = plane_tx_type;
     // 7.12.3: the matrix weighs 2-D transforms' steps (AOM_QM_BITS 5)
     const uint8_t *qm = nullptr;
     if (qm_level[plane] < 15 && ttype < IDTX)
@@ -1600,10 +2202,16 @@ struct Decoder {
       else inverse_1d(T, log2h, ck);
       for (int i = 0; i < h; i++) res[i][j] = round2((int64_t)T[i], colshift);
     }
+    // FLIPADST: the residual is added upside down or mirrored
+    bool flip_ud = ttype == FLIPADST_DCT || ttype == FLIPADST_ADST ||
+                   ttype == V_FLIPADST || ttype == FLIPADST_FLIPADST;
+    bool flip_lr = ttype == DCT_FLIPADST || ttype == ADST_FLIPADST ||
+                   ttype == H_FLIPADST || ttype == FLIPADST_FLIPADST;
     Plane &fp = frame[plane];
     for (int i = 0; i < h; i++)
       for (int j = 0; j < w; j++) {
-        uint8_t &px = fp.at(starty + i, startx + j);
+        uint8_t &px = fp.at(starty + (flip_ud ? h - 1 - i : i),
+                            startx + (flip_lr ? w - 1 - j : j));
         px = clip1(px + res[i][j]);
       }
   }
@@ -1614,13 +2222,7 @@ struct Decoder {
     while (true) {
       int b2 = i ? k + i - 1 : k;
       int a = 1 << b2;
-      if (numsyms <= mk + 3 * a) {
-        int n = numsyms - mk;
-        int w = log2i(n) + 1, m = (1 << w) - n;
-        int v = sd.literal(w - 1);
-        if (v >= m) v = (v << 1) - m + sd.literal(1);
-        return v + mk;
-      }
+      if (numsyms <= mk + 3 * a) return sd.ns(numsyms - mk) + mk;
       if (sd.literal(1)) {
         i++;
         mk += a;
@@ -2094,6 +2696,159 @@ struct Decoder {
         frame[plane].at(y + i, x + j) = clip1(round2(v, 4 + 7));
       }
   }
+
+  // ------------------------------------------------------------ film grain
+  // 7.18.3 as dav1d 1.5.1 applies it to the output frame (fg_apply and
+  // filmgrain_tmpl.c): the luma and chroma grain templates from the
+  // 16-bit LFSR and the Gaussian sequence with their auto-regressive
+  // filter, the scaling lookups, and 32x32 blocks per 32-row stripe with
+  // each stripe's seeds, the blocks' random offsets, the overlap blending
+  // and the clipping.  Chroma first: it reads the luma without grain.
+  typedef int16_t Grain[74][82];
+  std::vector<int16_t> grain_store;
+
+  static int fg_random(int bits, unsigned &state) {
+    unsigned r = state;
+    unsigned bit = ((r >> 0) ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+    state = (r >> 1) | (bit << 15);
+    return (int)((state >> (16 - bits)) & ((1u << bits) - 1));
+  }
+  static int fg_round2(int x, int shift) { return (x + ((1 << shift) >> 1)) >> shift; }
+
+  void fg_template(Grain buf, const Grain luma, int plane, int w, int h, int subx, int suby) {
+    unsigned seed = (unsigned)p[P_FG_SEED];
+    if (plane) seed ^= plane == 2 ? 0x49d8 : 0xb524;
+    int shift = 4 + p[P_FG_GRAIN_SCALE_SHIFT];
+    for (int y = 0; y < h; y++)
+      for (int x = 0; x < w; x++)
+        buf[y][x] = (int16_t)fg_round2(AV1_GAUSSIAN_SEQUENCE[fg_random(11, seed)], shift);
+    int lag = p[P_FG_LAG];
+    const int *coef = p + (plane == 0 ? P_FG_AR_Y : plane == 1 ? P_FG_AR_CB : P_FG_AR_CR);
+    for (int y = 3; y < h; y++)
+      for (int x = 3; x < w - 3; x++) {
+        int sum = 0, k = 0;
+        for (int dy = -lag; dy <= 0; dy++)
+          for (int dx = -lag; dx <= lag; dx++) {
+            if (!dx && !dy) {
+              if (plane && p[P_FG_NUM_Y]) {   // the co-located luma grain
+                int lx = ((x - 3) << subx) + 3, ly = ((y - 3) << suby) + 3, l = 0;
+                for (int i = 0; i <= suby; i++)
+                  for (int j = 0; j <= subx; j++) l += luma[ly + i][lx + j];
+                sum += fg_round2(l, subx + suby) * coef[k];
+              }
+              dy = 1;      // the current sample ends the window
+              break;
+            }
+            sum += coef[k++] * buf[y + dy][x + dx];
+          }
+        buf[y][x] = (int16_t)clip3(-128, 127, buf[y][x] + fg_round2(sum, p[P_FG_AR_SHIFT]));
+      }
+  }
+
+  static void fg_scaling(const int *pts, int n, uint8_t *lut) {
+    if (n == 0) {
+      std::memset(lut, 0, 256);
+      return;
+    }
+    std::memset(lut, pts[1], pts[0]);
+    for (int i = 0; i < n - 1; i++) {
+      int bx = pts[2 * i], by = pts[2 * i + 1], dx = pts[2 * i + 2] - bx;
+      int delta = (pts[2 * i + 3] - by) * ((0x10000 + (dx >> 1)) / dx);
+      for (int x = 0, d = 0x8000; x < dx; x++, d += delta) lut[bx + x] = (uint8_t)(by + (d >> 16));
+    }
+    int last = pts[2 * (n - 1)];
+    std::memset(lut + last, pts[2 * (n - 1) + 1], 256 - last);
+  }
+
+  // one plane: 32x32 (luma) blocks, stripe by stripe
+  void fg_plane(int plane, const Grain grain, const uint8_t *scaling) {
+    int sx = plane ? ssx : 0, sy = plane ? ssy : 0;
+    int pw = (W + sx) >> sx, overlap = p[P_FG_OVERLAP], shift = p[P_FG_SCALING_SHIFT];
+    int lo = 0, hi = 255;
+    if (p[P_FG_CLIP]) {
+      lo = 16;
+      hi = plane && !p[P_MC_IDENTITY] ? 240 : 235;
+    }
+    static const int WT[2][2][2] = {{{27, 17}, {17, 27}}, {{23, 22}, {0, 0}}};
+    Plane &fp = frame[plane];
+    Plane &luma = frame[0];
+    const int *mult = p + (plane == 1 ? P_FG_CB_MULT : P_FG_CR_MULT);
+    auto sample = [&](const int off[2][2], int bx, int by, int x, int y) {
+      int r = off[bx][by];
+      int ox = 3 + (2 >> sx) * (3 + (r >> 4)), oy = 3 + (2 >> sy) * (3 + (r & 15));
+      return (int)grain[oy + y + (32 >> sy) * by][ox + x + (32 >> sx) * bx];
+    };
+    auto blend = [&](int old, int cur, const int *w) {
+      return clip3(-128, 127, fg_round2(old * w[0] + cur * w[1], 5));
+    };
+    for (int row = 0; row * 32 < H; row++) {
+      int bh = (std::min(32, H - row * 32) + sy) >> sy;
+      int y0 = (row * 32) >> sy;
+      int rows = 1 + (overlap && row > 0);
+      unsigned seed[2];
+      for (int i = 0; i < rows; i++) {
+        seed[i] = (unsigned)p[P_FG_SEED];
+        seed[i] ^= (unsigned)((((row - i) * 37 + 178) & 0xFF) << 8);
+        seed[i] ^= (unsigned)(((row - i) * 173 + 105) & 0xFF);
+      }
+      int off[2][2] = {{0, 0}, {0, 0}};
+      for (int bx = 0; bx < pw; bx += 32 >> sx) {
+        int bw = std::min(32 >> sx, pw - bx);
+        if (overlap && bx)
+          for (int i = 0; i < rows; i++) off[1][i] = off[0][i];
+        for (int i = 0; i < rows; i++) off[0][i] = fg_random(8, seed[i]);
+        int ystart = overlap && row ? std::min(2 >> sy, bh) : 0;
+        int xstart = overlap && bx ? std::min(2 >> sx, bw) : 0;
+        auto add = [&](int x, int y, int g) {
+          uint8_t &px = fp.at(y0 + y, bx + x);
+          int src = px, val = src;
+          if (plane) {
+            int lx = (bx + x) << sx, ly = (y0 + y) << sy;
+            int avg = luma.at(ly, lx);
+            if (sx) avg = (avg + luma.at(ly, std::min(lx + 1, W - 1)) + 1) >> 1;
+            val = avg;
+            if (!p[P_FG_FROM_LUMA])
+              val = clip1(((avg * mult[1] + src * mult[0]) >> 6) + mult[2]);
+          }
+          px = (uint8_t)clip3(lo, hi, src + fg_round2(scaling[val] * g, shift));
+        };
+        for (int y = ystart; y < bh; y++) {
+          for (int x = xstart; x < bw; x++) add(x, y, sample(off, 0, 0, x, y));
+          for (int x = 0; x < xstart; x++)
+            add(x, y, blend(sample(off, 1, 0, x, y), sample(off, 0, 0, x, y), WT[sx][x]));
+        }
+        for (int y = 0; y < ystart; y++) {
+          for (int x = xstart; x < bw; x++)
+            add(x, y, blend(sample(off, 0, 1, x, y), sample(off, 0, 0, x, y), WT[sy][y]));
+          for (int x = 0; x < xstart; x++) {
+            int top = blend(sample(off, 1, 1, x, y), sample(off, 0, 1, x, y), WT[sx][x]);
+            int cur = blend(sample(off, 1, 0, x, y), sample(off, 0, 0, x, y), WT[sx][x]);
+            add(x, y, blend(top, cur, WT[sy][y]));
+          }
+        }
+      }
+    }
+  }
+
+  void film_grain() {
+    if (!p[P_FG_APPLY]) return;
+    int num_y = p[P_FG_NUM_Y], from_luma = p[P_FG_FROM_LUMA];
+    int num_uv[2] = {p[P_FG_NUM_CB], p[P_FG_NUM_CR]};
+    if (num_y > 14 || num_uv[0] > 10 || num_uv[1] > 10)
+      throw std::runtime_error("film grain: too many scaling points");
+    grain_store.assign(3 * sizeof(Grain) / sizeof(int16_t), 0);
+    Grain *grain = reinterpret_cast<Grain *>(grain_store.data());
+    fg_template(grain[0], grain[0], 0, 82, 73, 0, 0);
+    uint8_t scaling[3][256];
+    fg_scaling(p + P_FG_Y, num_y, scaling[0]);
+    for (int pl = 1; pl < planes; pl++) {
+      if (!num_uv[pl - 1] && !from_luma) continue;
+      fg_template(grain[pl], grain[0], pl, ssx ? 44 : 82, ssy ? 38 : 73, ssx, ssy);
+      fg_scaling(p + (pl == 1 ? P_FG_CB : P_FG_CR), num_uv[pl - 1], scaling[pl]);
+      fg_plane(pl, grain[pl], from_luma ? scaling[0] : scaling[pl]);
+    }
+    if (num_y) fg_plane(0, grain[0], scaling[0]);
+  }
 };
 
 }  // namespace
@@ -2116,6 +2871,7 @@ extern "C" int avrt_av1_decode(const uint8_t *data, int64_t size,
     d->loop_filter();
     d->cdef();
     d->loop_restoration();
+    d->film_grain();
     std::memcpy(stats, d->stats, sizeof(d->stats));
     uint8_t *out[3] = {y, u, v};
     for (int pl = 0; pl < d->planes; pl++) {

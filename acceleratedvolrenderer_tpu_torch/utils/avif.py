@@ -7,13 +7,15 @@ decode_avif(data) returns np.asarray(PIL.Image.open(file)): uint8 (H, W, 3),
 or (H, W, 4) where the file has an alpha item.  It reads the still images
 that PIL's own writer makes through its parameters (quality, speed,
 subsampling 4:2:0 / 4:2:2 / 4:4:4 / 4:0:0, range, tiles, alpha
-premultiplied or not, ICC profile, EXIF orientation), the AV1 tools
-common encoders leave on (CDEF, quantizer matrices, block-level delta q),
-the BT.601, BT.709 and BT.2020 NCL matrices, `grid` items and frame 0 of
-an image sequence.  What it does not read raises a ValueError that names
-it (film grain, palette and intra block copy, segmentation, block-level
-delta lf, superres, more than 8 bits, non-uniform tile spacing, item
-construction method 2, other matrices).
+premultiplied or not, ICC profile, EXIF orientation), the screen content
+tools libaom turns on by itself for few-colour images (palette, intra
+block copy), film grain (applied as dav1d applies it, also on an alpha
+item), the AV1 tools common encoders leave on (CDEF, quantizer matrices,
+block-level delta q), the BT.601, BT.709 and BT.2020 NCL matrices, `grid`
+items and frame 0 of an image sequence.  What it does not read raises a
+ValueError that names it (segmentation, block-level delta lf, superres,
+more than 8 bits, non-uniform tile spacing, item construction method 2,
+other matrices).
 """
 from __future__ import annotations
 
@@ -406,6 +408,7 @@ def _delta_q(b):
 def _frame_header(b: _Bits, s: dict) -> dict:
     f = {"bit_of": {}}
     resilient = 1
+    showable = 0
     if s["reduced"]:
         frame_type, show = 0, 1
     else:
@@ -416,15 +419,16 @@ def _frame_header(b: _Bits, s: dict) -> dict:
         if show and s["decoder_model"] and not s["equal_picture_interval"]:
             _refuse("AV1 temporal point info")
         if not show:
-            b.f(1)
+            showable = b.f(1)
         if frame_type not in (0, 2):
             _refuse("an AV1 inter frame")
         if not (frame_type == 0 and show):
             resilient = b.f(1)
     f["disable_cdf_update"] = b.f(1)
     screen = b.f(1) if s["screen_content"] == 2 else s["screen_content"]
-    if screen:
-        _refuse("AV1 screen content tools (palette, intra block copy)")
+    f["screen"] = screen
+    if screen and s["integer_mv"] == 2:
+        b.f(1)                              # force_integer_mv (1 if intra)
     if s["frame_id"]:
         b.f(s["id_len"])
     override = 0 if s["reduced"] else b.f(1)
@@ -445,6 +449,7 @@ def _frame_header(b: _Bits, s: dict) -> dict:
     f["bit_of"]["render_and_frame_size_different"] = b.bit
     if b.f(1):
         b.f(16), b.f(16)
+    f["intrabc"] = b.f(1) if screen else 0
     f["w"], f["h"] = w, h
     mi_cols, mi_rows = 2 * ((w + 7) >> 3), 2 * ((h + 7) >> 3)
     f["mi_cols"], f["mi_rows"] = mi_cols, mi_rows
@@ -499,17 +504,20 @@ def _frame_header(b: _Bits, s: dict) -> dict:
     # delta_q_params, delta_lf_params (5.9.17, 5.9.18)
     f["delta_q_present"] = b.f(1) if f["base_q"] > 0 else 0
     f["delta_q_res"] = b.f(2) if f["delta_q_present"] else 0
-    if f["delta_q_present"]:
+    if f["delta_q_present"] and not f["intrabc"]:
         f["bit_of"]["delta_lf_present"] = b.bit
         if b.f(1):
             _refuse("AV1 block-level delta lf")
     lossless = f["base_q"] == 0 and not any(dq)
     f["lossless"] = int(lossless)
+    # intra block copy reads the frame before any filter: no deblocking,
+    # CDEF or restoration syntax either
+    unfiltered = lossless or f["intrabc"]
     # loop_filter_params (5.9.11)
     lf = [0, 0, 0, 0]
     f["lf_sharpness"], f["lf_delta_enabled"] = 0, 1
     f["lf_ref_deltas"] = [1, 0, 0, 0, -1, 0, -1, -1]
-    if not lossless:
+    if not unfiltered:
         lf[0], lf[1] = b.f(6), b.f(6)
         if not s["mono"] and (lf[0] or lf[1]):
             lf[2], lf[3] = b.f(6), b.f(6)
@@ -524,7 +532,7 @@ def _frame_header(b: _Bits, s: dict) -> dict:
                     b.su(7)
     f["lf"] = lf
     # cdef_params (5.9.19)
-    f["cdef"] = int(not lossless and s["cdef"])
+    f["cdef"] = int(not unfiltered and s["cdef"])
     f["cdef_damping"], f["cdef_bits"] = 3, 0
     for k in ("y_pri", "y_sec", "uv_pri", "uv_sec"):
         f["cdef_" + k] = [0] * 8
@@ -539,7 +547,7 @@ def _frame_header(b: _Bits, s: dict) -> dict:
     # lr_params (5.9.20)
     f["lr_type"] = [0, 0, 0]
     f["lr_size"] = [64, 64, 64]
-    if not lossless and s["restoration"]:
+    if not unfiltered and s["restoration"]:
         remap = (0, 3, 1, 2)
         planes = 1 if s["mono"] else 3
         for i in range(planes):
@@ -559,9 +567,59 @@ def _frame_header(b: _Bits, s: dict) -> dict:
     # read_tx_mode, reduced_tx_set, film grain
     f["tx_mode"] = 0 if lossless else (2 if b.f(1) else 1)
     f["reduced_tx_set"] = b.f(1)
-    if s["film_grain_present"] and b.f(1):
-        _refuse("AV1 film grain")
+    f["grain"] = None
+    if s["film_grain_present"] and (show or showable) and b.f(1):
+        f["grain"] = _film_grain(b, s, f["bit_of"])
     return f
+
+
+def _grain_points(b, n_max, what):
+    n = b.f(4)
+    if n > n_max:
+        raise ValueError(f"avif: AV1 film grain with {n} {what} points "
+                         f"(at most {n_max})")
+    pts = [(b.f(8), b.f(8)) for _ in range(n)]
+    if any(p[0] >= q[0] for p, q in zip(pts, pts[1:])):
+        raise ValueError(f"avif: AV1 film grain {what} points that do not "
+                         "increase")
+    return pts
+
+
+def _film_grain(b: _Bits, s: dict, bit_of: dict) -> dict:
+    """film_grain_params (5.9.30) of a frame that applies grain, with
+    dav1d's checks (a file that breaks them is not decoded)."""
+    g = {"seed": b.f(16)}
+    bit_of["num_y_points"] = b.bit
+    g["y"] = _grain_points(b, 14, "luma")
+    g["from_luma"] = 0 if s["mono"] else b.f(1)
+    g["cb"], g["cr"] = [], []
+    if not (s["mono"] or g["from_luma"] or (s["ss"] == (1, 1)
+                                            and not g["y"])):
+        g["cb"] = _grain_points(b, 10, "Cb")
+        g["cr"] = _grain_points(b, 10, "Cr")
+        if s["ss"] == (1, 1) and bool(g["cb"]) != bool(g["cr"]):
+            raise ValueError("avif: AV1 film grain on one 4:2:0 chroma "
+                             "plane")
+    g["scaling_shift"] = b.f(2) + 8
+    g["lag"] = b.f(2)
+    npos = 2 * g["lag"] * (g["lag"] + 1)
+    g["ar_y"] = [b.f(8) - 128 for _ in range(npos)] if g["y"] else []
+    for k in ("cb", "cr"):
+        n = npos + 1 if g["y"] else npos
+        g["ar_" + k] = ([b.f(8) - 128 for _ in range(n)]
+                        if g["from_luma"] or g[k] else [])
+    g["ar_shift"] = b.f(2) + 6
+    g["grain_scale_shift"] = b.f(2)
+    for k in ("cb", "cr"):
+        g[k + "_mult"] = g[k + "_luma_mult"] = g[k + "_offset"] = 0
+        if g[k]:
+            g[k + "_mult"] = b.f(8) - 128
+            g[k + "_luma_mult"] = b.f(8) - 128
+            g[k + "_offset"] = b.f(9) - 256
+    g["overlap"] = b.f(1)
+    bit_of["clip_to_restricted_range"] = b.bit
+    g["clip"] = b.f(1)
+    return g
 
 
 def _tiles(d: bytes, start: int, end: int, f: dict):

@@ -406,11 +406,12 @@ ended; a failure in either process fails the script and ends the other.
      (v1, v2), XV thumbnail, McIDAS (2- and 4-byte), IMT, FITS (BITPIX 16,
      -32, GZIP_1), IPTC (raw, JPEG) and FLC (BRUN, SS2)
      (tests/data/images/, images.json's entries read by those modules),
-     and the fourteen 128x96 AVIF crops of scripts/avif_maps.py (RGBA
+     and the eighteen small AVIF crops of scripts/avif_maps.py (RGBA
      with premultiplied alpha, 4:4:4, 4:0:0, limited range, lossless,
      speed 10; CDEF, quantizer matrices, block-level delta q, 4:2:2,
      BT.709, BT.2020 limited range, a 2x2 grid of 64x64 tiles, frame 0 of
-     a two-frame sequence; utils/avif.py with the C++ AV1 decoder
+     a two-frame sequence; palette, intra block copy (384x96), a binary
+     cut-out alpha, film grain; utils/avif.py with the C++ AV1 decoder
      native/av1_dec.cpp built by g++ here) decoded once through image.py's
      _decode_image, held to
      the SHA-256 of its bytes and of PIL's samples (colours for bilevel
@@ -458,6 +459,20 @@ ended; a failure in either process fails the script and ends the other.
      light's map and the ground's imagemap, rendered by the CLI at
      1280x720 spp 1 with the parser's warnings made errors, held through
      maps_frame as phase 39's frame is.
+ 41. AVIF screen and grain maps (avif_maps_phase, as phase 39): (a) the
+     committed GRAIN_SKY (PIL's save of the WebP sky's samples with
+     denoise-noise-level 20: libaom's noise model as film grain, which
+     the decoder applies) and SCREEN_GROUND (PIL's defaults on a 1024x512
+     flat-colour checker with labels: allow_screen_content_tools and
+     allow_intrabc, palette and intra block copy blocks) decoded once
+     each, held to images.json's hashes, host seconds and us per pixel
+     printed, the sky under AVIF_SKY_BAR_S; the sky's grain and the
+     ground's header bits and palette and intra block copy counts, taken
+     from that decode, shown and held to scripts/avif_maps.py's
+     TOOLS_ON; (b) phase 32's file with
+     them as the infinite light's map and the ground's imagemap, rendered
+     by the CLI at 1280x720 spp 1 with the parser's warnings made errors,
+     held through maps_frame as phase 39's frame is.
 Each phase prints its seconds.  The last two lines are the kernels' JSON
 record (with each kernel's bound: bytes read once plus written once over
 3.35 TB/s, against operations over 67 TFLOP/s float32; the device times
@@ -485,6 +500,8 @@ captured call's `bcn_maps_max_abs_err`; `j2k_maps_launches` and
 phase 38's frame; `avif_maps_launches` and `avif_maps_max_abs_err`, the
 same of phase 39's frame; `avif_tools_maps_launches` and
 `avif_tools_maps_max_abs_err`, the same of phase 40's frame;
+`avif_screen_grain_maps_launches` and `avif_screen_grain_maps_max_abs_err`,
+the same of phase 41's frame;
 `more_image_writers_max_abs_err`, phase 36's largest read-back |diff| of
 a lossless file, no kernel's) and the result JSON.
 """
@@ -4899,7 +4916,8 @@ def phase_read_formats(card):
     import pil_only_formats as pof
     import time_image_decode as tid
 
-    avif_small = avif_maps.AVIF_SMALL + avif_maps.TOOL_SMALL
+    avif_small = (avif_maps.AVIF_SMALL + avif_maps.TOOL_SMALL
+                  + avif_maps.SCREEN_SMALL)
     n_records = (len(mrf.fixture_records()) + len(pof.fixture_records())
                  + len(avif_small))
     rows = (mrf.decode_fixtures() + pof.decode_fixtures()
@@ -4966,10 +4984,11 @@ AVIF_SKY_BAR_S = 10.0     # host seconds a 2048x1024 AVIF sky may take
 
 
 def avif_maps_phase(what, maps, dev, keep, uniform_mean, card):
-    """Phases 39 and 40: (a) the committed AVIF sky and ground (maps: the
+    """Phases 39-41: (a) the committed AVIF sky and ground (maps: the
     names of scripts/avif_maps.py's constants that hold their file names)
     decoded once each, held to images.json's hashes, the sky under
-    AVIF_SKY_BAR_S; (b) their frame through maps_frame.  Returns the
+    AVIF_SKY_BAR_S, the decode's header bits and block counts printed and
+    held to avif_maps.TOOLS_ON; (b) their frame through maps_frame.  Returns the
     frame's march launches and its captured call's max |diff|."""
     from acceleratedvolrenderer_tpu_torch import native
 
@@ -4988,15 +5007,25 @@ def avif_maps_phase(what, maps, dev, keep, uniform_mean, card):
     records = avif_maps.fixture_records()
     bad = []
     for name in (sky, ground):
-        data, px, secs = avif_maps.decode(name)
+        with avif_maps.av1_counts() as c:
+            data, px, secs = avif_maps.decode(name)
         ok = avif_maps.held(name, data, px, records[name])
         print(f"{what} (a): {name} {px.shape[1]}x{px.shape[0]}: "
               f"{len(data)} bytes, decode {secs:.3f} s "
               f"({1e6 * secs / (px.shape[0] * px.shape[1]):.3f} us/pixel); "
               f"bytes and samples {'at' if ok else 'NOT at'} images.json's "
               "hashes (PIL's)", flush=True)
+        print(f"{what} (a): {name}'s AV1 frames: film grain {c['grain']}, "
+              f"allow_screen_content_tools {c['screen']}, allow_intrabc "
+              f"{c['intrabc']}; blocks: palette {c['palette_blocks']} "
+              f"({c['palette_uv_blocks']} in chroma), intra block copy "
+              f"{c['intrabc_blocks']}, delta q {c['delta_q_blocks']}, "
+              f"CDEF {c['cdef_blocks']}", flush=True)
         if not ok:
             bad.append(name)
+        off = [k for k in avif_maps.TOOLS_ON.get(name, ()) if not c[k]]
+        if off:
+            bad.append(f"{name} with no {off}")
         if name == sky and secs >= AVIF_SKY_BAR_S:
             bad.append(f"{name} in {secs:.2f} s (bar {AVIF_SKY_BAR_S} s)")
     if bad:
@@ -5024,6 +5053,14 @@ def phase_avif_tools_maps(dev, keep, uniform_mean, card):
     file."""
     return avif_maps_phase("AVIF tools maps", ("TOOLS_SKY", "TOOLS_GROUND"),
                            dev, keep, uniform_mean, card)
+
+
+def phase_avif_screen_grain_maps(dev, keep, uniform_mean, card):
+    """Phase 41 (see the module docstring); keep holds phase 32's medium
+    file."""
+    return avif_maps_phase("AVIF screen and grain maps",
+                           ("GRAIN_SKY", "SCREEN_GROUND"), dev, keep,
+                           uniform_mean, card)
 
 
 def timed(name, fn, *args):
@@ -5233,6 +5270,10 @@ def main():
          march_rec["avif_tools_maps_max_abs_err"]) = timed(
             "AVIF tools maps", phase_avif_tools_maps, dev, keep.name,
             uniform_mean, card)
+        (march_rec["avif_screen_grain_maps_launches"],
+         march_rec["avif_screen_grain_maps_max_abs_err"]) = timed(
+            "AVIF screen and grain maps", phase_avif_screen_grain_maps, dev,
+            keep.name, uniform_mean, card)
         parent_end = time.time()
         keep.cleanup()
         side_out = timed("side process", side.finish)

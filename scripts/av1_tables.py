@@ -231,6 +231,69 @@ def build(lib) -> dict:
     # the delta q CDF (Default_Delta_Q_Cdf)
     t["delta_q"] = aom_cdfs(lib, 0x4427C0, (), 5, 4)
     _spec_probe(t["delta_q"], (), [28160, 32120, 32677])
+    # --- screen content (palette, intra block copy) and its inter syntax
+    t["palette_y_mode"] = aom_cdfs(lib, 0x444EC0, (7, 3), 3, 2)
+    _spec_probe(t["palette_y_mode"], (0, 0), [31676])
+    _spec_probe(t["palette_y_mode"], (6, 1), [7946])
+    t["palette_uv_mode"] = dav1d_cdfs(lib, 0x47941C, (2,), 2, 2)
+    _spec_probe(t["palette_uv_mode"], (0,), [32461])
+    _spec_probe(t["palette_uv_mode"], (1,), [21488])
+    t["palette_y_size"] = aom_cdfs(lib, 0x445840, (7,), 8, 7)
+    _spec_probe(t["palette_y_size"], (0,), [7952, 13000, 18149, 21478])
+    t["palette_uv_size"] = aom_cdfs(lib, 0x4457C0, (7,), 8, 7)
+    _spec_probe(t["palette_uv_size"], (0,), [8713, 19979, 27128, 29609])
+    # the colour index CDFs of palettes of 2-8 colours (n symbols each in
+    # a 9-wide row), by the 5 colour contexts
+    for plane, off, probe in (("y", 0x445540, 28710), ("uv", 0x4452C0,
+                                                        29089)):
+        a = lib.arr(off, np.uint16, (7, 5, 9))
+        for n in range(2, 9):
+            for ctx in range(5):
+                _check_cdf(a[n - 2, ctx][:n + 1], n,
+                           f"palette {plane} colour {n} {ctx}")
+                if a[n - 2, ctx][n + 1:].any():
+                    raise SystemExit(f"av1_tables: palette {plane} {n}")
+        _spec_probe(a, (0, 0), [probe])
+        _spec_probe(a, (0, 1), [16384])
+        t[f"palette_{plane}_color"] = a
+    t["intrabc"] = dav1d_cdfs(lib, 0x479424, (), 2, 2)
+    _spec_probe(t["intrabc"], (), [30531])
+    t["txfm_split"] = aom_cdfs(lib, 0x444D40, (21,), 3, 2)
+    _spec_probe(t["txfm_split"], (0,), [28581])
+    _spec_probe(t["txfm_split"], (20,), [16088])
+    # inter transform types (libaom's av1_default_inter_ext_tx_cdf, sets
+    # 1-3 by the square size): 16, 12 and 2 symbols
+    for k, n in ((1, 16), (2, 12), (3, 2)):
+        t[f"inter_tx_set{k}"] = aom_cdfs(lib, 0x442860 + k * 4 * 17 * 2,
+                                         (4,), 17, n)
+    _spec_probe(t["inter_tx_set1"], (0,), [4458, 5560, 7695, 9709])
+    _spec_probe(t["inter_tx_set3"], (1,), [4167])
+    # motion vectors (libaom's default_nmv_context: the joint, then per
+    # component the classes, class0_fp, fp, sign, class0_hp, hp, class0
+    # and the bits; intra block copy reads no fractional bits)
+    t["mv_joint"] = aom_cdfs(lib, 0x458400, (), 5, 4)
+    _spec_probe(t["mv_joint"], (), [4096, 11264, 19328])
+    comp = [0x45840A + c * 138 for c in range(2)]
+    t["mv_class"] = np.stack([aom_cdfs(lib, o, (), 12, 11) for o in comp])
+    _spec_probe(t["mv_class"], (1,), [28672, 30976, 31858, 32320])
+    t["mv_sign"] = np.stack([aom_cdfs(lib, o + 54, (), 3, 2) for o in comp])
+    _spec_probe(t["mv_sign"], (0,), [16384])
+    t["mv_class0_bit"] = np.stack([aom_cdfs(lib, o + 72, (), 3, 2)
+                                   for o in comp])
+    _spec_probe(t["mv_class0_bit"], (1,), [27648])
+    t["mv_bit"] = np.stack([aom_cdfs(lib, o + 78, (10,), 3, 2)
+                            for o in comp])
+    for i, p in enumerate((136, 140, 148, 160, 176, 192, 224, 234, 234,
+                           240)):
+        _spec_probe(t["mv_bit"], (1, i), [128 * p])
+    # film grain: the specification's Gaussian_Sequence (2048 entries,
+    # multiples of 4 within +-2048)
+    gauss = lib.arr(0x46F9C0, np.int16, (2048,))
+    if (gauss[:8].tolist() != [56, 568, -180, 172, 124, -84, 172, -64]
+            or (gauss % 4).any() or np.abs(gauss).max() >= 2048
+            or abs(int(gauss.astype(np.int64).sum())) > 2048 * 16):
+        raise SystemExit("av1_tables: Gaussian_Sequence")
+    t["gaussian_sequence"] = gauss
     # scans of every coded size: the library holds each (its raster or
     # its transpose) among its copies
     sizes = [(4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16),
@@ -252,7 +315,8 @@ def render(t: dict) -> str:
     lines = ["// Generated by scripts/av1_tables.py: the AV1 intra decoder's",
              "// tables (default CDFs as 32768 - cdf, a 0 and a counter per",
              "// CDF; quantizer lookups and matrices; prediction and filter",
-             "// constants; scan orders).  Do not edit.",
+             "// constants; film grain's Gaussian sequence; scan orders).",
+             "// Do not edit.",
              "#pragma once", "#include <cstdint>", ""]
     for name, a in t.items():
         a = np.asarray(a)

@@ -14,7 +14,16 @@ held to images.json's hashes of PIL's decode.
   - TOOL_FILES, the tools common encoders use: phase 40's grid sky of
     two 1024x1024 tiles with CDEF, quantizer matrices and delta q
     (TOOLS_SKY) and 4:2:2 BT.709 ground with CDEF (TOOLS_GROUND), and
-    eight 128x96 crops of one tool each (TOOL_SMALL, phase 37).
+    eight 128x96 crops of one tool each (TOOL_SMALL, phase 37);
+  - SCREEN_FILES, film grain and the screen content tools PIL's default
+    save turns on for few-colour images: phase 41's sky (the WebP sky's
+    samples with denoise-noise-level, whose noise model libaom solves
+    into film grain: GRAIN_SKY) and ground (a flat-colour checker with
+    labels, palette and intra block copy: SCREEN_GROUND), and four crops
+    (SCREEN_SMALL, phase 37): a palette, intra block copy (384x96: in a
+    frame 128 wide no block has a valid DV, as libaom keeps a DV 256
+    pixels behind in 64x64 superblock order), a binary cut-out alpha and
+    a film grain test vector.
 
 scripts/make_image_fixtures.py --avif writes them (make_files) and their
 records; tests/test_torch_image_formats_avif.py and
@@ -25,6 +34,8 @@ tests/test_torch_image_formats_avif_tools.py hold them to PIL.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import hashlib
 import io
 import json
@@ -91,6 +102,62 @@ TOOL_FILES = {
 TOOL_SMALL = tuple(n for n in TOOL_FILES if n not in (TOOLS_SKY,
                                                        TOOLS_GROUND))
 
+# Film grain and screen content (chip_smoke.py phase 41 and its crops):
+# name: (source, recipe) as TOOL_FILES'.  "labels" is labels(512, 1024),
+# "labels_crop" its first 128x96, "labels_strip" labels(96, 384, 16),
+# "cutout" the ground's crop with cutout()'s binary alpha.
+GRAIN_SKY = "sky_2048x1024_grain.avif"
+SCREEN_GROUND = "ground_1024x512_screen.avif"
+SCREEN_FILES = {
+    GRAIN_SKY: ("sky", {"pil_save": {"advanced": {
+        "denoise-noise-level": "20"}}}),
+    SCREEN_GROUND: ("labels", {"pil_save": {}}),
+    "ground_128x96_palette.avif": ("labels_crop", {"pil_save": {}}),
+    "ground_384x96_intrabc.avif": ("labels_strip", {"pil_save": {}}),
+    "ground_128x96_cutout.avif": ("cutout", {"pil_save": {}}),
+    "ground_128x96_grain.avif": ("crop", {"pil_save": {"advanced": {
+        "film-grain-test": "1"}}}),
+}
+SCREEN_SMALL = tuple(n for n in SCREEN_FILES if n not in (GRAIN_SKY,
+                                                           SCREEN_GROUND))
+
+# a 3x5 pixel font of the digits, row by row
+FONT = {"0": "111101101101111", "1": "010110010010111",
+        "2": "111001111100111", "3": "111001111001111",
+        "4": "101101111001001", "5": "111100111001111",
+        "6": "111100111101111", "7": "111001010010010",
+        "8": "111101111101111", "9": "111101111001111"}
+LABEL_COLOURS = ((178, 152, 112), (120, 140, 84), (150, 96, 70),
+                 (196, 188, 160))
+LABEL_INK = (40, 36, 30)
+
+
+def labels(h, w, tile=48):
+    """A ground texture of flat colours: tiles of four colours, each
+    labelled in dark ink with its row and column (digits of the 3x5
+    font drawn at twice its size), uint8 (h, w, 3)."""
+    colours = np.array(LABEL_COLOURS, np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    px = colours[(yy // tile + 2 * (xx // tile)) % 4]
+    for r in range((h + tile - 1) // tile):
+        for c in range((w + tile - 1) // tile):
+            for k, ch in enumerate(f"{r}{c:02d}"):
+                glyph = np.kron(np.array([int(b) for b in FONT[ch]], bool)
+                                .reshape(5, 3), np.ones((2, 2), bool))
+                ys, xs = np.nonzero(glyph)
+                ys, xs = ys + r * tile + 6, xs + c * tile + 6 + 8 * k
+                ok = (ys < h) & (xs < w)
+                px[ys[ok], xs[ok]] = LABEL_INK
+    return px
+
+
+def cutout(h, w):
+    """A binary cut-out alpha, as a foliage texture has: an ellipse
+    opaque (255) in a transparent (0) field."""
+    y, x = np.mgrid[:h, :w]
+    inside = ((y - h / 2) / (0.42 * h)) ** 2 + ((x - w / 2) / (0.43 * w)) ** 2
+    return np.where(inside < 1, 255, 0).astype(np.uint8)
+
 
 def alpha(h, w):
     """The RGBA fixture's alpha: a ramp with a transparent and an opaque
@@ -105,10 +172,15 @@ def alpha(h, w):
 def sources(sky_px, ground_px):
     w, h = CROP
     crop = np.ascontiguousarray(ground_px[:h, :w, :3])
+    ground_labels = labels(512, 1024)
     return {"sky": sky_px[..., :3], "ground": ground_px[..., :3],
             "crop": crop,
             "crop128": np.ascontiguousarray(ground_px[:w, :w, :3]),
-            "rgba": np.concatenate([crop, alpha(h, w)[..., None]], -1)}
+            "rgba": np.concatenate([crop, alpha(h, w)[..., None]], -1),
+            "labels": ground_labels,
+            "labels_crop": np.ascontiguousarray(ground_labels[:h, :w]),
+            "labels_strip": labels(h, 3 * w, 16),
+            "cutout": np.concatenate([crop, cutout(h, w)[..., None]], -1)}
 
 
 def pil_file(px, **kw):
@@ -167,6 +239,8 @@ def recipe(name):
     for TOOL_FILES what the script did to PIL's file."""
     if name in AVIF_FILES:
         return {"pil_save": AVIF_FILES[name][1]}
+    if name in SCREEN_FILES:
+        return SCREEN_FILES[name][1]
     return TOOL_FILES[name][1]
 
 
@@ -176,7 +250,7 @@ def make_files(sky_px, ground_px):
     out = {}
     for name, (which, kw) in AVIF_FILES.items():
         out[name] = pil_file(src[which], **kw)
-    for name, (which, rec) in TOOL_FILES.items():
+    for name, (which, rec) in {**TOOL_FILES, **SCREEN_FILES}.items():
         out[name] = tool_file(src[which], rec)
     return out
 
@@ -348,11 +422,43 @@ def av1_seconds(name):
     return time.perf_counter() - t
 
 
+# what phase 41's maps must decode with: the av1_counts() totals that
+# must not be 0
+TOOLS_ON = {GRAIN_SKY: ("grain",),
+            SCREEN_GROUND: ("screen", "intrabc", "palette_blocks",
+                            "intrabc_blocks")}
+
+
+@contextlib.contextmanager
+def av1_counts():
+    """Totals over the AV1 frames decoded inside the with block:
+    native.av1_decode's stats, and the number of frames whose header
+    allows the screen content tools (screen) or intra block copy
+    (intrabc) or applies film grain (grain)."""
+    from acceleratedvolrenderer_tpu_torch import native
+
+    plain, totals = native.av1_decode, collections.Counter()
+
+    def counted(data, seq, frame, tiles, stats=None):
+        stats = {} if stats is None else stats
+        planes = plain(data, seq, frame, tiles, stats)
+        totals.update(stats, screen=frame["screen"],
+                      intrabc=frame["intrabc"],
+                      grain=int(frame["grain"] is not None))
+        return planes
+
+    native.av1_decode = counted
+    try:
+        yield totals
+    finally:
+        native.av1_decode = plain
+
+
 def main():
     import time_image_decode as tid
 
     print(f"host CPU: {tid.cpu_line()}")
-    names = tuple(AVIF_FILES) + tuple(TOOL_FILES)
+    names = tuple(AVIF_FILES) + tuple(TOOL_FILES) + tuple(SCREEN_FILES)
     for name, secs, shape, ok in decode_fixtures(names):
         print(f"{name}: {tuple(shape)} decoded in {secs:.4f} s (the AV1 "
               f"stage {av1_seconds(name):.4f} s), "

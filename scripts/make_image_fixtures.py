@@ -83,7 +83,8 @@ AVIF writer on the WebP fixtures' decoded samples (phase 40's composed
 into a grid, given another matrix or saved as a sequence by the
 script), recorded with `read_by` (utils/avif.py), `pil_save` (the save
 parameters) and what the script did (`grid`, `nclx_matrix`, `frames`),
-the SHA-256 of its bytes and of PIL's samples and the shape.  With
+the SHA-256 of its bytes and of PIL's samples and the shape; phase
+41's grain sky and screen content ground and four crops likewise.  With
 --avif it writes only these and merges their records into the existing
 images.json:
 

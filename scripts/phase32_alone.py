@@ -5,8 +5,8 @@ frame's mean against phase 32's uniform sky's), 35 (JPEG 2000 maps,
 which reuses the medium file and the mean), 36 (more image writers,
 which converts phase 35's frame), 38 (PIL-only maps, which reuses the
 medium file, the ground samples and the mean), 39 (AVIF maps, which
-reuses the medium file and the mean) and 40 (AVIF tools maps, as 39)
-alone on the CUDA
+reuses the medium file and the mean), 40 (AVIF tools maps, as 39) and
+41 (AVIF screen and grain maps, as 39) alone on the CUDA
 card, with the phases they need: 8 (the 1280x720 cloud over the 256^3
 grid), 14 (its wave frame) and 28 (the grid through a .nvdb and
 nanovdb2pbrt into the block phase 32 Includes, and the CLI's frame
@@ -16,7 +16,7 @@ the AVIF crops, which the full script runs in its side process).
 
     python3 scripts/phase32_alone.py [--frame-out PATH] [--maps-only]
 
---maps-only skips phases 33-38 and runs 39 and 40 (and 37) after 32.
+--maps-only skips phases 33-38 and runs 39-41 (and 37) after 32.
 
 --frame-out copies phase 32's map frame (the EXR phase 33 converts) to
 PATH.  Needs one CUDA card; it builds the kernels (nvcc).
@@ -74,6 +74,9 @@ def main():
                        uniform_mean, card))
         print(cs.timed("AVIF tools maps", cs.phase_avif_tools_maps, dev,
                        keep, uniform_mean, card))
+        print(cs.timed("AVIF screen and grain maps",
+                       cs.phase_avif_screen_grain_maps, dev, keep,
+                       uniform_mean, card))
     cs.timed("read formats", cs.phase_read_formats, card)
     return 0
 

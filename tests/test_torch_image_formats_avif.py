@@ -7,15 +7,16 @@ seeded numpy images across its parameters (quality, speed 0-10 and so
 both loop-restoration filters, subsampling, range, tiles, modes, alpha
 premultiplied or not, ICC profile, EXIF orientation, sizes whose blocks
 cross the frame's edge), decode with max |diff| 0.  Files that use a tool
-the port does not read (film grain, palette and intra block copy,
-segmentation, superres, more than 8 bits, non-uniform tiles, block-level
-delta lf, construction method 2, matrices other than BT.601, BT.709 and
-BT.2020) raise a ValueError naming it; read_image equals the JAX
-package's; and no module of the port imports PIL or reads Pillow's
-bundled libraries.  The tools common encoders use (4:2:2, CDEF, quantizer
-matrices, delta q, BT.709 / BT.2020, grids, sequences) are
-test_torch_image_formats_avif_tools.py; the 32x24 frame under an AVIF
-sky over an AVIF ground is test_torch_image_formats_avif_scene.py.
+the port does not read (segmentation, superres, more than 8 bits,
+non-uniform tiles, block-level delta lf, construction method 2, matrices
+other than BT.601, BT.709 and BT.2020) raise a ValueError naming it;
+read_image equals the JAX package's; and no module of the port imports
+PIL or reads Pillow's bundled libraries.  The tools common encoders use
+(4:2:2, CDEF, quantizer matrices, delta q, BT.709 / BT.2020, grids,
+sequences) are test_torch_image_formats_avif_tools.py; palette, intra
+block copy and film grain test_torch_image_formats_avif_screen_grain.py;
+the 32x24 frame under an AVIF sky over an AVIF ground is
+test_torch_image_formats_avif_scene.py.
 """
 import hashlib
 import io
@@ -250,12 +251,6 @@ def _grid_method_2():
 
 # case: (the file, the words of the ValueError)
 REFUSED = {
-    "film_grain": (lambda: _save(Image.fromarray(_image(64, 80)),
-                                 advanced={"film-grain-test": "1"}),
-                   "film grain"),
-    "screen_content": (lambda: _save(Image.fromarray(_image(64, 80)),
-                                     advanced={"tune-content": "screen"}),
-                       "palette, intra block copy"),
     "block_delta_lf": (_delta_lf, "block-level delta lf"),
     "segmentation": (lambda: _flip(_base(), _bits(_base())[1][
         "segmentation_enabled"]), "segmentation"),
@@ -283,7 +278,7 @@ def test_refused_tools_are_named(case, tmp_path):
 def test_pil_reads_the_advanced_files_the_port_refuses():
     """The refusals are of files PIL reads: the port leaves them, it does
     not misread them."""
-    for case in ("film_grain", "screen_content", "matrix_4"):
+    for case in ("matrix_4",):
         assert _pil(REFUSED[case][0]()).shape == (64, 80, 3)
 
 
@@ -313,7 +308,8 @@ def test_committed_fixtures_hashes():
     images.json's records, and the port's decode equal to PIL's."""
     recs = _records()
     assert sorted(recs) == sorted({**avif_maps.AVIF_FILES,
-                                   **avif_maps.TOOL_FILES})
+                                   **avif_maps.TOOL_FILES,
+                                   **avif_maps.SCREEN_FILES})
     for name, rec in recs.items():
         data = (FIXTURES / name).read_bytes()
         assert hashlib.sha256(data).hexdigest() == rec["sha256_of_bytes"]
